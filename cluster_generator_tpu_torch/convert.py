@@ -5,7 +5,9 @@ These helpers turn the JAX package's outputs, handed over as numpy arrays
 (``np.asarray`` of each JAX array), into the port's tensors on a given
 device, keeping each array's dtype (float64 fields, float32 tables) and
 the leading halo axis, so that any stage of the port can start from the
-JAX package's state.
+JAX package's state.  The fields of an Osipkov-Merritt build carry their
+extras (``df_ee_ext``, ``dm_df_ext``, ``star_df_ext``) like any other
+field; a datagen batch output keeps its layout of tuples per species.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 
 from .core.device import resolve_device
 
-__all__ = ["fields_from_numpy", "tables_from_numpy", "to_numpy"]
+__all__ = ["fields_from_numpy", "tables_from_numpy",
+           "datagen_batch_from_numpy", "to_numpy"]
 
 
 def _tensor(a, device):
@@ -23,7 +26,8 @@ def _tensor(a, device):
 
 
 def fields_from_numpy(fields: dict, device="cuda") -> dict:
-    """``build_merger_models`` fields (name -> (H, n) array) as tensors."""
+    """``build_merger_models`` fields (name -> (H, n) array, the OM extras
+    on their longer grid included) as tensors."""
     dev = resolve_device(device)
     return {k: _tensor(v, dev) for k, v in fields.items()}
 
@@ -37,8 +41,21 @@ def tables_from_numpy(tables: dict, device="cuda") -> dict:
             for k, v in tables.items()}
 
 
+def datagen_batch_from_numpy(batch_out, device="cuda"):
+    """A datagen batch output as tensors: ``{"dm": (pos, vel, pmass),
+    "star": (...), "gas": (pos, energy, pmass)}`` with a leading batch
+    axis, or the bare DM tuple of the int-count product."""
+    dev = resolve_device(device)
+    if isinstance(batch_out, dict):
+        return {sp: datagen_batch_from_numpy(v, dev)
+                for sp, v in batch_out.items()}
+    return tuple(_tensor(a, dev) for a in batch_out)
+
+
 def to_numpy(tree):
-    """A (nested) dict of tensors as numpy arrays on the host."""
+    """A (nested) dict or tuple of tensors as numpy arrays on the host."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()

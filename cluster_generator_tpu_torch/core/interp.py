@@ -17,7 +17,7 @@ import torch
 
 __all__ = ["CubicSpline", "cubic_spline", "spline_eval",
            "spline_eval_uniform", "interp", "bracket_indices",
-           "interp_monotone"]
+           "interp_monotone", "loguniform_lerp"]
 
 
 class CubicSpline(NamedTuple):
@@ -212,4 +212,25 @@ def interp_monotone(xq, x, y):
     w = torch.where(pos, (xq - x0) / torch.where(pos, dx, torch.ones_like(dx)),
                     torch.zeros_like(dx))
     w = torch.clamp(w, 0.0, 1.0)
+    return (1.0 - w) * _gather(y, j) + w * _gather(y, j + 1)
+
+
+def loguniform_lerp(xq, x, y):
+    """``y`` at ``xq`` on an exactly log-uniform ascending grid ``x`` (last
+    axis, leading batch axes shared with ``xq``): the bracketing interval
+    is computed from ``log(xq)``, not searched, and the lerp weight is
+    linear in x (``np.interp`` semantics).  Works in ``y``'s dtype.  This
+    is how a field is evaluated at DRAWN radii; queries are clamped to the
+    grid."""
+    n = x.shape[-1]
+    dt = y.dtype
+    x = x.to(dt)
+    xq = xq.to(dt)
+    lg0 = torch.log(x[..., :1])
+    dlg = (torch.log(x[..., -1:]) - lg0) / (n - 1)
+    t = torch.clamp((torch.log(xq) - lg0) / dlg, 0.0, n - 1 - 1e-6)
+    # integer clamp too: the 1e-6 margin is below the float32 ulp at n - 1
+    j = torch.clamp_max(t.to(torch.int64), n - 2)
+    x0, x1 = _gather(x, j), _gather(x, j + 1)
+    w = torch.clamp((xq - x0) / (x1 - x0), 0.0, 1.0)
     return (1.0 - w) * _gather(y, j) + w * _gather(y, j + 1)

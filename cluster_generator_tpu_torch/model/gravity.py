@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from ..core import constants as C
 
-__all__ = ["newtonian_field", "field_for_law"]
+__all__ = ["newtonian_field", "get_gravity", "field_for_law"]
 
 
 def newtonian_field(rr, m_tot, params=None):
@@ -19,12 +19,16 @@ def newtonian_field(rr, m_tot, params=None):
 _LAWS = {"newtonian": newtonian_field}
 
 
-def field_for_law(rr, m_tot, gravity="newtonian", phi=None, params=None):
-    """Matter mass profile -> field per the named law."""
+def get_gravity(name: str):
+    """The field function of the named law; an unported name raises."""
     try:
-        law = _LAWS[gravity]
+        return _LAWS[name]
     except KeyError:
         raise NotImplementedError(
-            f"gravity law {gravity!r} is not ported; "
+            f"gravity law {name!r} is not ported; "
             f"available: {sorted(_LAWS)}") from None
-    return law(rr, m_tot, params)
+
+
+def field_for_law(rr, m_tot, gravity="newtonian", phi=None, params=None):
+    """Matter mass profile -> field per the named law."""
+    return get_gravity(gravity)(rr, m_tot, params)

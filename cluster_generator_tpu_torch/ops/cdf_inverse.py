@@ -11,22 +11,32 @@ masked-sum formula written literally in torch.  The source note in the
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 __all__ = ["invert_cdf_rows", "invert_cdf_rows_plain", "MAX_N_S"]
 
-# one row of float32 in the kernel's 48 KB of default shared memory
-MAX_N_S = 48 * 1024 // 4
+# The kernel keeps two input rows and one output row of a team in shared
+# memory, and a block may opt in to 227 KB of it on the card:
+# 2 n_s + n_q floats (each rounded up to a multiple of 4) must fit.
+_SMEM_FLOATS = 232448 // 4
+MAX_N_S = (_SMEM_FLOATS - 4) // 2
 
 # elements of one (rows, n_q, n_s) chunk of the plain version's mask
 _PLAIN_CHUNK = 1 << 22
 
 
+@functools.lru_cache(maxsize=64)
 def _steps(n_s: int, n_q: int):
     """ds = 1/(n_s-1) and dq = 1/(n_q-1), rounded to float32 once."""
-    return (float(torch.tensor(1.0 / (n_s - 1), dtype=torch.float32)),
-            float(torch.tensor(1.0 / (n_q - 1), dtype=torch.float32)))
+    return (float(np.float32(1.0 / (n_s - 1))),
+            float(np.float32(1.0 / (n_q - 1))))
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
 
 
 def _check(cdf: torch.Tensor, n_q: int) -> None:
@@ -41,6 +51,10 @@ def _check(cdf: torch.Tensor, n_q: int) -> None:
         raise ValueError(f"n_s must be in [2, {MAX_N_S}], got {cdf.shape[1]}")
     if n_q < 2:
         raise ValueError(f"n_q must be >= 2, got {n_q}")
+    if 2 * _pad4(cdf.shape[1]) + _pad4(n_q) > _SMEM_FLOATS:
+        raise ValueError(
+            f"2 n_s + n_q must be <= {_SMEM_FLOATS} (shared memory of one "
+            f"block), got n_s={cdf.shape[1]}, n_q={n_q}")
     if not cdf.is_contiguous():
         raise ValueError("cdf must be contiguous")
 
@@ -75,22 +89,32 @@ def invert_cdf_rows_plain(cdf: torch.Tensor, n_q: int) -> torch.Tensor:
     return out
 
 
-def _launch(cdf: torch.Tensor, n_q: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The kernel's C entry point, built and bound once."""
     from .build import load_library
 
-    lib = load_library("invert_cdf_rows")
-    fn = lib.cg_invert_cdf_rows
+    fn = load_library("invert_cdf_rows").cg_invert_cdf_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(cdf: torch.Tensor, n_q: int) -> torch.Tensor:
+    fn = _kernel()
     n_rows, n_s = cdf.shape
     ds, dq = _steps(n_s, n_q)
     out = torch.empty((n_rows, n_q), dtype=torch.float32, device=cdf.device)
-    with torch.cuda.device(cdf.device):
-        stream = torch.cuda.current_stream(cdf.device).cuda_stream
+    # the C function launches on the current device
+    if cdf.device.index == torch.cuda.current_device():
         err = fn(cdf.data_ptr(), out.data_ptr(), n_rows, n_s, n_q, ds, dq,
-                 stream)
+                 torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(cdf.device):
+            err = fn(cdf.data_ptr(), out.data_ptr(), n_rows, n_s, n_q, ds,
+                     dq, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"invert_cdf_rows kernel launch failed: "
                            f"cudaError_t {err}")

@@ -26,11 +26,12 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .core.draws import isotropic, uniform
 from .core.grid import linspace
 from .core.interp import interp, interp_monotone
 from .parallel.ensemble import build_one_cluster
-from .virial import (_banded_row_lerp, compute_df, speed_inverse_cdf_table,
-                     speed_table_defaults)
+from .virial import (_banded_row_lerp, compute_df, om_extended_df,
+                     speed_inverse_cdf_table, speed_table_defaults)
 
 __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
            "build_radius_tables", "sample_merger_ic", "merger_ic_fused",
@@ -49,20 +50,39 @@ def build_merger_models(M200, conc, z=0.1, num_points=1000,
                         with_star_df=True, r_a=None, gravity="newtonian",
                         device="cuda"):
     """Equilibrium fields plus DM (``dm_df``) and stellar (``star_df``) DFs
-    for each halo: every field is (H, num_points) float64.  Ergodic only
-    (``r_a=None``)."""
-    if r_a is not None:
-        raise NotImplementedError("Osipkov-Merritt anisotropy (r_a) is not "
-                                  "ported yet")
+    for each halo: every field is (H, num_points) float64.
+
+    ``r_a``: Osipkov-Merritt anisotropy radius (kpc).  The DFs become f(Q)
+    of the AUGMENTED density rho_Q = (1 + r^2/r_a^2) rho, inverted on the
+    power-law-extended energy grid (:func:`~.virial.om_extended_df`); the
+    extended grid and DFs come back as ``df_ee_ext``, ``dm_df_ext`` and
+    ``star_df_ext`` (H, 192 + num_points), which
+    :func:`build_speed_tables` uses.  ``None``: ergodic."""
+    if r_a is not None and not float(r_a) > 0.0:
+        raise ValueError(f"r_a must be positive (got {r_a!r}); None gives "
+                         "the isotropic model")
     dev = resolve_device(device)
     M200 = _f64(M200, dev)
     conc = _f64(conc, dev)
     fields = build_one_cluster(M200, conc, z=z, num_points=num_points,
-                               with_df=True, gravity=gravity)
+                               with_df=(r_a is None), gravity=gravity)
+    ee = -torch.flip(fields["gravitational_potential"], (-1,))
+    n = ee.shape[-1]
+    aug = 1.0 if r_a is None else 1.0 + (fields["radius"] / r_a) ** 2
+    if r_a is not None:
+        ee_ext, dm_ext = om_extended_df(
+            ee, torch.flip(fields["dark_matter_density"] * aug, (-1,)))
+        fields["df_ee_ext"] = ee_ext
+        fields["dm_df_ext"] = dm_ext
+        fields["dm_df"] = torch.flip(dm_ext[..., -n:], (-1,))
     if with_star_df:
-        ee = -torch.flip(fields["gravitational_potential"], (-1,))
-        sden = torch.flip(fields["stellar_density"], (-1,))
-        fields["star_df"] = torch.flip(compute_df(ee, sden), (-1,))
+        sden = torch.flip(fields["stellar_density"] * aug, (-1,))
+        if r_a is None:
+            fields["star_df"] = torch.flip(compute_df(ee, sden), (-1,))
+        else:
+            _, st_ext = om_extended_df(ee, sden)
+            fields["star_df_ext"] = st_ext
+            fields["star_df"] = torch.flip(st_ext[..., -n:], (-1,))
     return fields
 
 
@@ -93,10 +113,18 @@ def speed_table_inputs(fields, n_rows=256, star_n_rows=64):
         psi = torch.flip(ee, (-1,))
         return torch.flip(interp(r_rows, rr, psi), (-1,))
 
-    return {"dm": dict(kw, ee=ee, f_vals=torch.flip(fields["dm_df"], (-1,)),
+    if "df_ee_ext" in fields:
+        # OM: f(Q) is splined over the extended grid (rows near r_max
+        # query E below the model grid's lowest energy)
+        sp_ee = fields["df_ee_ext"]
+        f_dm, f_star = fields["dm_df_ext"], fields["star_df_ext"]
+    else:
+        sp_ee = ee
+        f_dm = torch.flip(fields["dm_df"], (-1,))
+        f_star = torch.flip(fields["star_df"], (-1,))
+    return {"dm": dict(kw, ee=sp_ee, f_vals=f_dm,
                        row_ee=row_energies(n_rows)),
-            "star": dict(kw_star, ee=ee,
-                         f_vals=torch.flip(fields["star_df"], (-1,)),
+            "star": dict(kw_star, ee=sp_ee, f_vals=f_star,
                          row_ee=row_energies(star_rows))}
 
 
@@ -158,27 +186,6 @@ def _table_lerp(table, u):
     return (1.0 - w) * table[j] + w * table[j + 1]
 
 
-def _uniform(gen, n, dtype, device, lo=0.0, hi=1.0):
-    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
-    if (lo, hi) != (0.0, 1.0):
-        u = u * (hi - lo) + lo
-    return u
-
-
-def _isotropic(n, dtype, device, gen=None, uniforms=None):
-    """Unit vectors (n, 3) uniform on the sphere; ``uniforms`` is
-    ``(cos_theta in [-1, 1), u_phi in [0, 1))``."""
-    if uniforms is None:
-        cos_t = _uniform(gen, n, dtype, device, -1.0, 1.0)
-        u_phi = _uniform(gen, n, dtype, device)
-    else:
-        cos_t, u_phi = uniforms
-    phi = (2.0 * math.pi) * u_phi
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
-                        cos_t], dim=-1)
-
-
 def _build_joint_speed_pairs(fields_h, s_inv, r_q, dtype):
     """The per-psi speed-fraction table folded onto the radius-quantile
     nodes as ABSOLUTE speeds: (RQ, n_q), row k at radius r_q[k], times
@@ -197,20 +204,24 @@ def _build_joint_speed_pairs(fields_h, s_inv, r_q, dtype):
 
 
 def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
-                          dtype, gen=None, uniforms=None):
+                          dtype, gen=None, uniforms=None, r_a=None):
     """Positions, velocities and masses of one halo's DM or stars.
 
     Radius: lerp on the radius-quantile table.  Speed: lerp along the
     quantile axis of the joint absolute-speed table, in one of the two
     rows bracketing the radius, picked by a Bernoulli draw on the radius
-    lerp weight.  ``uniforms``: ``(u_radius, u_speed, u_row,
-    pos_dir, vel_dir)`` with each ``*_dir`` a pair for :func:`_isotropic`.
+    lerp weight.  ``r_a``: the speed tables are then those of the
+    OM-augmented f(Q), isotropic in (v_r, gamma v_t), and the draw maps
+    back by dividing the velocity's tangential components by
+    gamma(r) = sqrt(1 + r^2/r_a^2).  ``uniforms``: ``(u_radius, u_speed,
+    u_row, pos_dir, vel_dir)`` with each ``*_dir`` a pair for
+    :func:`~.core.draws.isotropic`.
     """
     dev = r_q.device
     if uniforms is None:
-        u_r = _uniform(gen, n, dtype, dev)
-        u_q = _uniform(gen, n, dtype, dev)
-        u_b = _uniform(gen, n, dtype, dev)
+        u_r = uniform(gen, n, dtype, dev)
+        u_q = uniform(gen, n, dtype, dev)
+        u_b = uniform(gen, n, dtype, dev)
         pos_dir = vel_dir = None
     else:
         u_r, u_q, u_b, pos_dir, vel_dir = uniforms
@@ -231,9 +242,13 @@ def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
     flat = k_row * n_q + m
     speed = (1.0 - wm) * joint[flat] + wm * joint[flat + 1]
 
-    rhat = _isotropic(n, dtype, dev, gen, pos_dir)
+    rhat = isotropic(n, dtype, dev, gen, pos_dir)
     pos = radius[:, None] * rhat + center.to(dtype)
-    vdir = _isotropic(n, dtype, dev, gen, vel_dir)
+    vdir = isotropic(n, dtype, dev, gen, vel_dir)
+    if r_a is not None:
+        mu = torch.sum(vdir * rhat, dim=1, keepdim=True)
+        gamma = torch.sqrt(1.0 + (radius / r_a) ** 2)
+        vdir = mu * rhat + (vdir - mu * rhat) / gamma[:, None]
     vel = speed[:, None] * vdir + bulk_v.to(dtype)
     pmass = (m_rmax / n).to(dtype).expand(n).contiguous()
     return pos, vel, pmass
@@ -245,12 +260,12 @@ def _sample_gas_halo(fields_h, r_q, m_rmax, n, center, dtype, gen=None,
     ``uniforms``: ``(u_radius, dir)``."""
     dev = r_q.device
     if uniforms is None:
-        u = _uniform(gen, n, dtype, dev)
+        u = uniform(gen, n, dtype, dev)
         direction = None
     else:
         u, direction = uniforms
     radius = _table_lerp(r_q.to(dtype), u)
-    pos = (radius[:, None] * _isotropic(n, dtype, dev, gen, direction)
+    pos = (radius[:, None] * isotropic(n, dtype, dev, gen, direction)
            + center.to(dtype))
     pmass = (m_rmax / n).to(dtype).expand(n).contiguous()
     return pos, pmass
@@ -278,16 +293,35 @@ def _mix_gas(pos, fields, centers, velocities, dtype):
     return dens, eint / dens, mom / dens[:, None]
 
 
+def _potential_at(pos, fields, centers, dtype):
+    """Total gravitational potential at particle positions: the sum of
+    every halo's radial Phi(r), lerped on the log grid's computed index."""
+    phi_t = fields["gravitational_potential"].to(dtype)
+    total = None
+    for i in range(centers.shape[0]):
+        r = torch.sqrt(((pos - centers[i].to(dtype)) ** 2).sum(dim=1))
+        j, w = _log_grid_locate(r, fields["radius"][i], dtype)
+        p = (1.0 - w) * phi_t[i][j] + w * phi_t[i][j + 1]
+        total = p if total is None else total + p
+    return total
+
+
 def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
-                     n_star, dtype=torch.float32, generator=None,
+                     n_star, n_tracer=None, dtype=torch.float32,
+                     compute_potential=False, r_a=None, generator=None,
                      uniforms=None):
     """Draw every particle of an H-halo merger.
 
     ``fields``/``tables`` carry the leading halo axis; ``tables`` holds the
     speed tables ("dm"/"star") and ``tables["radius"]`` from
-    :func:`build_radius_tables`.  ``n_*``: per-halo counts.  ``generator``
-    is a ``torch.Generator`` on the tensors' device.  ``uniforms``
-    (optional) maps ``("gas" | "dm" | "star", halo)`` to that draw's
+    :func:`build_radius_tables`.  ``n_*``: per-halo counts; ``n_tracer``
+    (optional) adds massless tracers at rest that follow the gas
+    distribution.  ``compute_potential`` adds each gas, DM and star
+    particle's total gravitational potential (``"particle_potential"``).
+    ``r_a``: Osipkov-Merritt anisotropy radius; the speed tables must then
+    come from ``build_merger_models(r_a=...)``.  ``generator`` is a
+    ``torch.Generator`` on the tensors' device.  ``uniforms`` (optional)
+    maps ``("gas" | "dm" | "star" | "tracer", halo)`` to that draw's
     pre-drawn uniforms (see :func:`_sample_gas_halo` and
     :func:`_sample_collisionless`).  Returns a dict keyed like the JAX
     package's, e.g. ``("gas", "particle_position")``.
@@ -300,7 +334,10 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
         generator = torch.Generator(device=dev).manual_seed(0)
     uniforms = uniforms or {}
     rtab = tables["radius"]
+    if n_tracer is None:
+        n_tracer = (0,) * H
     out = {}
+    tr_pos = []
     gas_pos, gas_mass = [], []
     dm = ([], [], [])
     st = ([], [], [])
@@ -318,9 +355,14 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
                     f_h, tables[kind][i], rtab[kind][i],
                     rtab[kind + "_mtot"][i], n_k[i], centers[i],
                     velocities[i], dtype, generator,
-                    uniforms.get((kind, i)))
+                    uniforms.get((kind, i)), r_a=r_a)
                 for a, x in zip(acc, res):
                     a.append(x)
+        if n_tracer[i] > 0:
+            p, _ = _sample_gas_halo(f_h, rtab["gas"][i], rtab["gas_mtot"][i],
+                                    n_tracer[i], centers[i], dtype, generator,
+                                    uniforms.get(("tracer", i)))
+            tr_pos.append(p)
 
     if gas_pos:
         gp = torch.cat(gas_pos)
@@ -335,38 +377,54 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
             out[kind, "particle_position"] = torch.cat(acc[0])
             out[kind, "particle_velocity"] = torch.cat(acc[1])
             out[kind, "particle_mass"] = torch.cat(acc[2])
+    if tr_pos:
+        tp = torch.cat(tr_pos)
+        out["tracer", "particle_position"] = tp
+        out["tracer", "particle_velocity"] = torch.zeros_like(tp)
+        out["tracer", "particle_mass"] = torch.zeros(tp.shape[0], dtype=dtype,
+                                                     device=dev)
+    if compute_potential:
+        for sp in ("gas", "dm", "star"):
+            if (sp, "particle_position") in out:
+                out[sp, "particle_potential"] = _potential_at(
+                    out[sp, "particle_position"], fields, centers, dtype)
     return out
 
 
 def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
-                    n_star, z=0.1, num_points=1000, dtype=torch.float32,
-                    generator=None, uniforms=None, device="cuda"):
+                    n_star, n_tracer=None, z=0.1, num_points=1000,
+                    dtype=torch.float32, compute_potential=False, r_a=None,
+                    gravity="newtonian", generator=None, uniforms=None,
+                    device="cuda"):
     """The whole merger IC: models, DFs, tables and every particle draw.
 
-    Returns ``(particles, fields)``.  ``generator``: a ``torch.Generator``
-    on ``device`` (default: one seeded with 0).
+    Returns ``(particles, fields)``.  ``n_tracer``, ``compute_potential``
+    and ``r_a`` as in :func:`sample_merger_ic` and
+    :func:`build_merger_models`.  ``generator``: a ``torch.Generator`` on
+    ``device`` (default: one seeded with 0).
     """
     fields = build_merger_models(M200, conc, z=z, num_points=num_points,
-                                 device=device)
+                                 r_a=r_a, gravity=gravity, device=device)
     tables = build_speed_tables(fields)
     tables["radius"] = build_radius_tables(fields, r_max)
     parts = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                             n_gas, n_dm, n_star, dtype=dtype,
-                             generator=generator, uniforms=uniforms)
+                             n_gas, n_dm, n_star, n_tracer=n_tracer,
+                             dtype=dtype, compute_potential=compute_potential,
+                             r_a=r_a, generator=generator, uniforms=uniforms)
     return parts, fields
 
 
 def binary_merger_ic(M200s, concs, centers, velocities, num_particles,
                      r_max=5000.0, z=0.1, generator=None, num_points=1000,
-                     dtype=torch.float32, device="cuda"):
+                     dtype=torch.float32, r_a=None, device="cuda"):
     """End-to-end binary (or 1-3 halo) merger IC on one device.
 
     ``num_particles``: total counts such as ``{"gas": 5_000_000, "dm":
-    4_000_000, "star": 1_000_000}``, pro-rated per halo by the mass inside
-    ``r_max``.  Returns ``(particles, fields, tables)``.
+    4_000_000, "star": 1_000_000}`` (optionally ``"tracer"``, which
+    follows the gas), pro-rated per halo by the mass inside ``r_max``.
+    ``r_a``: Osipkov-Merritt anisotropy radius.  Returns ``(particles,
+    fields, tables)``.
     """
-    if num_particles.get("tracer"):
-        raise NotImplementedError("tracer particles are not ported yet")
     dev = resolve_device(device)
     M200s = _f64(M200s, dev)
     H = M200s.shape[0]
@@ -379,7 +437,7 @@ def binary_merger_ic(M200s, concs, centers, velocities, num_particles,
         r_max = _f64(r_max, dev)
 
     fields = build_merger_models(M200s, concs, z=z, num_points=num_points,
-                                 device=dev)
+                                 r_a=r_a, device=dev)
     tables = build_speed_tables(fields)
     tables["radius"] = build_radius_tables(fields, r_max)
 
@@ -388,7 +446,7 @@ def binary_merger_ic(M200s, concs, centers, velocities, num_particles,
     rm = r_max.cpu().numpy()
     weights = {}
     for kind, mkey in [("gas", "gas_mass"), ("dm", "dark_matter_mass"),
-                       ("star", "stellar_mass")]:
+                       ("star", "stellar_mass"), ("tracer", "gas_mass")]:
         mm = fields[mkey].cpu().numpy()
         m_at = np.array([np.interp(float(rm[i]), rr[i], mm[i])
                          for i in range(H)])
@@ -401,7 +459,9 @@ def binary_merger_ic(M200s, concs, centers, velocities, num_particles,
             n[-1] = tot - sum(n[:-1])
         return tuple(n)
 
-    particles = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                                 counts("gas"), counts("dm"), counts("star"),
-                                 dtype=dtype, generator=generator)
+    particles = sample_merger_ic(
+        fields, tables, centers, velocities, r_max, counts("gas"),
+        counts("dm"), counts("star"),
+        n_tracer=counts("tracer") if num_particles.get("tracer") else None,
+        dtype=dtype, r_a=r_a, generator=generator)
     return particles, fields, tables

@@ -2,10 +2,18 @@
 
 * :func:`compute_df`: the ergodic DF from the closed-form Abel integral of
   the density spline's derivative (no quadrature).
+* :func:`om_extended_df` / :func:`compute_df_truncated`: the same inversion
+  with a power-law continuation of the density below the grid's lowest
+  binding energy, for Osipkov-Merritt augmented densities;
+  :func:`check_virial_density` reconstructs the density from f(E) in
+  closed form.
 * :func:`speed_inverse_cdf_table`: for each row energy psi, the speed
   fraction s = v / sqrt(2 psi) at uniform quantiles of the CDF
   C(s) ∝ int_0^s u^2 f(psi (1 - u^2)) du.  The inversion runs through
   kernel K1 (:mod:`.ops.cdf_inverse`), one launch for every halo and row.
+* :func:`build_joint_speed_pairs` / :func:`sample_speeds_joint`: that table
+  folded onto radius-quantile nodes as absolute speeds, and the speed draw
+  from it.
 
 All functions work along the last axis with leading batch axes (one per
 halo).
@@ -18,12 +26,16 @@ import math
 import torch
 
 from .core.config import cgparams
+from .core.draws import uniform
 from .core.grid import linspace
-from .core.interp import cubic_spline, spline_eval, spline_eval_uniform
+from .core.interp import (_gather, bracket_indices, cubic_spline,
+                          interp_monotone, spline_eval, spline_eval_uniform)
 from .ops.cdf_inverse import invert_cdf_rows
 
-__all__ = ["compute_df", "speed_cdf_rows", "speed_inverse_cdf_table",
-           "speed_table_defaults"]
+__all__ = ["compute_df", "om_extended_df", "compute_df_truncated",
+           "check_virial_density", "speed_cdf_rows",
+           "speed_inverse_cdf_table", "speed_table_defaults",
+           "build_joint_speed_pairs", "sample_speeds_joint"]
 
 
 def speed_table_defaults():
@@ -93,6 +105,76 @@ def compute_df(ee: torch.Tensor, pden: torch.Tensor):
     g = _abel_g_exact(dens_sp, ee)
     g_sp = cubic_spline(ee, g)
     return spline_eval(g_sp, ee, nu=1) / (math.sqrt(8.0) * math.pi**2)
+
+
+def om_extended_df(ee, pden, n_ext: int = 192, factor: float = 256.0):
+    """Eddington inversion with a power-law continuation of the density
+    BELOW the grid's lowest binding energy; returns the extended grid
+    ``(ee_ext, f_ext)``, each (..., n_ext + N).
+
+    :func:`compute_df` models rho(psi) on [0, ee[0]) by the boundary
+    spline polynomial.  For a density with a non-zero slope at the
+    truncation (the Osipkov-Merritt augmented rho_Q = (1 + r^2/r_a^2) rho)
+    that cubic is a poor model.  This variant prepends ``n_ext`` log-spaced
+    knots on [ee[0]/factor, ee[0]) carrying rho(psi) = rho(ee[0])
+    (psi/ee[0])^m, m the boundary log-log slope from the first two points,
+    and inverts on the extended grid.  Consumers spline f over ``ee_ext``:
+    the speed tables evaluate f at E = psi (1 - s^2) down to E = 0, below
+    ee[0] for every row near r_max, where f may diverge as E^(m - 3/2).
+    """
+    e0, p0 = ee[..., :1], pden[..., :1]
+    mslope = ((torch.log(pden[..., 1:2]) - torch.log(p0))
+              / (torch.log(ee[..., 1:2]) - torch.log(e0)))
+    lin = linspace(-math.log(factor), 0.0, n_ext + 1, dtype=ee.dtype,
+                   device=ee.device)[:-1]
+    psi_ext = e0 * torch.exp(lin)
+    rho_ext = p0 * (psi_ext / e0) ** mslope
+    ee_ext = torch.cat([psi_ext, ee], dim=-1)
+    return ee_ext, compute_df(ee_ext, torch.cat([rho_ext, pden], dim=-1))
+
+
+def compute_df_truncated(ee, pden, n_ext: int = 192, factor: float = 256.0):
+    """f of :func:`om_extended_df` at the ORIGINAL knots (fixed grid
+    length).  Table builders and the virial check use the extended grid."""
+    return om_extended_df(ee, pden, n_ext=n_ext, factor=factor)[1][..., n_ext:]
+
+
+def check_virial_density(ee, f_vals):
+    """rho(psi_i) = 4 pi int_0^psi_i f(E) sqrt(2 (psi_i - E)) dE, exactly.
+
+    With E = psi - u^2 the integrand is a polynomial in u on every spline
+    interval of f (cubic in tau = E - x_k = A - u^2, A = psi - x_k), so
+    each interval has a closed-form antiderivative.  ``(..., N)`` in and
+    out, with an ``(..., N, N)`` temporary.
+    """
+    sp = cubic_spline(ee, f_vals)
+    x = sp.x
+    zero = torch.zeros_like(x[..., :1])
+    lo = torch.cat([zero, x[..., :-1]], dim=-1)[..., None, :]
+    hi = x[..., None, :]
+    xk = torch.cat([x[..., :1], x[..., :-1]], dim=-1)[..., None, :]
+    a = torch.cat([sp.a[..., :1], sp.a], dim=-1)[..., None, :]
+    b = torch.cat([sp.b[..., :1], sp.b], dim=-1)[..., None, :]
+    c = torch.cat([sp.c[..., :1], sp.c], dim=-1)[..., None, :]
+    d = torch.cat([sp.d[..., :1], sp.d], dim=-1)[..., None, :]
+
+    psi = ee[..., :, None]
+    # u decreases as E increases: E = lo -> the larger u
+    u_at_lo = _safe_sqrt(psi - torch.minimum(lo, psi))
+    u_at_hi = _safe_sqrt(psi - torch.minimum(hi, psi))
+    A = psi - xk
+    m0 = a + A * (b + A * (c + A * d))
+    m2 = -(b + A * (2.0 * c + 3.0 * A * d))
+    m4 = c + 3.0 * A * d
+    m6 = -d
+
+    def F(u):
+        u2 = u * u
+        return u2 * u * (m0 / 3.0 + u2 * (m2 / 5.0 + u2 * (m4 / 7.0
+                                                           + u2 * m6 / 9.0)))
+
+    return (8.0 * math.sqrt(2.0) * math.pi
+            * torch.sum(F(u_at_lo) - F(u_at_hi), dim=-1))
 
 
 def speed_cdf_rows(ee, f_vals, n_s: int = 1024, table_dtype=None,
@@ -197,3 +279,53 @@ def _banded_row_lerp(sd, j, w):
     W = (torch.where(k == jj, 1.0 - ww, zero)
          + torch.where(k == jj + 1, ww, zero)).to(sd.dtype)
     return torch.matmul(W, sd)
+
+
+def build_joint_speed_pairs(rr, psi_grid, row_ee, s_inv, r_q,
+                            dtype=torch.float32, psi_q=None):
+    """Joint ABSOLUTE-speed table at radius-quantile nodes: (..., RQ, n_q).
+
+    Folds the (..., n_rows, n_q) inverse speed-fraction table ``s_inv``
+    (rows at the ascending energies ``row_ee``) onto the radius-quantile
+    nodes ``r_q`` and multiplies by v_esc = sqrt(2 psi) there, so a speed
+    draw needs its radius-quantile row and a quantile column and no psi
+    lookup.  Entry ``[k, m]`` and its neighbour ``[k, m + 1]`` are the pair
+    that the JAX package stores as row ``k (n_q - 1) + m`` of its paired
+    table.
+    """
+    if psi_q is None:
+        psi_q = interp_monotone(r_q, rr, psi_grid)
+    j = bracket_indices(row_ee, psi_q)
+    e0, e1 = _gather(row_ee, j), _gather(row_ee, j + 1)
+    w = torch.clamp((psi_q - e0) / (e1 - e0), 0.0, 1.0).to(dtype)
+    srow = _banded_row_lerp(s_inv.to(dtype), j, w)
+    return srow * torch.sqrt(2.0 * psi_q).to(dtype)[..., None]
+
+
+def sample_speeds_joint(joint, kq, wq, generator=None, uniforms=None):
+    """Speed draw from a joint table (..., RQ, n_q) of
+    :func:`build_joint_speed_pairs`.
+
+    ``kq``/``wq``: each particle's radius-quantile index and fractional
+    weight, (..., n).  The table row is picked between the two nodes
+    bracketing the radius by a Bernoulli draw on ``wq``; the speed is the
+    lerp along the quantile axis.  ``uniforms``: ``(u_quantile, u_row)``,
+    else two draws from ``generator``.
+    """
+    dtype = joint.dtype
+    n_q = joint.shape[-1]
+    if uniforms is None:
+        uq = uniform(generator, kq.shape, dtype, joint.device)
+        ub = uniform(generator, kq.shape, dtype, joint.device)
+    else:
+        uq, ub = uniforms
+    qm = torch.clamp(uq * (n_q - 1), 0.0, n_q - 1 - 1e-6)
+    # integer clamp: in float32 the 1e-6 margin is below the ulp at
+    # n_q - 1, so qm can round to n_q - 1 and m + 1 would spill into the
+    # next radius row of the flattened table
+    m = torch.clamp_max(qm.to(torch.int64), n_q - 2)
+    wm = qm - m.to(dtype)
+    k_row = kq + (ub < wq.to(dtype)).to(torch.int64)
+    flat = joint.reshape(joint.shape[:-2] + (-1,))
+    idx = k_row * n_q + m
+    return ((1.0 - wm) * _gather(flat, idx) + wm * _gather(flat, idx + 1))

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time of the port's merger IC goes, on one NVIDIA card.
+"""Where the time of the port's two main paths goes, on one NVIDIA card.
 
-Runs the four stages of ``cluster_generator_tpu_torch.pipeline`` at the
-full 1e7-particle binary-merger workload of ``chip_smoke.py``, warm, under
-``torch.profiler``, one stage at a time, and prints for each stage one JSON
-line: host wall time, number of kernel launches, device busy time (union of
-kernel intervals) and busy share.  Then it prints the repository's own
-kernels and the ten that took the most device time over the whole run.
+``--path merger``: the four stages of ``cluster_generator_tpu_torch.pipeline``
+at the full 1e7-particle binary-merger workload of ``chip_smoke.py``.
+``--path datagen``: the five stages of one ensemble datagen batch
+(``parallel.ensemble._datagen_full_batch_fn``) at ``chip_smoke.py``'s full
+width, 256 clusters of 1e5 particles on a 512-point grid.  Each path runs
+warm, under ``torch.profiler``, one stage at a time, and prints for each
+stage one JSON line: host wall time, number of kernel launches, device busy
+time (union of kernel intervals) and busy share.  Then it prints the
+repository's own kernels and the ten that took the most device time over
+the whole path.  The default runs both paths.
 
-    python3 scripts/profile_torch_merger.py
+    python3 scripts/profile_torch_merger.py [--path merger|datagen|both]
 
 Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -28,8 +32,10 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (CENTERS, CONC, M200, N_DM, N_GAS,  # noqa: E402
-                        N_STAR, R_MAX, VELOCITIES)
+from chip_smoke import (CENTERS, CONC, DATAGEN_BATCH,  # noqa: E402
+                        DATAGEN_COUNTS, DATAGEN_POINTS, DATAGEN_SEED, M200,
+                        N_DM, N_GAS, N_STAR, R_MAX, VELOCITIES,
+                        nvidia_smi_line)
 
 
 def busy_us(events):
@@ -48,21 +54,12 @@ def busy_us(events):
     return total
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_merger: no CUDA device", file=sys.stderr)
-        return 1
+def merger_stages():
     from cluster_generator_tpu_torch import pipeline as P
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = {}
-
-    stages = [
+    return [
         ("models", lambda: state.__setitem__(
             "fields", P.build_merger_models(M200, CONC, device="cuda"))),
         ("speed_tables", lambda: state.__setitem__(
@@ -73,6 +70,30 @@ def main() -> int:
             state["fields"], state["tables"], CENTERS, VELOCITIES, R_MAX,
             N_GAS, N_DM, N_STAR, generator=gen))),
     ]
+
+
+def datagen_stages():
+    from cluster_generator_tpu_torch.parallel import ensemble as E
+
+    gen = torch.Generator(device="cuda").manual_seed(DATAGEN_SEED)
+    M, c = E.sample_ensemble_params(gen, DATAGEN_BATCH)
+    prog = E._datagen_full_batch_fn(DATAGEN_POINTS, DATAGEN_COUNTS["dm"],
+                                    DATAGEN_COUNTS["gas"],
+                                    DATAGEN_COUNTS["star"])
+    state = {}
+    return [
+        ("models", lambda: state.__setitem__("f", prog.models(M, c))),
+        ("dfs", lambda: state.__setitem__("dfs", prog.dfs(state["f"]))),
+        ("speed_tables", lambda: state.__setitem__(
+            "tabs", prog.speed_tables(state["f"], state["dfs"]))),
+        ("joint_tables", lambda: state.__setitem__(
+            "dtabs", prog.draw_tables(state["f"], state["tabs"]))),
+        ("draws", lambda: state.__setitem__(
+            "out", prog.draws(state["f"], state["dtabs"], gen))),
+    ]
+
+
+def profile_path(path, stages, card):
     for _ in range(2):  # warm: kernels built, allocator pools filled
         for _, fn in stages:
             fn()
@@ -91,9 +112,18 @@ def main() -> int:
         busy = busy_us(kern) / 1e3
         total_wall += wall
         all_kernels.extend(kern)
-        print(json.dumps({"stage": name, "wall_ms": wall * 1e3,
+        print(json.dumps({"path": path, "stage": name, "wall_ms": wall * 1e3,
                           "kernel_launches": len(kern), "busy_ms": busy,
                           "busy_share": busy / (wall * 1e3), "card": card}))
+
+    # the same stages unprofiled (the profiler slows the host)
+    plain = {}
+    for name, fn in stages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain[name] = (time.perf_counter() - t0) * 1e3
 
     by_name = {}
     for e in all_kernels:
@@ -104,13 +134,30 @@ def main() -> int:
     # the repository's own kernels, by their device time alone
     own = {n: {"launches": c, "ms": ms} for n, (c, ms) in by_name.items()
            if "invert_cdf_rows" in n}
-    print(json.dumps({"total_wall_ms": total_wall * 1e3,
+    print(json.dumps({"path": path, "total_wall_ms": total_wall * 1e3,
+                      "unprofiled_wall_ms": plain,
                       "kernel_launches": len(all_kernels),
                       "busy_ms": sum(v[1] for v in by_name.values()),
                       "own_kernels": own,
                       "top_kernels": [{"name": n[:90], "launches": c,
                                        "ms": ms} for n, (c, ms) in top],
                       "card": card}))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("merger", "datagen", "both"),
+                    default="both")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_merger: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = nvidia_smi_line()
+    if args.path in ("merger", "both"):
+        profile_path("merger", merger_stages(), card)
+    if args.path in ("datagen", "both"):
+        profile_path("datagen", datagen_stages(), card)
     return 0
 
 

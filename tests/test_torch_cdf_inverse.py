@@ -98,6 +98,54 @@ def test_rows_with_flat_runs_match_pallas():
     assert np.abs(got - pallas).max() < TOL
 
 
+def _edge_rows(name):
+    """The edge rows that the card's check holds the CUDA kernel to
+    (chip_smoke.py), made with numpy: ``(float32 rows, n_q, strictly
+    increasing?)``."""
+    if name.startswith("ties"):
+        # every quantile sits exactly on a CDF value: c_k = k * f32(1/64)
+        row = (np.arange(65, dtype=np.float32) * np.float32(1.0 / 64))[None]
+        return row, (65 if name == "ties_all" else 33), True
+    if name == "first_above_zero":
+        return ((0.25 + 0.75 * _random_rows(6, 256, seed=7))
+                .astype(np.float32), 128, True)
+    if name == "unaligned":  # widths that are no multiple of 4
+        return _random_rows(5, 255, seed=8).astype(np.float32), 101, True
+    if name == "wide":  # beyond 48 KB of float32 per row and result
+        return _random_rows(2, 8192, seed=9).astype(np.float32), 4096, True
+    if name == "equal_runs":
+        row = np.repeat(np.linspace(0.0, 1.0, 16, dtype=np.float32), 4)[None]
+        return row, 61, False
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["ties_all", "ties_every_other",
+                                  "first_above_zero", "unaligned", "wide",
+                                  "equal_runs"])
+def test_edge_rows_match_pallas_and_reference(name):
+    """Runs of equal values, a first value above 0 (the quantiles below it
+    belong to no bin and give 0) and quantiles exactly on a CDF value: the
+    plain version picks the bin the Pallas kernel's masked sum picks."""
+    cdf, n_q, increasing = _edge_rows(name)
+    got = invert_cdf_rows(torch.from_numpy(cdf), n_q=n_q).numpy()
+    pallas = np.asarray(pallas_invert_cdf_rows(jnp.asarray(cdf), n_q=n_q,
+                                               interpret=True))
+    assert got.shape == (cdf.shape[0], n_q) and np.isfinite(got).all()
+    assert np.abs(got - pallas).max() < TOL
+    if name == "first_above_zero":
+        below = (np.arange(n_q) / (n_q - 1))[None, :] < cdf[:, :1] - 1e-6
+        assert below.any() and (got[below] == 0.0).all()
+    elif increasing:
+        ref = np.asarray(invert_cdf_rows_reference(
+            jnp.asarray(cdf.astype(np.float64)), n_q=n_q))
+        assert np.abs(got - ref).max() < TOL
+    if name == "ties_all":
+        # q_m == c_m: the bin that starts at the tie, at weight 0
+        want = [_f32_step(k, 65) for k in range(64)] + [_f32_step(63, 65)
+                                                        + _f32_step(1, 65)]
+        np.testing.assert_allclose(got[0], want, rtol=0, atol=2e-7)
+
+
 def test_plain_chunks_rows_without_changing_results():
     """The plain version works in row chunks; chunking must not change a
     bit (many rows at a wide shape force several chunks)."""
@@ -114,6 +162,7 @@ def test_plain_chunks_rows_without_changing_results():
     (lambda: torch.zeros((16, 4)).t(), ValueError),
     (lambda: torch.zeros((4, 1)), ValueError),
     (lambda: torch.zeros((4, MAX_N_S + 1)), ValueError),
+    (lambda: torch.zeros((4, MAX_N_S)), ValueError),  # 2 n_s + n_q too wide
     (lambda: torch.zeros((4, 16), device="meta"), ValueError),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):

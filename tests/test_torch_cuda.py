@@ -8,17 +8,23 @@ Without a card every test here skips.  On a machine with one, run
 does not use (it imports only torch and the port).
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from cluster_generator_tpu_torch import pipeline as P
+from cluster_generator_tpu_torch import virial as V
 from cluster_generator_tpu_torch.ops.cdf_inverse import (
     invert_cdf_rows,
     invert_cdf_rows_plain,
 )
+from cluster_generator_tpu_torch.parallel import ensemble as E
 
-TOL = 5e-6
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the case builders of the card's smoke run)
 
 
 def _card():
@@ -48,7 +54,26 @@ def test_k1_matches_plain_version(n_rows, n_s, n_q):
     torch.cuda.synchronize()
     assert invert_cdf_rows.launches == before + 1
     assert got.shape == (n_rows, n_q) and got.dtype == torch.float32
-    assert float((got - want).abs().max()) < TOL
+    assert torch.equal(got, want)  # the same float32 operations, in order
+
+
+@pytest.mark.cuda
+def test_k1_is_bit_identical_at_the_path_shapes_and_edge_rows():
+    """The four main-path inputs (merger and ensemble batch, DM and
+    stars), built by the port on the card, and the rows that probe the bin
+    selection: ties, flat runs, a first value above 0, odd widths."""
+    _card()
+    cases = (chip_smoke.k1_path_cases(P, V, E)
+             + chip_smoke.k1_edge_cases(torch.device("cuda")))
+    shapes = {(name, tuple(cdf.shape), n_q) for name, cdf, n_q in cases}
+    assert {("merger_dm", (512, 512), 512), ("merger_star", (128, 256), 256),
+            ("datagen_dm", (32768, 512), 512),
+            ("datagen_star", (16384, 256), 256)} <= shapes
+    for name, cdf, n_q in cases:
+        got = invert_cdf_rows(cdf, n_q)
+        want = invert_cdf_rows_plain(cdf, n_q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
 
 
 @pytest.mark.cuda
@@ -64,3 +89,18 @@ def test_main_path_launches_k1_and_stays_finite():
     assert invert_cdf_rows.launches == before + 2  # DM and stars
     for v in parts.values():
         assert v.is_cuda and bool(torch.isfinite(v).all())
+
+
+@pytest.mark.cuda
+def test_datagen_batch_launches_k1_twice_and_stays_finite():
+    _card()
+    gen = torch.Generator("cuda").manual_seed(3)
+    M200, conc = E.sample_ensemble_params(gen, 64)
+    before = invert_cdf_rows.launches
+    (b0, out), = E.datagen_batches(
+        M200, conc, {"dm": 5000, "gas": 4000, "star": 1000}, batch_size=64,
+        seed=3)
+    torch.cuda.synchronize()
+    assert b0 == 0 and invert_cdf_rows.launches == before + 2
+    assert out["dm"][1].shape == (64, 5000, 3) and out["dm"][1].is_cuda
+    assert sum(E.nonfinite_counts(out).values()) == 0

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it and running a small merger IC on
-the CPU loads neither JAX nor the JAX package."""
+"""The port stands alone: importing every module of it and running a small
+merger IC (with every switch) and a small datagen batch on the CPU loads
+neither JAX nor the JAX package, nor h5py."""
 
 import os
 import subprocess
@@ -15,17 +16,43 @@ PROGRAM = """
 import sys
 import torch
 torch.set_num_threads(1)
+import importlib
+import pkgutil
 import cluster_generator_tpu_torch as cgt
+names = sorted(m.name for m in pkgutil.walk_packages(cgt.__path__,
+                                                     cgt.__name__ + "."))
+for name in names:
+    importlib.import_module(name)
+print("MODULES", len(names), " ".join(names))
 parts, fields = cgt.merger_ic_fused(
     [1.5e15, 1.0e15], [4.0, 5.0], [[-1500.0, 0, 0], [1500.0, 0, 0]],
     [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0, (300, 200), (240, 160), (60, 40),
-    num_points=200, device="cpu")
+    n_tracer=(30, 20), compute_potential=True, r_a=1500.0, num_points=200,
+    device="cpu")
 assert parts["gas", "particle_position"].shape == (500, 3)
+assert parts["tracer", "particle_position"].shape == (50, 3)
 assert all(bool(torch.isfinite(v).all()) for v in parts.values())
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "cluster_generator_tpu"))
+from cluster_generator_tpu_torch.parallel.ensemble import (datagen_batches,
+                                                           nonfinite_counts)
+(b0, out), = datagen_batches([1.5e15, 4e14], [4.0, 6.0],
+                             {"dm": 300, "gas": 200, "star": 100},
+                             batch_size=2, num_points=128, device="cpu")
+assert out["dm"][1].shape == (2, 300, 3)
+assert sum(nonfinite_counts(out).values()) == 0
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "cluster_generator_tpu", "h5py"))
 print("FOREIGN", bad)
 """
+
+# every module of the port; a new file must be listed here
+MODULES = """
+convert core core.config core.constants core.cosmology core.device
+core.draws core.grid core.interp core.quadrature core.units model
+model.builders model.gravity ops ops.build ops.cdf_inverse parallel
+parallel.ensemble parallel.qa pipeline profiles profiles.algebra
+profiles.library profiles.relations profiles.solvers virial
+""".split()
 
 
 def test_port_imports_no_jax():
@@ -36,3 +63,36 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout
+    listed = [line for line in out.stdout.splitlines()
+              if line.startswith("MODULES")][0].split()[2:]
+    assert listed == sorted("cluster_generator_tpu_torch." + m
+                            for m in MODULES)
+
+
+def test_no_source_of_the_port_names_a_foreign_import():
+    """Every ``.py`` file of the port, the smoke run and the port's
+    scripts: no import of JAX or the JAX package anywhere, and none of
+    h5py at module level."""
+    import ast
+    import glob
+
+    files = (glob.glob(os.path.join(ROOT, "cluster_generator_tpu_torch",
+                                    "**", "*.py"), recursive=True)
+             + [os.path.join(ROOT, "chip_smoke.py"),
+                os.path.join(ROOT, "scripts", "bench_k1.py"),
+                os.path.join(ROOT, "scripts", "profile_torch_merger.py")])
+    assert len(files) >= len(MODULES) + 3
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "jaxlib", "cluster_generator_tpu"} & set(roots), \
+                (path, roots)
+            if node in tree.body:
+                assert "h5py" not in roots, path
