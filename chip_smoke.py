@@ -11,9 +11,9 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build every CUDA kernel under ``cluster_generator_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, bit for
-   bit, at the shapes the two main paths give it (merger and ensemble
-   batch, DM and stars) and on rows that probe its bin selection, and time
-   kernel, plain version and a library yardstick;
+   bit, at the shapes the three main paths give it (merger, ensemble batch
+   and single-cluster class path; DM and stars) and on rows that probe its
+   bin selection, and time kernel, plain version and a library yardstick;
 4. drive the first main path, ``merger_ic_fused``, at the full
    1e7-particle binary-merger workload: one first run and three warm runs,
    then check counts, dtypes, finiteness, bulk velocities and that the
@@ -27,11 +27,18 @@ Phases, in order; any failure exits non-zero before the last line:
    K1 twice, hold no non-finite value and pass the physics QA of the
    draws (radius, local escape speed, mass budget, gas energy, KS of the
    radii, and for the OM batch the anisotropy profile);
-7. build the merger's models, tables and a small draw with the same
+7. drive the third main path, the single-cluster class API
+   (``ClusterModel.from_dens_and_tden`` on a 4096-point grid, the
+   hydrostatic and virial checks, ``generate_*_particles`` for 1.05e7
+   particles, ``VirialEquilibrium(r_a=...)``, the other constructors and
+   the MOND laws), with its physics QA on the card, K1's launches (one
+   per species and model, none for a second draw) and card against CPU
+   for the fields, the DFs and the speed table;
+8. build the merger's models, tables and a small draw with the same
    uniforms on the card and on the CPU and compare them;
-8. print one JSON line of kernel numbers;
-9. print the card's name and power limit, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. print one JSON line of kernel numbers;
+10. print the card's name and power limit, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -46,6 +53,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -76,6 +84,24 @@ DATAGEN_R_A = 1000.0     # its anisotropy radius, kpc
 # the merger once more with every switch on
 MERGER_R_A = 1500.0
 N_TRACER = (300_000, 200_000)
+
+# the single-cluster class path: the canonical cluster on a 4096-point grid
+CLASS_M200, CLASS_CONC, CLASS_Z = 1.5e15, 4.0, 0.1
+CLASS_POINTS = 4096
+CLASS_COUNTS = {"gas": 4_000_000, "dm": 5_000_000, "star": 1_000_000,
+                "tracer": 500_000}
+CLASS_OM_COUNT = 1_000_000
+CLASS_R_A = 1500.0
+CLASS_OTHER_POINTS = 1000   # the other constructors and the MOND laws
+CLASS_RESIDUAL = 1e-4       # hydrostatic and virial residuals
+CLASS_SPEED_TOL = 5e-5      # speed over the local escape speed, less 1
+CLASS_MASS_RTOL = 1e-6
+CLASS_KS_MAX = 0.005
+CLASS_FIELD_RTOL = 1e-12    # float64 fields of the class model, card vs CPU
+# DFs, card vs CPU: f(E) is the derivative of a spline of an Abel sum, which
+# turns the fields' ~5e-15 into ~5e-9 on a 1000-point grid and, the knots
+# being 4x closer, ~1.5e-8 on this one
+CLASS_DF_RTOL = 5e-8
 
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
@@ -109,6 +135,40 @@ def cuda_ms(fn, reps):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def busy_us(events):
+    """Union of the device intervals of the kernels in ``events``."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def kernel_profile(fn):
+    """``fn`` once under ``torch.profiler``: ``(wall ms, the kernels' device
+    events, device busy ms)``.  The profiler slows the host, so the busy
+    share it gives is a lower bound of the unprofiled one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return wall * 1e3, kern, busy_us(kern) / 1e3
 
 
 def nvidia_smi_line():
@@ -152,11 +212,30 @@ def k1_bound_ms(n_rows, n_s, n_q):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_path_cases(P, V, E):
-    """K1's inputs on the two main paths, built by the port on the card:
-    ``[(name, float32 CDF rows, n_q), ...]`` for the merger's DM and star
-    tables (two halos) and the ensemble batch's (256 clusters)."""
+def class_cdf_cases(V, model):
+    """K1's inputs on the class path: the float32 CDF rows that
+    ``VirialEquilibrium._speed_table`` inverts, for the model's DM and
+    stars and for its Osipkov-Merritt DM."""
     cases = []
+    for name, vir in (("class_dm", model.dm_virial),
+                      ("class_star", model.star_virial),
+                      ("class_dm_om", V.VirialEquilibrium(model,
+                                                          r_a=CLASS_R_A))):
+        kw = vir._speed_table_inputs()
+        n_q = kw.pop("n_q")
+        cdf = V.speed_cdf_rows(**kw)
+        cases.append((name, cdf.to(torch.float32).contiguous(), n_q))
+    return cases
+
+
+def k1_path_cases(P, V, E):
+    """K1's inputs on the three main paths, built by the port on the card:
+    ``[(name, float32 CDF rows, n_q), ...]`` for the merger's DM and star
+    tables (two halos), the ensemble batch's (256 clusters) and the class
+    path's (one cluster on a 4096-point grid, 256 rows per species)."""
+    import cluster_generator_tpu_torch as cg
+
+    cases = class_cdf_cases(V, build_class_model(cg))
     fields = P.build_merger_models(M200, CONC, device="cuda")
     inputs = {"merger": P.speed_table_inputs(fields)}
     prog = E._datagen_full_batch_fn(DATAGEN_POINTS, 1, 0, 1)
@@ -208,7 +287,7 @@ def k1_edge_cases(dev):
 
 
 def check_k1(P, K, V, E):
-    """K1 against its plain version on the card, bit for bit, at the four
+    """K1 against its plain version on the card, bit for bit, at the
     main-path shapes and the edge rows; returns ``(timing rows of the path
     shapes by name, largest |kernel - plain| over everything checked)``."""
     dev = torch.device("cuda")
@@ -542,6 +621,313 @@ def run_datagen(E, K, QA, card):
 
 
 # ------------------------------------------------------------------ phase 7
+def class_profiles(cg, **dev):
+    """The canonical cluster's gas and total density profiles, through the
+    calls a user makes: with no ``device`` the bisection for r500 and the
+    mass quadrature run on the card and return 0-d tensors there."""
+    r200 = cg.find_overdensity_radius(CLASS_M200, 200.0, z=CLASS_Z)
+    a = r200 / CLASS_CONC
+    M = cg.snfw_total_mass(CLASS_M200, r200, a)
+    rhot, Mt = cg.snfw_density_profile(M, a), cg.snfw_mass_profile(M, a)
+    r500, M500 = cg.find_radius_mass(Mt, z=CLASS_Z, delta=500.0, **dev)
+    rhog = cg.rescale_profile_by_mass(
+        cg.vikhlinin_density_profile(1.0, 100.0, r200, 1.0, 0.67, 3),
+        cg.f_gas(M500) * M500, r500, **dev)
+    return rhog, rhot
+
+
+def build_class_model(cg, num_points=CLASS_POINTS, gravity="newtonian",
+                      **dev):
+    """Profiles and model; ``device="cpu"`` only for the comparison."""
+    rhog, rhot = class_profiles(cg, **dev)
+    return cg.ClusterModel.from_dens_and_tden(
+        0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot,
+        num_points=num_points, gravity=gravity, **dev)
+
+
+def timed(fn):
+    """``(result, seconds)`` of ``fn``, synchronised on both sides."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def class_species_qa(model, parts, sp, n, r_max):
+    """Physics QA of one species' draws, as tensors on the card; returns
+    the numbers it checked."""
+    from cluster_generator_tpu_torch import sampling as S
+    from cluster_generator_tpu_torch.core.interp import (
+        cubic_spline, spline_eval_loguniform)
+
+    bad = {name: int((~torch.isfinite(parts[sp, name])).sum())
+           for name in parts.field_names[sp]}
+    check(all(v == 0 for v in bad.values()), f"class {sp}: non-finite {bad}")
+    pos = parts[sp, "particle_position"]
+    vel = parts[sp, "particle_velocity"]
+    mass = parts[sp, "particle_mass"]
+    check(pos.shape == (n, 3) and vel.shape == (n, 3) and mass.shape == (n,),
+          f"class {sp}: shapes {tuple(pos.shape)} {tuple(mass.shape)}")
+    for name in parts.field_names[sp]:
+        t = parts[sp, name]
+        check(t.is_cuda and t.dtype == torch.float64,
+              f"class {sp}/{name}: {t.device} {t.dtype}")
+    r = pos.norm(dim=1)
+    rep = {"nonfinite": sum(bad.values()),
+           "max_r_over_rmax": float(r.max()) / r_max}
+    check(rep["max_r_over_rmax"] <= 1.0, f"class {sp}: radius "
+          f"{rep['max_r_over_rmax']:.9f} of r_max")
+    mkey = {"gas": "gas_mass", "tracer": "gas_mass",
+            "dm": "dark_matter_mass", "star": "stellar_mass"}[sp]
+    dkey = {"dm": "dark_matter_density", "star": "stellar_density"}.get(sp)
+    P, rr_ins, mtot = S._truncated_cdf(
+        model["radius"], model[mkey],
+        None if dkey is None else model[dkey], r_max)
+    rep["ks_d"] = ks_statistic(r, rr_ins, P)
+    check(rep["ks_d"] < CLASS_KS_MAX,
+          f"class {sp}: KS distance {rep['ks_d']} >= {CLASS_KS_MAX}")
+    if sp == "tracer":
+        check(not bool(mass.any()) and not bool(vel.any()),
+              "class tracers must be massless and at rest")
+        return rep
+    rep["mass_rel_err"] = abs(float(mass.sum()) - mtot) / mtot
+    check(rep["mass_rel_err"] <= CLASS_MASS_RTOL,
+          f"class {sp}: masses sum off by {rep['mass_rel_err']}")
+    if sp == "gas":
+        check(not bool(vel.any()), "class gas velocities must be zero")
+        check(bool((parts[sp, "thermal_energy"] > 0).all())
+              and bool((parts[sp, "density"] > 0).all()),
+              "class gas: energy or density <= 0")
+        return rep
+    psi_sp = cubic_spline(model["radius"], -model["gravitational_potential"])
+    psi = spline_eval_loguniform(psi_sp, r)
+    rep["max_v_over_vesc"] = float((vel.norm(dim=1)
+                                    / torch.sqrt(2.0 * psi)).max())
+    check(rep["max_v_over_vesc"] <= 1.0 + CLASS_SPEED_TOL,
+          f"class {sp}: speed {rep['max_v_over_vesc']:.7f} of local v_esc")
+    if (sp, "particle_potential") in parts.fields:
+        # the same spline at the same radius, up to the rounding of |pos|
+        perr = float(((parts[sp, "particle_potential"] + psi) / psi)
+                     .abs().max())
+        rep["potential_rel_err"] = perr
+        check(perr < 1e-9, f"class {sp}: potential off by {perr}")
+    return rep
+
+
+def jeans_check(model, parts, sigma):
+    """The DM draws' radial velocity dispersion in 8 log bins against the
+    Jeans profile ``sigma`` of ``compute_velocity_dispersion``, within 5%."""
+    from cluster_generator_tpu_torch.core.interp import interp
+
+    pos = parts["dm", "particle_position"]
+    r = pos.norm(dim=1)
+    v_r = (parts["dm", "particle_velocity"] * pos).sum(dim=1) / r
+    s2 = interp(r, model["radius"], sigma) ** 2
+    edges = [30.0 * (4000.0 / 30.0) ** (i / 8.0) for i in range(9)]
+    out = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        m = (r >= lo) & (r < hi)
+        got = math.sqrt(float((v_r[m] ** 2).mean()))
+        want = math.sqrt(float(s2[m].mean()))
+        out.append({"r": round(math.sqrt(lo * hi), 1), "n": int(m.sum()),
+                    "sigma_r": round(got, 5), "jeans": round(want, 5)})
+        check(abs(got - want) < 0.05 * want,
+              f"class dm: sigma_r {got:.4f} vs Jeans {want:.4f} in "
+              f"[{lo:.0f}, {hi:.0f}) kpc")
+    print("class dm: sigma_r drawn vs Jeans:", json.dumps(out))
+
+
+def class_device_agreement(cg, m_gpu):
+    """The class model, its DFs and its DM speed table on the card against
+    the same build on the CPU."""
+    m_cpu = build_class_model(cg, device="cpu")
+    worst = {}
+    for k in m_cpu.keys():
+        a, b = m_cpu[k], m_gpu[k].cpu()
+        err = float(((a - b).abs() / (a.abs() + 1e-12 * a.abs().max())).max())
+        worst[k] = err
+        check(err < CLASS_FIELD_RTOL,
+              f"class field {k}: card vs CPU {err} >= {CLASS_FIELD_RTOL}")
+    print("class fields card vs CPU, max rel:",
+          json.dumps({k: f"{v:.1e}" for k, v in worst.items()}))
+    for name, v_cpu, v_gpu in (("dm", m_cpu.dm_virial, m_gpu.dm_virial),
+                               ("star", m_cpu.star_virial,
+                                m_gpu.star_virial)):
+        a, b = v_cpu.df, v_gpu.df.cpu()
+        err = float(((a - b).abs() / (a.abs() + 1e-9 * a.abs().max())).max())
+        print(f"class {name} DF card vs CPU: max rel {err:.2e}")
+        check(err < CLASS_DF_RTOL,
+              f"class {name} DF: card vs CPU {err} >= {CLASS_DF_RTOL}")
+    diff = (m_gpu.dm_virial._speed_table()[1].cpu()
+            - m_cpu.dm_virial._speed_table()[1]).abs()
+    err, n_over = float(diff.max()), int((diff > TABLE_TOL).sum())
+    print(f"class speed table card vs CPU: max |diff| {err:.3e}, entries > "
+          f"{TABLE_TOL}: {n_over} of {diff.numel()}")
+    # the flat-row entries, as for the merger's tables below; this grid's
+    # DF carries 3x the roundoff of a 1000-point one (CLASS_DF_RTOL), so
+    # more float32 CDF values round the other way: up to 1 entry in 1e4
+    check(n_over <= diff.numel() // 10_000 and err < 4 * TABLE_TOL,
+          f"class speed table: max {err}, {n_over} entries > {TABLE_TOL}")
+
+
+def run_class_path(cg, K, V, card):
+    """The single-cluster class path at full width; returns K1's launches
+    over the phase (DM, stars, Osipkov-Merritt DM: 3)."""
+    n = CLASS_COUNTS
+    r_max = R_MAX
+    torch.cuda.reset_peak_memory_stats()
+    K.invert_cdf_rows.launches = 0
+    r500, m500 = cg.find_radius_mass(
+        cg.snfw_mass_profile(1.7e15, 560.0), z=CLASS_Z, delta=500.0)
+    check(r500.is_cuda and m500.is_cuda and r500.ndim == 0
+          and cg.mass_within(cg.snfw_density_profile(1.7e15, 560.0),
+                             1300.0).is_cuda,
+          "class solvers: floats in, but the result is not on the card")
+    m, first_s = timed(lambda: build_class_model(cg))
+    warm = []
+    for _ in range(3):
+        m, s = timed(lambda: build_class_model(cg))
+        warm.append(s)
+    check(all(v.is_cuda and v.dtype == torch.float64
+              for v in m.fields.values()), "class model fields not on card")
+    wall_ms, kern, busy_ms = kernel_profile(lambda: build_class_model(cg))
+    print(f"class profiles + model build ({CLASS_POINTS} points): first "
+          f"{first_s:.3f} s, "
+          f"warm {[round(s, 4) for s in warm]} s, median "
+          f"{statistics.median(warm):.4f} s; profiled once: {wall_ms:.1f} ms, "
+          f"{len(kern)} kernel launches, device busy {busy_ms:.2f} ms = "
+          f"{busy_ms / wall_ms:.1%} [{card}]")
+
+    (hse, dm_chk, st_chk), chk_s = timed(lambda: (
+        m.check_hse(), m.check_dm_virial()[1], m.check_star_virial()[1]))
+    res = {"hse_max_abs": float(hse.abs().max()),
+           "dm_virial_max": float(dm_chk.max()),
+           "star_virial_max": float(st_chk.max()),
+           "dm_virial_max_abs": float(dm_chk.abs().max()),
+           "dm_df_min": float(m.dm_virial.df.min())}
+    print(f"class checks (both DFs built, {chk_s:.3f} s):", json.dumps(res))
+    check(res["hse_max_abs"] < CLASS_RESIDUAL, f"class HSE residual {res}")
+    check(res["dm_virial_max"] < CLASS_RESIDUAL
+          and res["star_virial_max"] < CLASS_RESIDUAL,
+          f"class virial residual {res}")
+    check(res["dm_df_min"] >= 0.0, f"class DM f(E) negative: {res}")
+    check(m.dm_virial.df.is_cuda and m.star_virial.df.is_cuda,
+          "class DFs not on the card")
+    m.set_magnetic_field_from_beta(100.0)
+    check(bool((m["magnetic_field_strength"] > 0).all()), "class B field")
+    sigma = m.compute_velocity_dispersion("dark_matter")
+
+    draws = {"gas": lambda: m.generate_gas_particles(n["gas"], r_max=r_max,
+                                                     prng=1),
+             "dm": lambda: m.generate_dm_particles(
+                 n["dm"], r_max=r_max, compute_potential=True, prng=2),
+             "star": lambda: m.generate_star_particles(n["star"],
+                                                       r_max=r_max, prng=3),
+             "tracer": lambda: m.generate_tracer_particles(
+                 n["tracer"], r_max=r_max, prng=4)}
+    parts, times, report = {}, {}, {}
+    for sp, fn in draws.items():
+        _, first = timed(fn)
+        launched = K.invert_cdf_rows.launches
+        owner = {"dm": m.dm_virial, "star": m.star_virial}.get(sp, m)
+        held = owner._draw_tables
+        parts[sp], again = timed(fn)
+        times[sp] = {"first_s": round(first, 4), "warm_s": round(again, 4)}
+        check(K.invert_cdf_rows.launches == launched,
+              f"class {sp}: a second draw launched K1 again")
+        check(owner._draw_tables is held,
+              f"class {sp}: a second draw rebuilt its tables")
+        report[sp] = class_species_qa(m, parts[sp], sp, n[sp], r_max)
+    # (the tracers' first draw finds the gas draws' tables, which it shares)
+    print(f"class draws ({sum(n.values())} particles), seconds:",
+          json.dumps(times), f"[{card}]")
+    print("class draws: QA", json.dumps(report))
+    check(K.invert_cdf_rows.launches == 2,
+          f"class path: K1 launches {K.invert_cdf_rows.launches}, want 2 "
+          "(one per species)")
+    check(m.dm_virial._speed_table()[1].shape == (256, 512),
+          "class speed table shape")
+    jeans_check(m, parts["dm"], sigma)
+
+    total, sum_s = timed(lambda: parts["gas"] + parts["dm"] + parts["star"]
+                         + parts["tracer"])
+    check(total.num_particles == n, f"class sum: {total.num_particles}")
+    before = total["star", "particle_position"][:4].clone()
+    _, off_s = timed(lambda: total.add_offsets([1500.0, 0.0, 0.0],
+                                               [0.3, 0.0, 0.0]))
+    shift = total["star", "particle_position"][:4] - before
+    check(bool((shift[:, 0] - 1500.0).abs().max() < 1e-9)
+          and not bool(shift[:, 1:].any()), "class add_offsets")
+    check(float(total["gas", "particle_velocity"][:, 0].min()) == 0.3,
+          "class add_offsets velocity")
+    print(f"class sum of four species {sum_s:.4f} s, add_offsets "
+          f"{off_s:.4f} s")
+    del total, parts
+
+    om, om_s = timed(lambda: V.VirialEquilibrium(m, r_a=CLASS_R_A))
+    p_om, om_draw_s = timed(lambda: om.generate_particles(
+        CLASS_OM_COUNT, r_max=r_max, prng=5))
+    check(K.invert_cdf_rows.launches == 3,
+          f"class OM: K1 launches {K.invert_cdf_rows.launches}, want 3")
+    rep = class_species_qa(m, p_om, "dm", CLASS_OM_COUNT, r_max)
+    print(f"class Osipkov-Merritt (r_a = {CLASS_R_A:g} kpc): DF {om_s:.3f} s, "
+          f"{CLASS_OM_COUNT} draws {om_draw_s:.3f} s; QA", json.dumps(rep))
+    beta = beta_profile(p_om["dm", "particle_position"],
+                        p_om["dm", "particle_velocity"], CLASS_R_A,
+                        "class OM dm")
+    check(len(beta) >= 4, "too few populated bins for the class OM beta")
+    del p_om
+    launches = K.invert_cdf_rows.launches
+
+    # the other constructors and the MOND laws
+    rhog, rhot = class_profiles(cg)
+    temp = cg.vikhlinin_temperature_profile(6.0, 0.1, 2.0, 1.2, 900.0, 0.4,
+                                            60.0, 1.9)
+    kw = dict(num_points=CLASS_OTHER_POINTS, device="cuda")
+    others = {
+        "from_dens_and_temp": lambda: cg.ClusterModel.from_dens_and_temp(
+            0.1, 1e4, rhog, temp, stellar_density=0.02 * rhot, **kw),
+        "no_gas": lambda: cg.ClusterModel.no_gas(
+            0.1, 1e4, rhot, stellar_density=0.02 * rhot, **kw),
+        "aqual": lambda: build_class_model(
+            cg, num_points=CLASS_OTHER_POINTS, gravity="aqual"),
+        "emond": lambda: build_class_model(
+            cg, num_points=CLASS_OTHER_POINTS, gravity="emond"),
+    }
+    rep = {}
+    for name, fn in others.items():
+        om_model, s = timed(fn)
+        bad = sum(int((~torch.isfinite(v)).sum())
+                  for v in om_model.fields.values())
+        check(bad == 0, f"class {name}: {bad} non-finite field values")
+        rep[name] = {"s": round(s, 4)}
+        if "pressure" in om_model:
+            rep[name]["hse_max_abs"] = float(om_model.check_hse().abs().max())
+            check(rep[name]["hse_max_abs"] < CLASS_RESIDUAL,
+                  f"class {name}: HSE residual {rep[name]}")
+        else:
+            rep[name]["dm_virial_max"] = float(
+                om_model.check_dm_virial()[1].max())
+            check(rep[name]["dm_virial_max"] < CLASS_RESIDUAL,
+                  f"class {name}: virial residual {rep[name]}")
+    print(f"class other constructors ({CLASS_OTHER_POINTS} points):",
+          json.dumps(rep))
+
+    with tempfile.TemporaryDirectory() as d:
+        m.write_model_to_ascii(os.path.join(d, "model.ecsv"))
+        m.write_model_to_binary(os.path.join(d, "model.dat"))
+        sizes = [os.path.getsize(os.path.join(d, f))
+                 for f in ("model.ecsv", "model.dat")]
+    check(all(sz > 8 * CLASS_POINTS for sz in sizes), f"class writers {sizes}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"class path peak memory {peak:.2f} GiB; K1 launches {launches} "
+          f"[{card}]")
+    class_device_agreement(cg, m)
+    return launches
+
+
+# ------------------------------------------------------------------ phase 8
 def max_rel(a, b):
     a = a.detach().cpu().to(torch.float64)
     b = b.detach().cpu().to(torch.float64)
@@ -651,6 +1037,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cluster_generator_tpu_torch as cg
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
     from cluster_generator_tpu_torch.ops import build
@@ -708,6 +1095,7 @@ def main() -> int:
     del parts
 
     launches.update(run_datagen(E, K, QA, card))
+    launches["class"] = run_class_path(cg, K, V, card)
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 

@@ -8,6 +8,9 @@ the leading halo axis, so that any stage of the port can start from the
 JAX package's state.  The fields of an Osipkov-Merritt build carry their
 extras (``df_ee_ext``, ``dm_df_ext``, ``star_df_ext``) like any other
 field; a datagen batch output keeps its layout of tuples per species.
+:func:`cluster_model_from_numpy` makes a whole
+:class:`~.model.cluster_model.ClusterModel` of a JAX model's fields and
+DFs, so that both packages compute on the same state.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from .core.device import resolve_device
 
 __all__ = ["fields_from_numpy", "tables_from_numpy",
-           "datagen_batch_from_numpy", "to_numpy"]
+           "datagen_batch_from_numpy", "cluster_model_from_numpy",
+           "to_numpy"]
 
 
 def _tensor(a, device):
@@ -50,6 +54,26 @@ def datagen_batch_from_numpy(batch_out, device="cuda"):
         return {sp: datagen_batch_from_numpy(v, dev)
                 for sp, v in batch_out.items()}
     return tuple(_tensor(a, dev) for a in batch_out)
+
+
+def cluster_model_from_numpy(fields: dict, dm_df=None, star_df=None,
+                             gravity="newtonian", device="cuda"):
+    """A :class:`~.model.cluster_model.ClusterModel` on ``device`` from a
+    JAX ``ClusterModel``'s fields (name -> (n,) array) and, where given,
+    its DFs on the radial grid, which are resumed, not recomputed."""
+    from .model.cluster_model import ClusterModel
+    from .virial import VirialEquilibrium
+
+    n = int(np.asarray(fields["radius"]).size)
+    model = ClusterModel(n, {k: np.asarray(v) for k, v in fields.items()},
+                         gravity=gravity, device=device)
+    if dm_df is not None:
+        model._dm_virial = VirialEquilibrium(model, "dark_matter",
+                                             df=np.asarray(dm_df))
+    if star_df is not None:
+        model._star_virial = VirialEquilibrium(model, "stellar",
+                                               df=np.asarray(star_df))
+    return model
 
 
 def to_numpy(tree):

@@ -1,8 +1,9 @@
-"""Package configuration: the numerical knobs that size the tables.
+"""Package configuration: logging, the numerical knobs that size the
+tables, and the MOND acceleration scale.
 
 The same defaults and the same ``CLUSTER_GENERATOR_TPU_CONFIG`` override
 file as ``cluster_generator_tpu.core.config``, so both packages build tables
-of the same size from one configuration.
+of the same size, under the same gravity constants, from one configuration.
 """
 
 from __future__ import annotations
@@ -13,6 +14,16 @@ import os
 __all__ = ["cgparams", "load_config", "defaults"]
 
 defaults: dict = {
+    "system": {
+        "logging": {
+            "main": {
+                "enabled": True,
+                "format": "%(name)-3s : [%(levelname)-9s] %(asctime)s %(message)s",
+                "level": "INFO",
+                "stream": "STDERR",
+            },
+        },
+    },
     "numerical": {
         # inverse speed-CDF tables: speed-grid resolution, quantile
         # resolution, and whether the cumulative/inversion runs in float32
@@ -24,6 +35,8 @@ defaults: dict = {
         "df_node_grid_body": 4096,
         "df_node_grid_top": 4096,
     },
+    # acceleration scale of the MOND laws (model/gravity.py), in m/s^2
+    "gravity": {"mond": {"a0_m_s2": 1.2e-10}},
 }
 
 

@@ -16,8 +16,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["CubicSpline", "cubic_spline", "spline_eval",
-           "spline_eval_uniform", "interp", "bracket_indices",
-           "interp_monotone", "loguniform_lerp"]
+           "bracket_for_spline", "spline_eval_at", "spline_eval_uniform",
+           "spline_eval_loguniform", "interp", "bracket_indices",
+           "interp_monotone", "loguniform_lerp", "is_loguniform"]
 
 
 class CubicSpline(NamedTuple):
@@ -147,6 +148,48 @@ def spline_eval(sp: CubicSpline, xq, nu: int = 0):
     return out.reshape(shape)
 
 
+def bracket_for_spline(x, xq):
+    """One bracketing search over the knots ``x`` for the queries ``xq``,
+    to be shared by several splines on the same knots through
+    :func:`spline_eval_at`."""
+    q, shape = _batched_queries(x, xq)
+    idx = torch.clamp(torch.searchsorted(x.contiguous(), q.contiguous(),
+                                         right=True) - 1,
+                      0, x.shape[-1] - 2)
+    return idx.reshape(shape)
+
+
+def spline_eval_at(sp: CubicSpline, xq, idx):
+    """:func:`spline_eval` with the bracket indices of
+    :func:`bracket_for_spline` on the same knots; the same values."""
+    q, shape = _batched_queries(sp.x, xq)
+    idx = idx.reshape(q.shape)
+    t = q - _gather(sp.x, idx)
+    out = _gather(sp.a, idx) + t * (_gather(sp.b, idx) + t * (
+        _gather(sp.c, idx) + t * _gather(sp.d, idx)))
+    return out.reshape(shape)
+
+
+def spline_eval_loguniform(sp: CubicSpline, xq):
+    """A spline whose knots are exactly log-uniform, at queries inside the
+    knot range: the bracketing interval is computed from ``log(xq)``, not
+    searched.  Queries are clamped to the knot range (boundary value, no
+    extrapolation).  A query that sits on a knot may take either
+    neighbouring interval, depending on the device's ``log``; the spline
+    is continuous, so the values agree to roundoff."""
+    x = sp.x
+    n = x.shape[-1]
+    q, shape = _batched_queries(x, xq)
+    lg0 = torch.log(x[..., :1])
+    dlg = (torch.log(x[..., -1:]) - lg0) / (n - 1)
+    t = torch.clamp((torch.log(q) - lg0) / dlg, 0.0, n - 1 - 1e-6)
+    j = torch.clamp_max(t.to(torch.int64), n - 2)
+    u = torch.minimum(torch.maximum(q, x[..., :1]), x[..., -1:]) - _gather(x, j)
+    out = _gather(sp.a, j) + u * (_gather(sp.b, j) + u * (
+        _gather(sp.c, j) + u * _gather(sp.d, j)))
+    return out.reshape(shape)
+
+
 def spline_eval_uniform(sp: CubicSpline, lo, step, n: int):
     """The spline at the uniform nodes ``lo + i*step, i in [0, n)``, with
     no per-node search: one count per breakpoint is scattered onto the
@@ -171,9 +214,10 @@ def spline_eval_uniform(sp: CubicSpline, lo, step, n: int):
                    + t * (_gather(sp.c, idx) + t * _gather(sp.d, idx))))
 
 
-def interp(xq, x, y):
+def interp(xq, x, y, left=None, right=None):
     """``np.interp`` along the last axis (batched over leading axes), with
-    ``jnp.interp``'s arithmetic and end clamping."""
+    ``jnp.interp``'s arithmetic; queries outside the grid take ``left`` /
+    ``right`` (default: the end values)."""
     q, shape = _batched_queries(x, xq)
     n = x.shape[-1]
     i = torch.clamp(torch.searchsorted(x.contiguous(), q.contiguous(),
@@ -189,8 +233,12 @@ def interp(xq, x, y):
     f = torch.where(dx0, y0,
                     y0 + ((q - x0) / torch.where(dx0, torch.ones_like(dx),
                                                  dx)) * (y1 - y0))
-    f = torch.where(q < x[..., :1], y[..., :1], f)
-    f = torch.where(q > x[..., -1:], y[..., -1:], f)
+    lo = y[..., :1] if left is None else torch.as_tensor(
+        left, dtype=y.dtype, device=y.device)
+    hi = y[..., -1:] if right is None else torch.as_tensor(
+        right, dtype=y.dtype, device=y.device)
+    f = torch.where(q < x[..., :1], lo, f)
+    f = torch.where(q > x[..., -1:], hi, f)
     return f.reshape(shape)
 
 
@@ -234,3 +282,11 @@ def loguniform_lerp(xq, x, y):
     x0, x1 = _gather(x, j), _gather(x, j + 1)
     w = torch.clamp((xq - x0) / (x1 - x0), 0.0, 1.0)
     return (1.0 - w) * _gather(y, j) + w * _gather(y, j + 1)
+
+
+def is_loguniform(x, rtol=1e-8):
+    """True when the grid ``x`` (1D) is log-uniform: the gate of the
+    computed-index evaluators.  Reads one boolean back to the host."""
+    d = torch.diff(torch.log(torch.as_tensor(x, dtype=torch.float64)))
+    return bool(torch.all(torch.abs(d - d[0])
+                          <= 1e-12 + rtol * torch.abs(d[0])))

@@ -1,4 +1,5 @@
-"""Profile solvers: enclosed mass and overdensity radii (batched bisection)."""
+"""Profile solvers: enclosed mass, mass rescaling and overdensity radii
+(batched bisection)."""
 
 from __future__ import annotations
 
@@ -7,19 +8,22 @@ import math
 import torch
 
 from ..core.cosmology import Cosmology, default_cosmology
+from ..core.device import resolve_device, tensor_on
 from ..core.quadrature import gauss_legendre
 from .algebra import Profile
 
-__all__ = ["mass_within", "find_overdensity_radius", "find_radius_mass"]
+__all__ = ["mass_within", "rescale_profile_by_mass",
+           "find_overdensity_radius", "find_radius_mass"]
 
 _BISECT_ITERS = 100
 _BRACKET = (0.01, 10000.0)
 
 
-def mass_within(profile: Profile, radius, order: int = 64):
+def mass_within(profile: Profile, radius, order: int = 64, device="cuda"):
     """4 pi int_0^R rho(r) r^2 dr with r = R u^2 (resolves integrable
-    cusps); ``radius`` has the profile's batch shape."""
-    radius = torch.as_tensor(radius, dtype=torch.float64)
+    cusps); ``radius`` has the profile's batch shape.  A tensor ``radius``
+    is integrated on its own device, a float on ``device``."""
+    radius = tensor_on(radius, device)
     x, w = gauss_legendre(order, radius)
     u = 0.5 * (x + 1.0)
     wu = 0.5 * w
@@ -27,6 +31,15 @@ def mass_within(profile: Profile, radius, order: int = 64):
     r = R * u * u
     dr = R * 2.0 * u
     return 4.0 * math.pi * torch.sum(profile(r) * r * r * dr * wu, dim=-1)
+
+
+def rescale_profile_by_mass(profile: Profile, mass, radius,
+                            device="cuda") -> Profile:
+    """The density profile rescaled to enclose ``mass`` within ``radius``;
+    the factor is a tensor on the device of :func:`mass_within`, where the
+    rescaled profile must then be evaluated."""
+    rescale = mass / mass_within(profile, radius, device=device)
+    return rescale * profile
 
 
 def find_overdensity_radius(m, delta, z=0.0, cosmo: Cosmology | None = None):
@@ -38,13 +51,15 @@ def find_overdensity_radius(m, delta, z=0.0, cosmo: Cosmology | None = None):
 
 
 def find_radius_mass(m_r: Profile, delta, z=0.0,
-                     cosmo: Cosmology | None = None, like=None):
+                     cosmo: Cosmology | None = None, like=None,
+                     device="cuda"):
     """(r_delta, M(r_delta)) for a mass profile: bisection on
     f(r) = 3 M(r) / (4 pi r^3) - delta rho_crit over [0.01, 10000] kpc
     with a fixed 100 halvings, every halo of the batch at once.
 
     NaN where the bracket does not straddle a root.  ``like`` gives the
-    batch shape and device of the bracket (a tensor parameter of ``m_r``).
+    batch shape and device of the bracket (a tensor parameter of ``m_r``);
+    without it the result is a pair of 0-d tensors on ``device``.
     Forward value only: no implicit gradient.
     """
     if cosmo is None:
@@ -55,7 +70,7 @@ def find_radius_mass(m_r: Profile, delta, z=0.0,
         return 3.0 * m_r(r) / (4.0 * math.pi * r**3) - delta * rho_crit
 
     shape = () if like is None else like.shape
-    device = None if like is None else like.device
+    device = resolve_device(device) if like is None else like.device
     lo = torch.full(shape, _BRACKET[0], dtype=torch.float64, device=device)
     hi = torch.full(shape, _BRACKET[1], dtype=torch.float64, device=device)
     flo = f(lo)

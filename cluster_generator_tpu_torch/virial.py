@@ -13,16 +13,20 @@
   kernel K1 (:mod:`.ops.cdf_inverse`), one launch for every halo and row.
 * :func:`build_joint_speed_pairs` / :func:`sample_speeds_joint`: that table
   folded onto radius-quantile nodes as absolute speeds, and the speed draw
-  from it.
+  from it; :func:`sample_speeds`: the bilinear draw from the table itself.
+* :class:`VirialEquilibrium`: one collisionless component of a
+  :class:`~.model.cluster_model.ClusterModel`, with its DF, its virial
+  check and its cached speed tables, all on the model's device.
 
-All functions work along the last axis with leading batch axes (one per
-halo).
+The functions work along the last axis with leading batch axes (one per
+halo); the class holds one model.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .core.config import cgparams
@@ -30,9 +34,10 @@ from .core.draws import uniform
 from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
+from .core.logging import mylog
 from .ops.cdf_inverse import invert_cdf_rows
 
-__all__ = ["compute_df", "om_extended_df", "compute_df_truncated",
+__all__ = ["VirialEquilibrium", "sample_speeds", "compute_df", "om_extended_df", "compute_df_truncated",
            "check_virial_density", "speed_cdf_rows",
            "speed_inverse_cdf_table", "speed_table_defaults",
            "build_joint_speed_pairs", "sample_speeds_joint"]
@@ -258,12 +263,26 @@ def speed_inverse_cdf_table(ee, f_vals, n_s: int = 1024, n_q: int = 512,
     """Tabulated inverse speed-CDF at each row energy: ``s_inv`` (..., rows,
     n_q) float32, ``s_inv[j, m]`` the speed fraction at quantile
     m/(n_q-1) of :func:`speed_cdf_rows` (same arguments).  Every row of
-    every leading index is inverted by one launch of kernel K1."""
+    every leading index is inverted by one launch of kernel K1.
+
+    K1 is a float32 kernel.  With ``table_dtype=None`` (the configuration's
+    ``velocity_table_float32: false``) the CDF is built in float64 from the
+    spline at every query, rounded once to float32, given the float32
+    path's strictly increasing ramp (the float64 ramp of 1e-12 per bin
+    does not survive the rounding, and a flat top would put the last
+    quantile one bin low) and inverted by K1, so the table is float32
+    either way: the option buys the exact f(E) evaluation, not float64
+    quantiles (the rounding moves a quantile by at most ~1e-7 / (dC/ds),
+    below the table's 1/n_q resolution)."""
     cdf = speed_cdf_rows(ee, f_vals, n_s=n_s, table_dtype=table_dtype,
                          row_ee=row_ee, nf1=nf1, nf2=nf2)
     lead = cdf.shape[:-1]
-    s_inv = invert_cdf_rows(
-        cdf.to(torch.float32).reshape(-1, n_s).contiguous(), n_q=n_q)
+    if cdf.dtype != torch.float32:
+        cdf = cdf.to(torch.float32)
+        cdf = cdf + torch.arange(n_s, dtype=cdf.dtype,
+                                 device=cdf.device) * 1e-7
+        cdf = cdf / cdf[..., -1:]
+    s_inv = invert_cdf_rows(cdf.reshape(-1, n_s).contiguous(), n_q=n_q)
     return s_inv.reshape(lead + (n_q,))
 
 
@@ -329,3 +348,183 @@ def sample_speeds_joint(joint, kq, wq, generator=None, uniforms=None):
     flat = joint.reshape(joint.shape[:-2] + (-1,))
     idx = k_row * n_q + m
     return ((1.0 - wm) * _gather(flat, idx) + wm * _gather(flat, idx + 1))
+
+
+def sample_speeds(radius, psi_p, ee, s_inv, generator=None, uniforms=None):
+    """Bilinear inverse-CDF speed sampling for every particle, straight
+    from the table (no joint fold).
+
+    ``radius``/``psi_p``: (n,) particle radii and relative potentials;
+    ``ee``: (N,) ascending psi grid; ``s_inv``: (N, n_q) inverse-CDF table.
+    ``uniforms``: the (n,) quantile draws in the table's dtype, else one
+    draw from ``generator``.  Returns speeds in kpc/Myr."""
+    n, n_q = s_inv.shape
+    dtype = s_inv.dtype
+    u = (uniform(generator, radius.shape, dtype, s_inv.device)
+         if uniforms is None else uniforms)
+    j = torch.clamp(torch.searchsorted(ee.contiguous(), psi_p.contiguous(),
+                                       right=True) - 1, 0, n - 2)
+    e0, e1 = ee[j], ee[j + 1]
+    wj = torch.clamp((psi_p - e0) / (e1 - e0), 0.0, 1.0).to(dtype)
+    qpos = u * (n_q - 1)
+    m = torch.clamp(qpos.to(torch.int64), 0, n_q - 2)
+    wm = qpos - m.to(dtype)
+    flat = s_inv.reshape(-1)
+    lo = j * n_q + m
+    hi = lo + n_q
+    s = ((1.0 - wj) * ((1.0 - wm) * flat[lo] + wm * flat[lo + 1])
+         + wj * ((1.0 - wm) * flat[hi] + wm * flat[hi + 1]))
+    return s * torch.sqrt(2.0 * psi_p)
+
+
+class VirialEquilibrium:
+    """Virial equilibrium model of one collisionless component
+    (``"dark_matter"`` or ``"stellar"``) of a model.
+
+    ``df``: a DF on the model's radial grid to resume from (as read from
+    a model file), else it is computed.  ``r_a``: Osipkov-Merritt
+    anisotropy radius (kpc).  ``None`` is the ergodic, isotropic model.  A
+    finite ``r_a`` builds the OM distribution function f(Q),
+    Q = E - L^2/(2 r_a^2), radially anisotropic with
+    beta(r) = r^2 / (r^2 + r_a^2).  The OM inversion is the same Abel
+    integral with the augmented density rho_Q(r) = (1 + r^2/r_a^2) rho(r)
+    in place of rho, so every table and draw path is shared; only the
+    velocity directions change at sample time.
+
+    The DF and the cached speed tables are float64 and float32 tensors on
+    the model's device.  The inverse speed-CDF table is kept per
+    ``n_rows`` (it does not depend on ``r_max``); what a draw folds it
+    into for one ``r_max`` is kept beside it, one entry at a time."""
+
+    def __init__(self, model, ptype: str = "dark_matter", df=None,
+                 r_a=None):
+        self.num_elements = model.num_elements
+        self.ptype = ptype
+        self.model = model
+        self.r_a = None if r_a is None else float(r_a)
+        if self.r_a is not None and self.r_a <= 0:
+            raise ValueError(f"r_a must be positive, got {r_a}")
+        self._ext = None
+        if df is None:
+            self._generate_df()
+        else:
+            radius = model["radius"]
+            self.df = torch.as_tensor(
+                df if isinstance(df, torch.Tensor) else np.array(df),
+                dtype=torch.float64, device=radius.device)
+        self._s_inv = {}
+        # this species' draw tables (sampling._draw_tables)
+        self._draw_tables = None
+
+    # ------------------------------------------------------------ DF build
+    @property
+    def ee(self):
+        """Ascending relative potential grid."""
+        return -torch.flip(self.model["gravitational_potential"], (0,))
+
+    @property
+    def ff(self):
+        """f(E) on the ascending ``ee`` grid."""
+        return torch.flip(self.df, (0,))
+
+    def _augmented_density(self):
+        """rho (isotropic) or the OM rho_Q = (1 + r^2/r_a^2) rho, in
+        radial ordering."""
+        pden = self.model[f"{self.ptype}_density"]
+        if self.r_a is None:
+            return pden
+        return pden * (1.0 + (self.model["radius"] / self.r_a) ** 2)
+
+    @property
+    def _df_grid(self):
+        """``(ee_spline, f_spline)``: the grid that consumers spline f(E)
+        over.  Ergodic: the model grid.  OM: the power-law-extended grid
+        (speed tables and the virial reconstruction query E below
+        ``ee[0]``), rebuilt lazily from the density when the DF was
+        resumed from a file."""
+        if self.r_a is None:
+            return self.ee, self.ff
+        if self._ext is None:
+            self._ext = om_extended_df(
+                self.ee, torch.flip(self._augmented_density(), (0,)))
+        return self._ext
+
+    def _generate_df(self):
+        mylog.info("Computing the %s particle DF%s.", self.ptype,
+                   "" if self.r_a is None
+                   else f" (Osipkov-Merritt, r_a={self.r_a:g} kpc)")
+        if self.r_a is None:
+            f = compute_df(self.ee,
+                           torch.flip(self._augmented_density(), (0,)))
+        else:
+            # OM: rho_Q's non-zero boundary slope needs the power-law
+            # continuation below the grid
+            self._ext = None
+            ee_ext, f_ext = self._df_grid
+            f = f_ext[ee_ext.shape[0] - self.num_elements:]
+        # stored reversed (radially increasing)
+        self.df = torch.flip(f, (0,))
+        if self.r_a is not None:
+            fmin, fmax = float(self.df.min()), float(self.df.max())
+            if fmin < -1e-12 * fmax:
+                mylog.warning(
+                    "The Osipkov-Merritt f(Q) for r_a=%g goes negative "
+                    "(min %g): the model cannot support this much radial "
+                    "anisotropy; increase r_a.", self.r_a, fmin)
+
+    def check_virial(self):
+        """``(rho_from_df, relative error)`` on the radial grid.
+
+        For an OM model the isotropic-form reconstruction integral returns
+        the AUGMENTED density, so the residual is taken against rho_Q
+        (reconstructed on the extended grid, reported at the model
+        knots)."""
+        ee_sp, ff_sp = self._df_grid
+        rho_full = check_virial_density(ee_sp, ff_sp)
+        rho = torch.flip(rho_full[rho_full.shape[0] - self.num_elements:],
+                         (0,))
+        pden = self._augmented_density()
+        chk = (rho - pden) / pden
+        mylog.info("The maximum relative deviation of this profile from "
+                   "virial equilibrium is %g", float(chk.abs().max()))
+        return rho, chk
+
+    # ----------------------------------------------------------- sampling
+    def _speed_table_inputs(self, n_rows: int = 256):
+        """Arguments of :func:`speed_inverse_cdf_table` for this
+        component: rows on an ``n_rows``-point subsample of the MODEL's
+        energy grid, f(E) splined over :attr:`_df_grid` (OM: the extended
+        grid, since rows near r_max query E below ``ee[0]``), resolutions
+        from the configuration."""
+        ee = self.ee
+        n = ee.shape[0]
+        idx = np.unique(np.round(
+            np.linspace(0, n - 1, min(n_rows, n))).astype(int))
+        ee_sp, ff_sp = self._df_grid
+        return dict(speed_table_defaults(), ee=ee_sp, f_vals=ff_sp,
+                    row_ee=ee[torch.as_tensor(idx, device=ee.device)])
+
+    def _speed_table(self, n_rows: int = 256):
+        """``(row_ee, s_inv)``: the inverse speed-CDF table on an
+        ``n_rows``-point subsample of the energy grid (the f(E) spline
+        still uses every grid point; rows are interpolated at sample
+        time).  Built once per ``n_rows`` by one launch of kernel K1 and
+        cached."""
+        if n_rows not in self._s_inv:
+            kw = self._speed_table_inputs(n_rows)
+            self._s_inv[n_rows] = (kw["row_ee"],
+                                   speed_inverse_cdf_table(**kw))
+        return self._s_inv[n_rows]
+
+    def generate_particles(self, num_particles, r_max=None, sub_sample=1,
+                           compute_potential=False, prng=None,
+                           uniforms=None):
+        """Sample positions (inverse CDF of the mass profile) and speeds
+        (inverse CDF of the Eddington DF), with isotropic angles; see
+        :func:`~.sampling.generate_collisionless_particles`."""
+        from .sampling import generate_collisionless_particles
+
+        return generate_collisionless_particles(
+            self, num_particles, r_max=r_max, sub_sample=sub_sample,
+            compute_potential=compute_potential, prng=prng,
+            uniforms=uniforms)

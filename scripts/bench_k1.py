@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Kernel K1 (inverse of CDF rows) alone, at the four shapes of the two
-main paths, on one NVIDIA card.
+"""Kernel K1 (inverse of CDF rows) alone, at the shapes of the three main
+paths, on one NVIDIA card.
 
     python3 scripts/bench_k1.py [--other PATH.cu] [--variant NAME]...
 
-For each shape (merger DM 512x512->512 and stars 128x256->256; ensemble
-batch of 256 clusters DM 32768x512->512 and stars 16384x256->256) the CDF
+For each shape (the class path's 256x512->512 for DM, stars and
+Osipkov-Merritt DM of one 4096-point model; merger DM 512x512->512 and
+stars 128x256->256; ensemble batch of 256 clusters DM 32768x512->512 and
+stars 16384x256->256) the CDF
 rows are the ones the port builds (``virial.speed_cdf_rows``), and one JSON
 line gives: max |kernel - plain|, device ms per launch by CUDA events over
 ``--reps`` back-to-back launches of the bare C function (no allocation), the
 same through the Python wrapper, the profiler's device time of the kernel
 itself, the byte bound, and ``torch.searchsorted`` + lerp as the library
 yardstick.  The ensemble buffers (128 MiB and 32 MiB) exceed or fill the
-50 MB L2, so back-to-back launches read from HBM; the merger shapes (2 MiB
-and less) stay resident in L2.
+50 MB L2, so back-to-back launches read from HBM; the merger and class
+shapes (2 MiB and less) stay resident in L2.
 
 ``--other PATH.cu`` builds a second source with the same C entry point
 (``cg_invert_cdf_rows``), for instance an earlier revision taken with

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's two main paths goes, on one NVIDIA card.
+"""Where the time of the port's three main paths goes, on one NVIDIA card.
 
 ``--path merger``: the four stages of ``cluster_generator_tpu_torch.pipeline``
 at the full 1e7-particle binary-merger workload of ``chip_smoke.py``.
 ``--path datagen``: the five stages of one ensemble datagen batch
 (``parallel.ensemble._datagen_full_batch_fn``) at ``chip_smoke.py``'s full
-width, 256 clusters of 1e5 particles on a 512-point grid.  Each path runs
+width, 256 clusters of 1e5 particles on a 512-point grid.
+``--path model``: the single-cluster class path at ``chip_smoke.py``'s full
+width (the profiles with their solvers, a 4096-point ``ClusterModel``, both
+DFs, both speed tables, and each ``generate_*_particles`` call, first and
+again on the same model, for 1.05e7 particles in all).  Each path runs
 warm, under ``torch.profiler``, one stage at a time, and prints for each
 stage one JSON line: host wall time, number of kernel launches, device busy
 time (union of kernel intervals) and busy share.  Then it prints the
 repository's own kernels and the ten that took the most device time over
-the whole path.  The default runs both paths.
+the whole path.  The default, ``both``, runs the merger and the datagen
+path.
 
-    python3 scripts/profile_torch_merger.py [--path merger|datagen|both]
+    python3 scripts/profile_torch_merger.py [--path merger|datagen|model|both]
 
 Needs a CUDA device; imports no JAX.
 """
@@ -26,32 +31,15 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (CENTERS, CONC, DATAGEN_BATCH,  # noqa: E402
-                        DATAGEN_COUNTS, DATAGEN_POINTS, DATAGEN_SEED, M200,
-                        N_DM, N_GAS, N_STAR, R_MAX, VELOCITIES,
+from chip_smoke import (CENTERS, CLASS_COUNTS, CLASS_POINTS,  # noqa: E402
+                        CONC, DATAGEN_BATCH, DATAGEN_COUNTS, DATAGEN_POINTS,
+                        DATAGEN_SEED, M200, N_DM, N_GAS, N_STAR, R_MAX,
+                        VELOCITIES, class_profiles, kernel_profile,
                         nvidia_smi_line)
-
-
-def busy_us(events):
-    """Union of the device intervals of the kernels in ``events``."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
 
 
 def merger_stages():
@@ -93,6 +81,45 @@ def datagen_stages():
     ]
 
 
+def model_stages():
+    import cluster_generator_tpu_torch as cg
+
+    state = {}
+
+    def dfs():
+        state["m"].dm_virial, state["m"].star_virial  # noqa: B018
+
+    def speed_tables():
+        # cached per virial object; the model stage makes a new model, so
+        # every round of the stages builds both tables once
+        m = state["m"]
+        m.dm_virial._speed_table(), m.star_virial._speed_table()
+
+    n = CLASS_COUNTS
+    draws = [
+        ("gas", lambda: state["m"].generate_gas_particles(
+            n["gas"], r_max=R_MAX, prng=1)),
+        ("dm", lambda: state["m"].generate_dm_particles(
+            n["dm"], r_max=R_MAX, compute_potential=True, prng=2)),
+        ("star", lambda: state["m"].generate_star_particles(
+            n["star"], r_max=R_MAX, prng=3)),
+        ("tracer", lambda: state["m"].generate_tracer_particles(
+            n["tracer"], r_max=R_MAX, prng=4)),
+    ]
+    # a species' first draw on a model builds its draw tables, the second
+    # finds them (the tracers share the gas draws' tables both times)
+    return ([("profiles", lambda: state.__setitem__(
+                "profiles", class_profiles(cg))),
+             ("model", lambda: state.__setitem__(
+                 "m", cg.ClusterModel.from_dens_and_tden(
+                     0.1, 1e4, state["profiles"][0], state["profiles"][1],
+                     stellar_density=0.02 * state["profiles"][1],
+                     num_points=CLASS_POINTS))),
+             ("dfs", dfs), ("speed_tables", speed_tables)]
+            + [(f"{name}_first", fn) for name, fn in draws]
+            + [(f"{name}_again", fn) for name, fn in draws])
+
+
 def profile_path(path, stages, card):
     for _ in range(2):  # warm: kernels built, allocator pools filled
         for _, fn in stages:
@@ -102,19 +129,12 @@ def profile_path(path, stages, card):
     all_kernels = []
     total_wall = 0.0
     for name, fn in stages:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = busy_us(kern) / 1e3
-        total_wall += wall
+        wall_ms, kern, busy = kernel_profile(fn)
+        total_wall += wall_ms / 1e3
         all_kernels.extend(kern)
-        print(json.dumps({"path": path, "stage": name, "wall_ms": wall * 1e3,
+        print(json.dumps({"path": path, "stage": name, "wall_ms": wall_ms,
                           "kernel_launches": len(kern), "busy_ms": busy,
-                          "busy_share": busy / (wall * 1e3), "card": card}))
+                          "busy_share": busy / wall_ms, "card": card}))
 
     # the same stages unprofiled (the profiler slows the host)
     plain = {}
@@ -146,7 +166,7 @@ def profile_path(path, stages, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("merger", "datagen", "both"),
+    ap.add_argument("--path", choices=("merger", "datagen", "model", "both"),
                     default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -158,6 +178,8 @@ def main() -> int:
         profile_path("merger", merger_stages(), card)
     if args.path in ("datagen", "both"):
         profile_path("datagen", datagen_stages(), card)
+    if args.path == "model":
+        profile_path("model", model_stages(), card)
     return 0
 
 

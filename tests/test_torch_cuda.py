@@ -43,6 +43,7 @@ def _random_rows(n_rows, n_s, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rows,n_s,n_q", [(512, 512, 512),
+                                            (256, 512, 512),
                                             (128, 256, 256),
                                             (17, 1024, 512)])
 def test_k1_matches_plain_version(n_rows, n_s, n_q):
@@ -59,14 +60,17 @@ def test_k1_matches_plain_version(n_rows, n_s, n_q):
 
 @pytest.mark.cuda
 def test_k1_is_bit_identical_at_the_path_shapes_and_edge_rows():
-    """The four main-path inputs (merger and ensemble batch, DM and
-    stars), built by the port on the card, and the rows that probe the bin
-    selection: ties, flat runs, a first value above 0, odd widths."""
+    """The main-path inputs (merger and ensemble batch, DM and stars; the
+    class path's DM, stars and Osipkov-Merritt DM), built by the port on
+    the card, and the rows that probe the bin selection: ties, flat runs,
+    a first value above 0, odd widths."""
     _card()
     cases = (chip_smoke.k1_path_cases(P, V, E)
              + chip_smoke.k1_edge_cases(torch.device("cuda")))
     shapes = {(name, tuple(cdf.shape), n_q) for name, cdf, n_q in cases}
-    assert {("merger_dm", (512, 512), 512), ("merger_star", (128, 256), 256),
+    assert {("class_dm", (256, 512), 512), ("class_star", (256, 512), 512),
+            ("class_dm_om", (256, 512), 512),
+            ("merger_dm", (512, 512), 512), ("merger_star", (128, 256), 256),
             ("datagen_dm", (32768, 512), 512),
             ("datagen_star", (16384, 256), 256)} <= shapes
     for name, cdf, n_q in cases:
@@ -104,3 +108,75 @@ def test_datagen_batch_launches_k1_twice_and_stays_finite():
     assert b0 == 0 and invert_cdf_rows.launches == before + 2
     assert out["dm"][1].shape == (64, 5000, 3) and out["dm"][1].is_cuda
     assert sum(E.nonfinite_counts(out).values()) == 0
+
+
+@pytest.mark.cuda
+def test_class_path_on_the_card_against_the_cpu():
+    """The single-cluster class path at a small size: every tensor on the
+    card, one K1 launch per species and model, and model fields, DFs,
+    speed table and draws (from the same uniforms) equal to the CPU's
+    within the bounds of the smoke run."""
+    import cluster_generator_tpu_torch as cg
+
+    _card()
+    # floats in, no device named: the solvers answer on the card
+    r500, m500 = cg.find_radius_mass(cg.snfw_mass_profile(1.7e15, 560.0),
+                                     500.0, z=0.1)
+    assert r500.is_cuda and m500.is_cuda and r500.ndim == 0
+    assert cg.mass_within(cg.snfw_density_profile(1.7e15, 560.0),
+                          1300.0).is_cuda
+    before = invert_cdf_rows.launches
+    models = {dev: chip_smoke.build_class_model(cg, device=dev,
+                                                num_points=256)
+              for dev in ("cuda", "cpu")}
+    m, c = models["cuda"], models["cpu"]
+    for k in c.keys():
+        assert m[k].is_cuda and m[k].dtype == torch.float64
+        torch.testing.assert_close(m[k].cpu(), c[k], rtol=1e-11,
+                                   atol=1e-12 * float(c[k].abs().max()))
+    for vm, vc in ((m.dm_virial, c.dm_virial), (m.star_virial,
+                                                c.star_virial)):
+        assert vm.df.is_cuda
+        torch.testing.assert_close(vm.df.cpu(), vc.df, rtol=1e-6,
+                                   atol=1e-9 * float(vc.df.abs().max()))
+    n = 20_000
+    gen = torch.Generator().manual_seed(9)
+
+    def u(dtype=torch.float64):
+        return torch.rand(n, generator=gen, dtype=dtype)
+
+    unif = (u(), (u() * 2 - 1, u()), (u(torch.float32), u(torch.float32)),
+            (u() * 2 - 1, u()))
+
+    def to(tree, dev):
+        if isinstance(tree, tuple):
+            return tuple(to(x, dev) for x in tree)
+        return tree.to(dev)
+
+    p_gpu = m.generate_dm_particles(n, r_max=5000.0, compute_potential=True,
+                                    uniforms=to(unif, "cuda"))
+    held = m.dm_virial._draw_tables
+    m.generate_dm_particles(n, r_max=5000.0, prng=1)   # cached tables
+    assert m.dm_virial._draw_tables is held
+    m.generate_star_particles(n, r_max=5000.0, prng=2)
+    torch.cuda.synchronize()
+    assert invert_cdf_rows.launches == before + 2
+    p_cpu = c.generate_dm_particles(n, r_max=5000.0, compute_potential=True,
+                                    uniforms=unif)
+    diff = (m.dm_virial._speed_table()[1].cpu()
+            - c.dm_virial._speed_table()[1]).abs()
+    assert float(diff.max()) < 2e-5 and int((diff > 5e-6).sum()) <= 4
+    for key, want in p_cpu.fields.items():
+        got = p_gpu[key]
+        assert got.is_cuda and got.dtype == torch.float64
+        if key[1] == "particle_velocity":
+            sa, sb = want.norm(dim=1), got.cpu().norm(dim=1)
+            rel = (sa - sb).abs() / sa.clamp_min(1e-30)
+            assert float((rel > 1e-4).double().mean()) <= 1e-4
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-9,
+                                       atol=1e-9 * float(want.abs().max()))
+    parts = p_gpu + m.generate_gas_particles(n, r_max=5000.0, prng=3)
+    parts.add_offsets([10.0, 0.0, 0.0], [0.0, 0.1, 0.0])
+    assert parts.device.type == "cuda"
+    assert all(v.is_cuda for v in parts.fields.values())

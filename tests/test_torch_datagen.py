@@ -336,8 +336,8 @@ def test_resolve_rejects_non_positive_r_a(r_a):
 def test_resolve_rejects_unknown_species_and_laws():
     with pytest.raises(ValueError, match="unknown species"):
         TE._resolve_batch_fn({"dm": 100, "stars": 10}, NUM_POINTS)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TE._resolve_batch_fn(100, NUM_POINTS, gravity="qumond")
+    with pytest.raises(KeyError, match="Unknown gravity law"):
+        TE._resolve_batch_fn(100, NUM_POINTS, gravity="no_such_law")
     full, counts, _ = TE._resolve_batch_fn({"dm": 100, "gas": 5}, NUM_POINTS)
     assert full and counts == {"dm": 100, "gas": 5, "star": 0}
 

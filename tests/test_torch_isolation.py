@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of it and running a small
-merger IC (with every switch) and a small datagen batch on the CPU loads
-neither JAX nor the JAX package, nor h5py."""
+merger IC (with every switch), a small datagen batch and the single-cluster
+class path on the CPU loads neither JAX nor the JAX package, nor h5py."""
 
 import os
 import subprocess
@@ -39,6 +39,37 @@ from cluster_generator_tpu_torch.parallel.ensemble import (datagen_batches,
                              batch_size=2, num_points=128, device="cpu")
 assert out["dm"][1].shape == (2, 300, 3)
 assert sum(nonfinite_counts(out).values()) == 0
+z, M200, conc = 0.1, 1.5e15, 4.0
+r200 = cgt.find_overdensity_radius(M200, 200.0, z=z)
+a = r200 / conc
+M = cgt.snfw_total_mass(M200, r200, a)
+rhot, Mt = cgt.snfw_density_profile(M, a), cgt.snfw_mass_profile(M, a)
+r500, M500 = cgt.find_radius_mass(Mt, z=z, delta=500.0, device="cpu")
+rhog = cgt.rescale_profile_by_mass(
+    cgt.vikhlinin_density_profile(1.0, 100.0, r200, 1.0, 0.67, 3),
+    cgt.f_gas(M500) * M500, r500)
+m = cgt.ClusterModel.from_dens_and_tden(0.1, 1e4, rhog, rhot,
+                                        stellar_density=0.02 * rhot,
+                                        num_points=128, device="cpu")
+m.set_magnetic_field_from_beta(100.0)
+m.check_hse()
+m.check_dm_virial()
+p = (m.generate_gas_particles(300, r_max=5000.0, prng=1)
+     + m.generate_dm_particles(400, r_max=5000.0, compute_potential=True,
+                               prng=2)
+     + m.generate_star_particles(100, r_max=5000.0, prng=3)
+     + m.generate_tracer_particles(50, r_max=5000.0, prng=4))
+assert p.num_particles == {"gas": 300, "dm": 400, "star": 100, "tracer": 50}
+assert all(bool(torch.isfinite(v).all()) for v in p.fields.values())
+om = cgt.VirialEquilibrium(m, r_a=1500.0).generate_particles(200, prng=5)
+assert om["dm", "particle_velocity"].shape == (200, 3)
+for law in ("aqual", "emond"):
+    cgt.ClusterModel.no_gas(0.1, 1e4, rhot, num_points=64, gravity=law,
+                            device="cpu").check_dm_virial()
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    m.write_model_to_ascii(d + "/m.ecsv")
+    m.write_model_to_binary(d + "/m.dat")
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "cluster_generator_tpu", "h5py"))
@@ -48,10 +79,11 @@ print("FOREIGN", bad)
 # every module of the port; a new file must be listed here
 MODULES = """
 convert core core.config core.constants core.cosmology core.device
-core.draws core.grid core.interp core.quadrature core.units model
-model.builders model.gravity ops ops.build ops.cdf_inverse parallel
-parallel.ensemble parallel.qa pipeline profiles profiles.algebra
-profiles.library profiles.relations profiles.solvers virial
+core.draws core.grid core.interp core.logging core.quadrature core.units
+model model.builders model.cluster_model model.gravity ops ops.build
+ops.cdf_inverse parallel parallel.ensemble parallel.qa particles pipeline
+profiles profiles.algebra profiles.library profiles.relations
+profiles.solvers sampling virial
 """.split()
 
 
