@@ -36,8 +36,23 @@ Phases, in order; any failure exits non-zero before the last line:
    for the fields, the DFs and the speed table;
 8. build the merger's models, tables and a small draw with the same
    uniforms on the card and on the CPU and compare them;
-9. print one JSON line of kernel numbers;
-10. print the card's name and power limit, then the last line
+9. the gradient of the central pressure with respect to M200 through the
+   whole model build (the implicit gradient of r500 included) against a
+   central difference;
+10. the random fields: the 512^3 float32 divergence-free magnetic field
+    (first run, three warm runs, peak memory) with its rms, divergence and
+    spectrum checks, once at 1024^3, the vector potential with the curl
+    check at 128^3;
+11. a float64 radial magnetic field over the merger IC (two class-path
+    models, 282^3 with padding) attached to the 5e6 gas particles of the
+    1e7-particle IC and mapped onto a ``ClusterParticles``; card against
+    CPU for a 64^3 field and for the trilinear sampling;
+12. the fourth main path, the merger-scene batches at cfg6 (256 binary
+    scenes of 1e5 particles, batches of 64, a 512-point grid): first
+    batch, the warm stream, one Osipkov-Merritt batch, each with K1's
+    launches and the physics QA of the scene catalog on the card;
+13. print one JSON line of kernel numbers;
+14. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -102,6 +117,37 @@ CLASS_FIELD_RTOL = 1e-12    # float64 fields of the class model, card vs CPU
 # turns the fields' ~5e-15 into ~5e-9 on a 1000-point grid and, the knots
 # being 4x closer, ~1.5e-8 on this one
 CLASS_DF_RTOL = 5e-8
+
+# the gradient check: tests/test_autodiff.py's case
+GRAD_M200, GRAD_CONC, GRAD_EPS, GRAD_RTOL = 1.5e15, 4.0, 1.0e10, 1e-3
+
+# the random fields: benchmarks/bench_configs.py's 512^3 magnetic field
+FIELD_LE, FIELD_RE = [-1000.0] * 3, [1000.0] * 3    # kpc
+FIELD_DIMS, FIELD_BIG_DIMS, CURL_DIMS = 512, 1024, 128
+FIELD_L = (50.0, 500.0)     # l_min, l_max, kpc
+FIELD_B_RMS = 1.0e-6        # gauss
+FIELD_SEED = 42
+# float32 field: the rms comes out of float32 inverse transforms whose
+# roundoff is ~1e-7 per value
+FIELD_RMS_RTOL = 1e-5
+# central-difference divergence over |g| / dx: float32 roundoff of the
+# field values and transforms (the float64 field reaches ~1e-16)
+FIELD_DIV_TOL = 1e-4
+# the radial field over the merger IC (two class-path models)
+RADIAL_LE, RADIAL_RE = [-4000.0] * 3, [4000.0] * 3
+RADIAL_DIMS, RADIAL_CPU_DIMS = 256, 64  # 282^3 and 72^3 with padding 0.1
+RADIAL_L = (100.0, 1000.0)
+RADIAL_BETA = 100.0
+RADIAL_CPU_RTOL = 1e-10     # float64 fields, card vs CPU, of max |g|
+TRILINEAR_POINTS = 100_000
+TRILINEAR_TOL = 1e-5        # float32 sampling, card vs CPU, of max |g|
+
+# the merger-scene batches: benchmarks/bench_configs.py's cfg6
+SCENES, SCENE_BATCH, SCENE_POINTS = 256, 64, 512
+SCENE_COUNTS = {"gas": (20_000, 20_000), "dm": (25_000, 25_000),
+                "star": (5_000, 5_000)}
+SCENE_SEED = 7
+SCENE_R_A = 1500.0          # kpc, the Osipkov-Merritt batch
 
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
@@ -229,15 +275,21 @@ def class_cdf_cases(V, model):
 
 
 def k1_path_cases(P, V, E):
-    """K1's inputs on the three main paths, built by the port on the card:
+    """K1's inputs on the four main paths, built by the port on the card:
     ``[(name, float32 CDF rows, n_q), ...]`` for the merger's DM and star
-    tables (two halos), the ensemble batch's (256 clusters) and the class
-    path's (one cluster on a 4096-point grid, 256 rows per species)."""
+    tables (two halos), the ensemble batch's (256 clusters), the class
+    path's (one cluster on a 4096-point grid, 256 rows per species) and
+    the scene batch's (64 scenes of two halos)."""
     import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch.parallel import mergers as MG
 
     cases = class_cdf_cases(V, build_class_model(cg))
     fields = P.build_merger_models(M200, CONC, device="cuda")
     inputs = {"merger": P.speed_table_inputs(fields)}
+    prog = MG._merger_batch_fn(SCENE_POINTS, *SCENE_COUNTS.values())
+    p = scene_params(MG, SCENE_BATCH)
+    inputs["scenes"] = P.speed_table_inputs(prog.models(p["M200"],
+                                                        p["conc"]))
     prog = E._datagen_full_batch_fn(DATAGEN_POINTS, 1, 0, 1)
     M, c = E.sample_ensemble_params(
         torch.Generator(device="cuda").manual_seed(DATAGEN_SEED),
@@ -621,13 +673,13 @@ def run_datagen(E, K, QA, card):
 
 
 # ------------------------------------------------------------------ phase 7
-def class_profiles(cg, **dev):
+def class_profiles(cg, m200=CLASS_M200, conc=CLASS_CONC, **dev):
     """The canonical cluster's gas and total density profiles, through the
     calls a user makes: with no ``device`` the bisection for r500 and the
     mass quadrature run on the card and return 0-d tensors there."""
-    r200 = cg.find_overdensity_radius(CLASS_M200, 200.0, z=CLASS_Z)
-    a = r200 / CLASS_CONC
-    M = cg.snfw_total_mass(CLASS_M200, r200, a)
+    r200 = cg.find_overdensity_radius(m200, 200.0, z=CLASS_Z)
+    a = r200 / conc
+    M = cg.snfw_total_mass(m200, r200, a)
     rhot, Mt = cg.snfw_density_profile(M, a), cg.snfw_mass_profile(M, a)
     r500, M500 = cg.find_radius_mass(Mt, z=CLASS_Z, delta=500.0, **dev)
     rhog = cg.rescale_profile_by_mass(
@@ -1031,6 +1083,356 @@ def device_agreement(P):
         check(float(rel.max()) < 2e-5, f"draw {key}: {float(rel.max())}")
 
 
+# ------------------------------------------------------------------ phase 9
+def run_gradient(E):
+    """d(central pressure)/dM200 through ``build_one_cluster`` on the card
+    (256 points, no DF): autograd against a central difference."""
+    dev = torch.device("cuda")
+    conc = torch.tensor([GRAD_CONC], dtype=torch.float64, device=dev)
+
+    def central_pressure(m):
+        f = E.build_one_cluster(m, conc, num_points=256, with_df=False)
+        return f["pressure"][..., 0].sum()
+
+    m = torch.tensor([GRAD_M200], dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    central_pressure(m).backward()
+    grad = float(m.grad[0])
+    with torch.no_grad():
+        up = float(central_pressure(torch.full_like(m, GRAD_M200 + GRAD_EPS)))
+        dn = float(central_pressure(torch.full_like(m, GRAD_M200 - GRAD_EPS)))
+    fd = (up - dn) / (2.0 * GRAD_EPS)
+    rel = abs(grad - fd) / abs(fd)
+    print(f"gradient of the central pressure w.r.t. M200 on the card: "
+          f"autograd {grad:.6e}, central difference {fd:.6e}, rel {rel:.2e} "
+          f"(limit {GRAD_RTOL})")
+    check(math.isfinite(grad) and rel < GRAD_RTOL,
+          f"gradient {grad} vs central difference {fd}: rel {rel}")
+
+
+# ----------------------------------------------------------------- phase 10
+def field_qa(f, g_rms, label, k_window=None):
+    """Finite values, the rms against ``g_rms`` (unless None), the
+    central-difference divergence over |g| / dx (a divergence-cleaned
+    field), and, for ``k_window``, the log-log slope of the x component's
+    power spectrum there."""
+    gx, gy, gz = f.gx, f.gy, f.gz
+    bad = sum(int((~torch.isfinite(g)).sum()) for g in (gx, gy, gz))
+    check(bad == 0, f"{label}: {bad} non-finite values")
+    rms = math.sqrt(sum(float(torch.sum(g * g, dtype=torch.float64))
+                        for g in (gx, gy, gz)) / gx.numel())
+    rep = {"nonfinite": bad, "rms": rms}
+    if g_rms is not None:
+        rep["rms_rel_err"] = abs(rms - g_rms) / g_rms
+        check(rep["rms_rel_err"] < FIELD_RMS_RTOL,
+              f"{label}: rms {rms} vs {g_rms}")
+    if f.divergence_clean and not f.vector_potential:
+        div = ((torch.roll(gx, -1, 0) - torch.roll(gx, 1, 0)) / (2 * f.dx)
+               + (torch.roll(gy, -1, 1) - torch.roll(gy, 1, 1)) / (2 * f.dy)
+               + (torch.roll(gz, -1, 2) - torch.roll(gz, 1, 2)) / (2 * f.dz))
+        rep["div_over_grad"] = float(div.abs().max()) / (
+            float(gx.abs().mean(dtype=torch.float64)) / f.dx)
+        del div
+        check(rep["div_over_grad"] < FIELD_DIV_TOL,
+              f"{label}: divergence {rep['div_over_grad']}")
+    if k_window is not None:
+        W = torch.fft.rfftn(gx)
+        P = (W.real ** 2 + W.imag ** 2).double()
+        del W
+        kx, ky, kz = (torch.as_tensor(a, device=f.device)
+                      for a in f._compute_waves())
+        kk = torch.sqrt(kx ** 2 + ky ** 2 + kz[..., :P.shape[-1]] ** 2)
+        sel = (kk > k_window[0]) & (kk < k_window[1])
+        lk, lp = torch.log(kk[sel]), torch.log(P[sel])
+        lk = lk - lk.mean()
+        rep["slope"] = float((lk * (lp - lp.mean())).sum() / (lk * lk).sum())
+        del P, kk
+        check(-4.5 < rep["slope"] < -3.0, f"{label}: slope {rep['slope']}")
+    return rep
+
+
+def make_field(F, cls, dims, seed, **kw):
+    return getattr(F, cls)(FIELD_LE, FIELD_RE, (dims,) * 3, *FIELD_L,
+                           FIELD_B_RMS, padding=0.0, prng=seed,
+                           dtype=torch.float32, device="cuda", **kw)
+
+
+def run_fields(F, card):
+    """The constant-rms magnetic field at 512^3 and 1024^3 and its vector
+    potential, float32, timed, with QA on the card."""
+    torch.cuda.reset_peak_memory_stats()
+    f, first_s = timed(lambda: make_field(F, "RandomMagneticField",
+                                          FIELD_DIMS, FIELD_SEED))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # between 2 k1 and k0 / 2 the spectrum's log slope runs from -2.9 to
+    # -4.0 (-11/3 with the outer-scale bend and the Gaussian cutoff)
+    k1, k0 = 2 * math.pi / FIELD_L[1], 2 * math.pi / FIELD_L[0]
+    rep = field_qa(f, FIELD_B_RMS, f"field {FIELD_DIMS}^3",
+                   (2 * k1, 0.5 * k0))
+    del f
+    warm = []
+    for i in range(1, 4):
+        f, s = timed(lambda: make_field(F, "RandomMagneticField", FIELD_DIMS,
+                                        FIELD_SEED + i))
+        del f
+        warm.append(s)
+    wall_ms, kern, busy_ms = kernel_profile(
+        lambda: make_field(F, "RandomMagneticField", FIELD_DIMS, FIELD_SEED))
+    print(f"RandomMagneticField {FIELD_DIMS}^3 float32: first {first_s:.4f} s, "
+          f"warm {[round(s, 4) for s in warm]} s, median "
+          f"{statistics.median(warm):.4f} s, peak memory {peak:.2f} GiB; "
+          f"profiled once: {wall_ms:.1f} ms, {len(kern)} kernel launches, "
+          f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} [{card}]")
+    print(f"field {FIELD_DIMS}^3 QA:", json.dumps(rep))
+
+    torch.cuda.reset_peak_memory_stats()
+    f, big_s = timed(lambda: make_field(F, "RandomMagneticField",
+                                        FIELD_BIG_DIMS, FIELD_SEED))
+    peak_big = torch.cuda.max_memory_allocated() / 2**30
+    rep = field_qa(f, FIELD_B_RMS, f"field {FIELD_BIG_DIMS}^3")
+    del f
+    print(f"RandomMagneticField {FIELD_BIG_DIMS}^3 float32: {big_s:.4f} s "
+          f"(first at this size), peak memory {peak_big:.2f} GiB [{card}]; "
+          "QA:", json.dumps(rep))
+
+    torch.cuda.reset_peak_memory_stats()
+    a, vp_first = timed(lambda: make_field(
+        F, "RandomMagneticVectorPotential", FIELD_DIMS, FIELD_SEED))
+    del a
+    a, vp_s = timed(lambda: make_field(
+        F, "RandomMagneticVectorPotential", FIELD_DIMS, FIELD_SEED + 1))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rep = field_qa(a, None, f"vector potential {FIELD_DIMS}^3")
+    del a
+    print(f"RandomMagneticVectorPotential {FIELD_DIMS}^3 float32: first "
+          f"{vp_first:.4f} s, again {vp_s:.4f} s, peak memory {peak:.2f} GiB "
+          f"[{card}]; finite:", json.dumps(rep))
+    curl_check(F)
+
+
+def curl_check(F):
+    """tests/test_fields.py's identity at 128^3, float64, on the card: the
+    spectral curl of A equals the continuous-k projection of B on every
+    non-Nyquist mode."""
+    n = CURL_DIMS
+    noise = torch.randn((3, n, n, n), dtype=torch.float64, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    kw = dict(padding=0.0, noise=noise, dtype=torch.float64, device="cuda")
+    B = F.RandomMagneticField(FIELD_LE, FIELD_RE, (n,) * 3, 100.0, 500.0,
+                              FIELD_B_RMS, **kw)
+    A = F.RandomMagneticVectorPotential(FIELD_LE, FIELD_RE, (n,) * 3, 100.0,
+                                        500.0, FIELD_B_RMS, **kw)
+    kx, ky, kz = (torch.as_tensor(k, device="cuda")
+                  for k in A._compute_waves())
+    ah = [torch.fft.fftn(g) for g in (A.gx, A.gy, A.gz)]
+    bh = [torch.fft.fftn(g) for g in (B.gx, B.gy, B.gz)]
+    curl = [1j * (ky * ah[2] - kz * ah[1]), 1j * (kz * ah[0] - kx * ah[2]),
+            1j * (kx * ah[1] - ky * ah[0])]
+    curl = [torch.fft.fftn(torch.fft.ifftn(c).real) for c in curl]
+    k2 = kx ** 2 + ky ** 2 + kz ** 2
+    k2 = torch.where(k2 > 0, k2, 1.0)
+    kb = (kx * bh[0] + ky * bh[1] + kz * bh[2]) / k2
+    mask = torch.ones((n, n, n), dtype=torch.bool, device="cuda")
+    mask[n // 2], mask[:, n // 2], mask[:, :, n // 2] = False, False, False
+    scale = float(bh[0][mask].abs().max())
+    err = max(float((c - (b - k * kb))[mask].abs().max()) / scale
+              for c, b, k in zip(curl, bh, (kx, ky, kz)))
+    print(f"vector potential {n}^3 float64: spectral curl A vs projected B, "
+          f"max rel {err:.2e} (limit 1e-8)")
+    check(err < 1e-8, f"curl A vs B: {err}")
+
+
+# ----------------------------------------------------------------- phase 11
+def merger_models(cg):
+    """The merger's two halos as class-path models with beta = 100 B
+    fields."""
+    models = []
+    for m200, conc in zip(M200, CONC):
+        rhog, rhot = class_profiles(cg, m200, conc)
+        m = cg.ClusterModel.from_dens_and_tden(
+            0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot)
+        m.set_magnetic_field_from_beta(RADIAL_BETA)
+        models.append(m)
+    return models
+
+
+def radial_field(F, models, dims, device, noise=None, seed=3):
+    return F.RadialRandomMagneticField(
+        RADIAL_LE, RADIAL_RE, (dims,) * 3, *RADIAL_L, CENTERS[0], models[0],
+        ctr2=CENTERS[1], profile2=models[1], padding=0.1, prng=seed,
+        noise=noise, dtype=torch.float64, device=device)
+
+
+def run_radial_field(cg, F, P, card):
+    """A float64 radial magnetic field over the merger IC, attached to its
+    gas; card against CPU for a small field and for the sampling."""
+    models = merger_models(cg)
+    torch.cuda.reset_peak_memory_stats()
+    f, first_s = timed(lambda: radial_field(F, models, RADIAL_DIMS, "cuda"))
+    f, again_s = timed(lambda: radial_field(F, models, RADIAL_DIMS, "cuda",
+                                            seed=4))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dims = tuple(int(n) for n in f.ddims)
+    want = RADIAL_DIMS + 2 * math.ceil(0.05 * RADIAL_DIMS)   # 282
+    check(dims == (want,) * 3 and f.gx.dtype == torch.float64,
+          f"radial field grid {dims} {f.gx.dtype}")
+    bad = sum(int((~torch.isfinite(g)).sum()) for g in (f.gx, f.gy, f.gz))
+    check(bad == 0, f"radial field: {bad} non-finite values")
+    print(f"RadialRandomMagneticField {dims[0]}^3 float64 (two halos): first "
+          f"{first_s:.4f} s, again {again_s:.4f} s, peak memory {peak:.2f} "
+          f"GiB [{card}]")
+
+    parts, _, ic_s = run_main_path(P)
+    _, attach_first = timed(lambda: P.attach_field_to_particles(parts, f))
+    parts, attach_s = timed(lambda: P.attach_field_to_particles(parts, f))
+    pos = parts["gas", "particle_position"]
+    vals = parts["gas", "magnetic_field"]
+    check(vals.shape == pos.shape and vals.dtype == torch.float32,
+          f"attached field {tuple(vals.shape)} {vals.dtype}")
+    inside = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    for ax, c in enumerate((f.x, f.y, f.z)):
+        c = c.to(pos.dtype)
+        inside &= (pos[:, ax] >= c[0]) & (pos[:, ax] <= c[-1])
+    n_bad = int((~torch.isfinite(vals)).sum())
+    n_out = int((~inside).sum())
+    out_nonzero = int(vals[~inside].ne(0).sum())
+    print(f"attach_field_to_particles: {pos.shape[0]} gas particles of the "
+          f"1e7 IC ({ic_s:.3f} s), first {attach_first:.4f} s, again "
+          f"{attach_s:.4f} s [{card}]; non-finite {n_bad}, outside the grid "
+          f"{n_out}, nonzero values outside {out_nonzero}")
+    check(n_bad == 0 and out_nonzero == 0 and n_out > 0,
+          "attached field: non-finite, or nonzero outside the grid")
+    check(bool(vals[inside].ne(0).any(dim=1).all()),
+          "attached field: a zero value inside the grid")
+
+    cp = cg.ClusterParticles("gas", {
+        ("gas", "particle_position"): pos,
+        ("gas", "particle_velocity"): parts["gas", "particle_velocity"],
+        ("gas", "particle_mass"): parts["gas", "particle_mass"]},
+        device="cuda")
+    _, map_s = timed(lambda: f.map_field_to_particles(cp, "gas"))
+    mapped = cp["gas", "magnetic_field"]
+    err = float((mapped - vals.double()).abs().max()) / float(
+        vals.abs().max())
+    print(f"map_field_to_particles onto ClusterParticles (float64): "
+          f"{map_s:.4f} s; max |map - attach| / max |B| {err:.2e}")
+    check(mapped.dtype == torch.float64 and err < TRILINEAR_TOL,
+          f"map_field_to_particles vs attach: {err}")
+
+    # the trilinear sampling, card against CPU, as attach runs it
+    gen = torch.Generator().manual_seed(8)
+    pts = (torch.rand((TRILINEAR_POINTS, 3), generator=gen) * 9000.0
+           - 4500.0).to(torch.float32)
+    from cluster_generator_tpu_torch.fields.grf import _trilinear
+
+    g32 = torch.stack([f.gx, f.gy, f.gz]).to(torch.float32)
+    xyz = [c.to(torch.float32) for c in (f.x, f.y, f.z)]
+    on_card = _trilinear(*xyz, g32, pts.cuda()).cpu()
+    on_cpu = _trilinear(*(c.cpu() for c in xyz), g32.cpu(), pts)
+    terr = float((on_card - on_cpu).abs().max()) / float(g32.abs().max())
+    print(f"trilinear at {TRILINEAR_POINTS} points, card vs CPU: max |diff| "
+          f"/ max |B| {terr:.2e} (limit {TRILINEAR_TOL})")
+    check(terr < TRILINEAR_TOL, f"trilinear card vs CPU {terr}")
+    del parts, vals, cp, mapped, f, g32
+
+    # a small float64 field from the same noise on both devices
+    n = RADIAL_CPU_DIMS + 2 * math.ceil(0.05 * RADIAL_CPU_DIMS)
+    noise = torch.randn((3, n, n, n), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(9))
+    worst = {}
+    for name, make in (
+            ("radial", lambda dev, z: radial_field(F, models, RADIAL_CPU_DIMS,
+                                                  dev, noise=z)),
+            ("vector_potential", lambda dev, z: F.RandomMagneticVectorPotential(
+                RADIAL_LE, RADIAL_RE, (RADIAL_CPU_DIMS,) * 3, *RADIAL_L,
+                FIELD_B_RMS, noise=z, dtype=torch.float64, device=dev))):
+        a, b = make("cuda", noise.cuda()), make("cpu", noise)
+        worst[name] = max(float((ga.cpu() - gb).abs().max())
+                          / float(gb.abs().max())
+                          for ga, gb in ((a.gx, b.gx), (a.gy, b.gy),
+                                         (a.gz, b.gz)))
+    print(f"{n}^3 float64 fields, card vs CPU from the same noise, max |diff| "
+          f"/ max |g|:", json.dumps({k: f"{v:.2e}" for k, v in worst.items()}),
+          f"(limit {RADIAL_CPU_RTOL})")
+    check(all(v < RADIAL_CPU_RTOL for v in worst.values()),
+          f"fields card vs CPU: {worst}")
+
+
+# ----------------------------------------------------------------- phase 12
+def scene_params(MG, n):
+    return MG.sample_merger_scene_params(
+        torch.Generator(device="cuda").manual_seed(SCENE_SEED), n)
+
+
+def run_scenes(MG, K, card):
+    """The merger-scene batches at cfg6; returns K1's launches on each of
+    the three runs."""
+    p = scene_params(MG, SCENES)
+    per_scene = sum(sum(v) for v in SCENE_COUNTS.values())
+    launches = {}
+
+    def stream(n, **extra):
+        sub = {k: v[:n] for k, v in p.items()}
+        torch.cuda.reset_peak_memory_stats()
+        K.invert_cdf_rows.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        outs = list(MG.merger_scene_batches(
+            sub, SCENE_COUNTS, batch_size=SCENE_BATCH,
+            num_points=SCENE_POINTS, r_max=R_MAX, seed=SCENE_SEED,
+            device="cuda", **extra))
+        sync()
+        return (time.perf_counter() - t0, outs, K.invert_cdf_rows.launches,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    def qa(b0, out, label, r_a=None):
+        sl = slice(b0, b0 + SCENE_BATCH)
+        ctr, vel = MG.binary_scene_geometry(p["M200"][sl], p["d"][sl],
+                                            p["b"][sl], p["v_rel"][sl])
+        rep = MG.verify_scene_batch(out, p["M200"][sl], p["conc"][sl], ctr,
+                                    vel, R_MAX, SCENE_COUNTS,
+                                    num_points=SCENE_POINTS, r_a=r_a,
+                                    strict=False)
+        bad = rep.pop("nonfinite")
+        print(f"{label}: non-finite values per output:", json.dumps(bad))
+        print(f"{label}: QA", json.dumps(rep))
+        check(not rep["violations"] and not any(bad.values()),
+              f"{label}: {rep['violations'][:5]} {bad}")
+
+    first_s, outs, launches["scenes_first"], peak = stream(SCENE_BATCH)
+    print(f"scene batch first ({SCENE_BATCH} binary scenes x {per_scene} "
+          f"particles): {first_s:.3f} s; K1 launches "
+          f"{launches['scenes_first']}; peak memory {peak:.2f} GiB [{card}]")
+    check(launches["scenes_first"] == 2,
+          f"K1 launches per scene batch {launches['scenes_first']}, want 2")
+    qa(0, outs[0][1], "scene batch 0")
+    del outs
+
+    total_s, outs, launches["scenes"], peak = stream(SCENES)
+    n_b = len(outs)
+    print(f"scene stream, warm: {n_b} batches in {total_s:.3f} s = "
+          f"{total_s / n_b:.4f} s per batch, {SCENES / total_s:.1f} scenes/s, "
+          f"{SCENES * per_scene / total_s:.4g} particles/s; K1 launches "
+          f"{launches['scenes']} ({launches['scenes'] / n_b:g} per batch); "
+          f"peak memory {peak:.2f} GiB with {n_b} batches of output held "
+          f"[{card}]")
+    check(launches["scenes"] == 2 * n_b,
+          f"K1 launches {launches['scenes']}, want {2 * n_b}")
+    for b0, out in outs:
+        qa(b0, out, f"scene batch {b0}")
+    del outs
+
+    om_s, outs, launches["scenes_om"], peak = stream(
+        SCENE_BATCH, anisotropy_radius=SCENE_R_A)
+    print(f"scene Osipkov-Merritt batch (r_a = {SCENE_R_A:g} kpc): "
+          f"{om_s:.3f} s; K1 launches {launches['scenes_om']}; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    check(launches["scenes_om"] == 2,
+          f"K1 launches of the OM batch {launches['scenes_om']}, want 2")
+    qa(0, outs[0][1], "scene OM batch", r_a=SCENE_R_A)
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1038,11 +1440,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch import fields as F
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
     from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
     from cluster_generator_tpu_torch.parallel import ensemble as E
+    from cluster_generator_tpu_torch.parallel import mergers as MG
     from cluster_generator_tpu_torch.parallel.qa import QA_TOLERANCES as QA
 
     print("python", sys.version.split()[0], "torch", torch.__version__,
@@ -1096,14 +1500,19 @@ def main() -> int:
 
     launches.update(run_datagen(E, K, QA, card))
     launches["class"] = run_class_path(cg, K, V, card)
+    launches.update(run_scenes(MG, K, card))
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 
     device_agreement(P)
+    run_gradient(E)
+    run_fields(F, card)
+    run_radial_field(cg, F, P, card)
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in
-    # "shapes", and "launches" sums the runs of the main paths
+    # "shapes", and "launches" sums the runs of the main paths (the scene
+    # batches' DM rows have the same shape)
     top = k1["datagen_dm"]
     kernels = [{
         "name": "invert_cdf_rows",

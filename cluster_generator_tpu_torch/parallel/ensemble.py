@@ -369,17 +369,21 @@ def prorate_species_counts(n_total, M200=1.5e15, conc=4.0, num_points=512,
     return {"dm": n_dm, "gas": n_gas, "star": n_star}
 
 
-def _resolve_batch_fn(n_particles_per_cluster, num_points, r_a=None,
-                      gravity="newtonian"):
-    """``(full?, per-species counts, batch program)`` for a product
-    selector: an int is the DM phase-space product, a dict the
-    full-species one."""
+def _check_r_a(r_a):
     if r_a is not None and not float(r_a) > 0.0:
         # r_a = 0 would make every velocity NaN (the augmented density
         # hits inf); negatives only enter as r_a**2
         raise ValueError(f"anisotropy_radius must be positive (got "
                          f"{r_a!r}); omit it (None) for the isotropic "
                          "product")
+
+
+def _resolve_batch_fn(n_particles_per_cluster, num_points, r_a=None,
+                      gravity="newtonian"):
+    """``(full?, per-species counts, batch program)`` for a product
+    selector: an int is the DM phase-space product, a dict the
+    full-species one."""
+    _check_r_a(r_a)
     get_gravity(gravity)  # unknown law names fail before any work
     full = isinstance(n_particles_per_cluster, dict)
     if full:

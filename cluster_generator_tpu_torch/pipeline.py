@@ -28,14 +28,14 @@ import torch
 from .core.device import resolve_device
 from .core.draws import isotropic, uniform
 from .core.grid import linspace
-from .core.interp import interp, interp_monotone
+from .core.interp import _gather, interp, interp_monotone
 from .parallel.ensemble import build_one_cluster
 from .virial import (_banded_row_lerp, compute_df, om_extended_df,
                      speed_inverse_cdf_table, speed_table_defaults)
 
 __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
            "build_radius_tables", "sample_merger_ic", "merger_ic_fused",
-           "binary_merger_ic"]
+           "binary_merger_ic", "attach_field_to_particles"]
 
 _RQ = 2048  # radius quantile-table resolution
 
@@ -162,13 +162,14 @@ def build_radius_tables(fields, r_max, dtype=torch.float32):
 
 
 def _log_grid_locate(radius, rr, dtype, n=None):
-    """Fractional index of ``radius`` on the log-spaced grid ``rr``,
-    computed, not searched.  ``n`` relocates onto an n-point log grid with
-    ``rr``'s endpoints."""
+    """Fractional index of ``radius`` (..., m) on the log-spaced grid ``rr``
+    (..., N), computed, not searched.  ``n`` relocates onto an n-point log
+    grid with ``rr``'s endpoints."""
     if n is None:
         n = rr.shape[-1]
-    logr0 = torch.log(rr[0]).to(dtype)
-    dlog = ((torch.log(rr[-1]) - torch.log(rr[0])) / (n - 1)).to(dtype)
+    logr0 = torch.log(rr[..., :1]).to(dtype)
+    dlog = ((torch.log(rr[..., -1:]) - torch.log(rr[..., :1]))
+            / (n - 1)).to(dtype)
     x = (torch.log(radius) - logr0) / dlog
     x = torch.clamp(x, 0.0, n - 1 - 1e-6)
     # integer clamp too: in float32 the 1e-6 margin is below the ulp at
@@ -178,12 +179,12 @@ def _log_grid_locate(radius, rr, dtype, n=None):
 
 
 def _table_lerp(table, u):
-    """1D lerp of ``table`` at fractional positions u in [0, 1]."""
-    n = table.shape[0]
+    """Lerp of ``table`` (..., n) at fractional positions u in [0, 1]."""
+    n = table.shape[-1]
     x = torch.clamp(u * (n - 1), 0.0, n - 1 - 1e-6)
     j = torch.clamp_max(x.to(torch.int64), n - 2)  # float32 ulp guard
     w = x - j.to(table.dtype)
-    return (1.0 - w) * table[j] + w * table[j + 1]
+    return (1.0 - w) * _gather(table, j) + w * _gather(table, j + 1)
 
 
 def _build_joint_speed_pairs(fields_h, s_inv, r_q, dtype):
@@ -193,14 +194,14 @@ def _build_joint_speed_pairs(fields_h, s_inv, r_q, dtype):
     rr = fields_h["radius"]
     psi_r = (-fields_h["gravitational_potential"]).to(dtype)
     j, w = _log_grid_locate(r_q, rr, dtype)
-    psi_q = (1.0 - w) * psi_r[j] + w * psi_r[j + 1]
-    n_rows = s_inv.shape[0]
+    psi_q = (1.0 - w) * _gather(psi_r, j) + w * _gather(psi_r, j + 1)
+    n_rows = s_inv.shape[-2]
     # s_inv rows ascend in energy = row radii DESCENDING on an n_rows-point
     # log grid: the bracketing rows are (n-2-jr, n-1-jr), weight (1 - wr)
     jr, wr = _log_grid_locate(r_q, rr, dtype, n=n_rows)
     k_row = torch.clamp(n_rows - 2 - jr, 0, n_rows - 2)
     srow = _banded_row_lerp(s_inv.to(dtype), k_row, (1.0 - wr))
-    return srow * torch.sqrt(2.0 * psi_q)[:, None]
+    return srow * torch.sqrt(2.0 * psi_q)[..., None]
 
 
 def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
@@ -215,82 +216,90 @@ def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
     back by dividing the velocity's tangential components by
     gamma(r) = sqrt(1 + r^2/r_a^2).  ``uniforms``: ``(u_radius, u_speed,
     u_row, pos_dir, vel_dir)`` with each ``*_dir`` a pair for
-    :func:`~.core.draws.isotropic`.
+    :func:`~.core.draws.isotropic`.  Every argument may carry leading
+    batch axes (one scene each); the draws are then ``batch + (n,)``.
     """
     dev = r_q.device
+    shape = r_q.shape[:-1] + (n,)
     if uniforms is None:
-        u_r = uniform(gen, n, dtype, dev)
-        u_q = uniform(gen, n, dtype, dev)
-        u_b = uniform(gen, n, dtype, dev)
+        u_r = uniform(gen, shape, dtype, dev)
+        u_q = uniform(gen, shape, dtype, dev)
+        u_b = uniform(gen, shape, dtype, dev)
         pos_dir = vel_dir = None
     else:
         u_r, u_q, u_b, pos_dir, vel_dir = uniforms
     rq = r_q.to(dtype)
-    RQ = rq.shape[0]
-    n_q = s_inv.shape[1]
-    joint = _build_joint_speed_pairs(fields_h, s_inv, rq, dtype).reshape(-1)
+    RQ = rq.shape[-1]
+    n_q = s_inv.shape[-1]
+    joint = _build_joint_speed_pairs(fields_h, s_inv, rq, dtype).flatten(-2)
 
     x = torch.clamp(u_r * (RQ - 1), 0.0, RQ - 1 - 1e-6)
     kq = torch.clamp_max(x.to(torch.int64), RQ - 2)  # float32 ulp guard
     wq = x - kq.to(dtype)
-    radius = (1.0 - wq) * rq[kq] + wq * rq[kq + 1]
+    radius = (1.0 - wq) * _gather(rq, kq) + wq * _gather(rq, kq + 1)
 
     qm = torch.clamp(u_q * (n_q - 1), 0.0, n_q - 1 - 1e-6)
     m = torch.clamp_max(qm.to(torch.int64), n_q - 2)  # float32 ulp guard
     wm = qm - m.to(dtype)
     k_row = kq + (u_b < wq).to(torch.int64)
     flat = k_row * n_q + m
-    speed = (1.0 - wm) * joint[flat] + wm * joint[flat + 1]
+    speed = (1.0 - wm) * _gather(joint, flat) + wm * _gather(joint, flat + 1)
 
-    rhat = isotropic(n, dtype, dev, gen, pos_dir)
-    pos = radius[:, None] * rhat + center.to(dtype)
-    vdir = isotropic(n, dtype, dev, gen, vel_dir)
+    rhat = isotropic(shape, dtype, dev, gen, pos_dir)
+    pos = radius[..., None] * rhat + center.to(dtype)[..., None, :]
+    vdir = isotropic(shape, dtype, dev, gen, vel_dir)
     if r_a is not None:
-        mu = torch.sum(vdir * rhat, dim=1, keepdim=True)
+        mu = torch.sum(vdir * rhat, dim=-1, keepdim=True)
         gamma = torch.sqrt(1.0 + (radius / r_a) ** 2)
-        vdir = mu * rhat + (vdir - mu * rhat) / gamma[:, None]
-    vel = speed[:, None] * vdir + bulk_v.to(dtype)
-    pmass = (m_rmax / n).to(dtype).expand(n).contiguous()
+        vdir = mu * rhat + (vdir - mu * rhat) / gamma[..., None]
+    vel = speed[..., None] * vdir + bulk_v.to(dtype)[..., None, :]
+    pmass = (m_rmax / n).to(dtype)[..., None].expand(shape).contiguous()
     return pos, vel, pmass
 
 
 def _sample_gas_halo(fields_h, r_q, m_rmax, n, center, dtype, gen=None,
                      uniforms=None):
-    """Gas positions (zero velocity before mixing) for one halo.
-    ``uniforms``: ``(u_radius, dir)``."""
+    """Gas positions (zero velocity before mixing) for one halo, with any
+    leading batch axes.  ``uniforms``: ``(u_radius, dir)``."""
     dev = r_q.device
+    shape = r_q.shape[:-1] + (n,)
     if uniforms is None:
-        u = uniform(gen, n, dtype, dev)
+        u = uniform(gen, shape, dtype, dev)
         direction = None
     else:
         u, direction = uniforms
     radius = _table_lerp(r_q.to(dtype), u)
-    pos = (radius[:, None] * isotropic(n, dtype, dev, gen, direction)
-           + center.to(dtype))
-    pmass = (m_rmax / n).to(dtype).expand(n).contiguous()
+    pos = (radius[..., None] * isotropic(shape, dtype, dev, gen, direction)
+           + center.to(dtype)[..., None, :])
+    pmass = (m_rmax / n).to(dtype)[..., None].expand(shape).contiguous()
     return pos, pmass
 
 
 def _mix_gas(pos, fields, centers, velocities, dtype):
     """Density-weighted gas mixing over all halos: each particle's density,
     specific thermal energy and velocity are the density-weighted sums of
-    every halo's lerped fields (radii beyond the grid clamp to its end)."""
-    H = centers.shape[0]
+    every halo's lerped fields (radii beyond the grid clamp to its end).
+    ``pos`` (..., n, 3), ``fields`` (..., H, N), ``centers`` and
+    ``velocities`` (..., H, 3): the halos of each scene mix with each
+    other only."""
+    H = centers.shape[-2]
     dens_t = fields["density"].to(dtype)
     e_t = (1.5 * fields["pressure"] / fields["density"]).to(dtype)
     de_t = dens_t * e_t
     dens = eint = mom = None
     for i in range(H):
-        r = torch.sqrt(((pos - centers[i].to(dtype)) ** 2).sum(dim=1))
-        j, w = _log_grid_locate(r, fields["radius"][i], dtype)
-        d = (1.0 - w) * dens_t[i][j] + w * dens_t[i][j + 1]
-        e = (1.0 - w) * de_t[i][j] + w * de_t[i][j + 1]
-        v = velocities[i].to(dtype)[None, :] * d[:, None]
+        r = torch.sqrt(((pos - centers[..., i, None, :].to(dtype)) ** 2)
+                       .sum(dim=-1))
+        j, w = _log_grid_locate(r, fields["radius"][..., i, :], dtype)
+        d_i, de_i = dens_t[..., i, :], de_t[..., i, :]
+        d = (1.0 - w) * _gather(d_i, j) + w * _gather(d_i, j + 1)
+        e = (1.0 - w) * _gather(de_i, j) + w * _gather(de_i, j + 1)
+        v = velocities[..., i, None, :].to(dtype) * d[..., None]
         if dens is None:
             dens, eint, mom = d, e, v
         else:
             dens, eint, mom = dens + d, eint + e, mom + v
-    return dens, eint / dens, mom / dens[:, None]
+    return dens, eint / dens, mom / dens[..., None]
 
 
 def _potential_at(pos, fields, centers, dtype):
@@ -298,10 +307,12 @@ def _potential_at(pos, fields, centers, dtype):
     every halo's radial Phi(r), lerped on the log grid's computed index."""
     phi_t = fields["gravitational_potential"].to(dtype)
     total = None
-    for i in range(centers.shape[0]):
-        r = torch.sqrt(((pos - centers[i].to(dtype)) ** 2).sum(dim=1))
-        j, w = _log_grid_locate(r, fields["radius"][i], dtype)
-        p = (1.0 - w) * phi_t[i][j] + w * phi_t[i][j + 1]
+    for i in range(centers.shape[-2]):
+        r = torch.sqrt(((pos - centers[..., i, None, :].to(dtype)) ** 2)
+                       .sum(dim=-1))
+        j, w = _log_grid_locate(r, fields["radius"][..., i, :], dtype)
+        phi_i = phi_t[..., i, :]
+        p = (1.0 - w) * _gather(phi_i, j) + w * _gather(phi_i, j + 1)
         total = p if total is None else total + p
     return total
 
@@ -325,11 +336,16 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
     pre-drawn uniforms (see :func:`_sample_gas_halo` and
     :func:`_sample_collisionless`).  Returns a dict keyed like the JAX
     package's, e.g. ``("gas", "particle_position")``.
+
+    Leading batch axes (one scene each) before the halo axis of
+    ``fields``, ``tables``, ``centers`` and ``velocities`` carry through:
+    each output is then ``batch + (n, ...)`` and the uniforms are
+    ``batch + (n,)``.
     """
     dev = fields["radius"].device
     centers = _f64(centers, dev)
     velocities = _f64(velocities, dev)
-    H = centers.shape[0]
+    H = centers.shape[-2]
     if generator is None and uniforms is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     uniforms = uniforms or {}
@@ -342,47 +358,46 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
     dm = ([], [], [])
     st = ([], [], [])
     for i in range(H):
-        f_h = {k: v[i] for k, v in fields.items()}
+        f_h = {k: v[..., i, :] for k, v in fields.items()}
+        gas_q, gas_m = rtab["gas"][..., i, :], rtab["gas_mtot"][..., i]
+        ctr, bulk = centers[..., i, :], velocities[..., i, :]
         if n_gas[i] > 0:
-            p, pm = _sample_gas_halo(f_h, rtab["gas"][i], rtab["gas_mtot"][i],
-                                     n_gas[i], centers[i], dtype, generator,
-                                     uniforms.get(("gas", i)))
+            p, pm = _sample_gas_halo(f_h, gas_q, gas_m, n_gas[i], ctr, dtype,
+                                     generator, uniforms.get(("gas", i)))
             gas_pos.append(p)
             gas_mass.append(pm)
         for kind, n_k, acc in (("dm", n_dm, dm), ("star", n_star, st)):
             if n_k[i] > 0:
                 res = _sample_collisionless(
-                    f_h, tables[kind][i], rtab[kind][i],
-                    rtab[kind + "_mtot"][i], n_k[i], centers[i],
-                    velocities[i], dtype, generator,
-                    uniforms.get((kind, i)), r_a=r_a)
+                    f_h, tables[kind][..., i, :, :], rtab[kind][..., i, :],
+                    rtab[kind + "_mtot"][..., i], n_k[i], ctr, bulk, dtype,
+                    generator, uniforms.get((kind, i)), r_a=r_a)
                 for a, x in zip(acc, res):
                     a.append(x)
         if n_tracer[i] > 0:
-            p, _ = _sample_gas_halo(f_h, rtab["gas"][i], rtab["gas_mtot"][i],
-                                    n_tracer[i], centers[i], dtype, generator,
-                                    uniforms.get(("tracer", i)))
+            p, _ = _sample_gas_halo(f_h, gas_q, gas_m, n_tracer[i], ctr, dtype,
+                                    generator, uniforms.get(("tracer", i)))
             tr_pos.append(p)
 
     if gas_pos:
-        gp = torch.cat(gas_pos)
+        gp = torch.cat(gas_pos, dim=-2)
         dens, eint, gvel = _mix_gas(gp, fields, centers, velocities, dtype)
         out["gas", "particle_position"] = gp
         out["gas", "particle_velocity"] = gvel
-        out["gas", "particle_mass"] = torch.cat(gas_mass)
+        out["gas", "particle_mass"] = torch.cat(gas_mass, dim=-1)
         out["gas", "density"] = dens
         out["gas", "thermal_energy"] = eint
     for kind, acc in (("dm", dm), ("star", st)):
         if acc[0]:
-            out[kind, "particle_position"] = torch.cat(acc[0])
-            out[kind, "particle_velocity"] = torch.cat(acc[1])
-            out[kind, "particle_mass"] = torch.cat(acc[2])
+            out[kind, "particle_position"] = torch.cat(acc[0], dim=-2)
+            out[kind, "particle_velocity"] = torch.cat(acc[1], dim=-2)
+            out[kind, "particle_mass"] = torch.cat(acc[2], dim=-1)
     if tr_pos:
-        tp = torch.cat(tr_pos)
+        tp = torch.cat(tr_pos, dim=-2)
         out["tracer", "particle_position"] = tp
         out["tracer", "particle_velocity"] = torch.zeros_like(tp)
-        out["tracer", "particle_mass"] = torch.zeros(tp.shape[0], dtype=dtype,
-                                                     device=dev)
+        out["tracer", "particle_mass"] = torch.zeros(tp.shape[:-1],
+                                                     dtype=dtype, device=dev)
     if compute_potential:
         for sp in ("gas", "dm", "star"):
             if (sp, "particle_position") in out:
@@ -412,6 +427,21 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
                              dtype=dtype, compute_potential=compute_potential,
                              r_a=r_a, generator=generator, uniforms=uniforms)
     return parts, fields
+
+
+def attach_field_to_particles(parts: dict, field, ptype: str = "gas"):
+    """Trilinear sample of a 3D field (:class:`~.fields.ClusterField`) at
+    the particle positions of ``ptype``, in the positions' dtype, on their
+    device: adds ``(ptype, field._name)`` of shape (N, 3) to ``parts`` and
+    returns it."""
+    from .fields.grf import _trilinear
+
+    pos = parts[ptype, "particle_position"]
+    g = torch.stack([field.gx, field.gy, field.gz]).to(pos.dtype)
+    vals = _trilinear(field.x.to(pos.dtype), field.y.to(pos.dtype),
+                      field.z.to(pos.dtype), g, pos)
+    parts[ptype, field._name] = vals.T
+    return parts
 
 
 def binary_merger_ic(M200s, concs, centers, velocities, num_particles,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernel K1 (inverse of CDF rows) alone, at the shapes of the three main
+"""Kernel K1 (inverse of CDF rows) alone, at the shapes of the four main
 paths, on one NVIDIA card.
 
     python3 scripts/bench_k1.py [--other PATH.cu] [--variant NAME]...
@@ -7,7 +7,8 @@ paths, on one NVIDIA card.
 For each shape (the class path's 256x512->512 for DM, stars and
 Osipkov-Merritt DM of one 4096-point model; merger DM 512x512->512 and
 stars 128x256->256; ensemble batch of 256 clusters DM 32768x512->512 and
-stars 16384x256->256) the CDF
+stars 16384x256->256; merger-scene batch of 64 two-halo scenes DM
+32768x512->512 and stars 8192x256->256) the CDF
 rows are the ones the port builds (``virial.speed_cdf_rows``), and one JSON
 line gives: max |kernel - plain|, device ms per launch by CUDA events over
 ``--reps`` back-to-back launches of the bare C function (no allocation), the

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's three main paths goes, on one NVIDIA card.
+"""Where the time of the port's main paths goes, on one NVIDIA card.
 
 ``--path merger``: the four stages of ``cluster_generator_tpu_torch.pipeline``
 at the full 1e7-particle binary-merger workload of ``chip_smoke.py``.
@@ -9,7 +9,13 @@ width, 256 clusters of 1e5 particles on a 512-point grid.
 ``--path model``: the single-cluster class path at ``chip_smoke.py``'s full
 width (the profiles with their solvers, a 4096-point ``ClusterModel``, both
 DFs, both speed tables, and each ``generate_*_particles`` call, first and
-again on the same model, for 1.05e7 particles in all).  Each path runs
+again on the same model, for 1.05e7 particles in all).
+``--path fields``: the 512^3 float32 magnetic field and its vector
+potential, the 282^3 float64 radial field over the merger IC, and its
+sampling at the IC's 5e6 gas particles, at ``chip_smoke.py``'s sizes.
+``--path scenes``: the four stages of one merger-scene batch
+(``parallel.mergers._merger_batch_fn``) at cfg6, 64 binary scenes of 1e5
+particles on a 512-point grid.  Each path runs
 warm, under ``torch.profiler``, one stage at a time, and prints for each
 stage one JSON line: host wall time, number of kernel launches, device busy
 time (union of kernel intervals) and busy share.  Then it prints the
@@ -17,7 +23,8 @@ repository's own kernels and the ten that took the most device time over
 the whole path.  The default, ``both``, runs the merger and the datagen
 path.
 
-    python3 scripts/profile_torch_merger.py [--path merger|datagen|model|both]
+    python3 scripts/profile_torch_merger.py \
+        [--path merger|datagen|model|fields|scenes|both]
 
 Needs a CUDA device; imports no JAX.
 """
@@ -37,9 +44,12 @@ sys.path.insert(0, ROOT)
 
 from chip_smoke import (CENTERS, CLASS_COUNTS, CLASS_POINTS,  # noqa: E402
                         CONC, DATAGEN_BATCH, DATAGEN_COUNTS, DATAGEN_POINTS,
-                        DATAGEN_SEED, M200, N_DM, N_GAS, N_STAR, R_MAX,
-                        VELOCITIES, class_profiles, kernel_profile,
-                        nvidia_smi_line)
+                        DATAGEN_SEED, FIELD_DIMS, FIELD_SEED, M200, N_DM,
+                        N_GAS, N_STAR, R_MAX, RADIAL_DIMS, SCENE_BATCH,
+                        SCENE_COUNTS, SCENE_POINTS, VELOCITIES,
+                        class_profiles, kernel_profile, make_field,
+                        merger_models, nvidia_smi_line, radial_field,
+                        run_main_path, scene_params)
 
 
 def merger_stages():
@@ -120,6 +130,53 @@ def model_stages():
             + [(f"{name}_again", fn) for name, fn in draws])
 
 
+def fields_stages():
+    import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch import fields as F
+    from cluster_generator_tpu_torch import pipeline as P
+
+    models = merger_models(cg)
+    state = {"parts": run_main_path(P)[0]}
+    return [
+        ("magnetic_field_512", lambda: make_field(
+            F, "RandomMagneticField", FIELD_DIMS, FIELD_SEED)),
+        ("vector_potential_512", lambda: make_field(
+            F, "RandomMagneticVectorPotential", FIELD_DIMS, FIELD_SEED)),
+        ("radial_field_282", lambda: state.__setitem__(
+            "f", radial_field(F, models, RADIAL_DIMS, "cuda"))),
+        ("attach_5e6", lambda: P.attach_field_to_particles(
+            state["parts"], state["f"])),
+    ]
+
+
+def scenes_stages():
+    from cluster_generator_tpu_torch import pipeline as P
+    from cluster_generator_tpu_torch.parallel import mergers as MG
+
+    prog = MG._merger_batch_fn(SCENE_POINTS, *SCENE_COUNTS.values())
+    p = scene_params(MG, SCENE_BATCH)
+    ctr, vel = (torch.as_tensor(a, device="cuda") for a in
+                MG.binary_scene_geometry(p["M200"], p["d"], p["b"],
+                                         p["v_rel"]))
+    r_max = torch.full((2,), R_MAX, dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {}
+
+    def radius_tables():
+        state["tabs"]["radius"] = P.build_radius_tables(
+            state["f"], r_max.repeat(SCENE_BATCH))
+
+    return [
+        ("models", lambda: state.__setitem__(
+            "f", prog.models(p["M200"], p["conc"]))),
+        ("speed_tables", lambda: state.__setitem__(
+            "tabs", P.build_speed_tables(state["f"]))),
+        ("radius_tables", radius_tables),
+        ("draws", lambda: state.__setitem__("out", prog.draws(
+            state["f"], state["tabs"], p["M200"], ctr, vel, r_max, gen))),
+    ]
+
+
 def profile_path(path, stages, card):
     for _ in range(2):  # warm: kernels built, allocator pools filled
         for _, fn in stages:
@@ -166,8 +223,8 @@ def profile_path(path, stages, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("merger", "datagen", "model", "both"),
-                    default="both")
+    ap.add_argument("--path", choices=("merger", "datagen", "model", "fields",
+                                       "scenes", "both"), default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_merger: no CUDA device", file=sys.stderr)
@@ -180,6 +237,10 @@ def main() -> int:
         profile_path("datagen", datagen_stages(), card)
     if args.path == "model":
         profile_path("model", model_stages(), card)
+    if args.path == "fields":
+        profile_path("fields", fields_stages(), card)
+    if args.path == "scenes":
+        profile_path("scenes", scenes_stages(), card)
     return 0
 
 

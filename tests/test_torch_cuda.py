@@ -180,3 +180,92 @@ def test_class_path_on_the_card_against_the_cpu():
     parts.add_offsets([10.0, 0.0, 0.0], [0.0, 0.1, 0.0])
     assert parts.device.type == "cuda"
     assert all(v.is_cuda for v in parts.fields.values())
+
+
+@pytest.mark.cuda
+def test_fields_on_the_card_against_the_cpu():
+    """Float64 fields from the same noise on the card and on the CPU: the
+    constant-rms vector potential at an odd z size and a two-halo radial
+    field; cuFFT and the CPU's FFT agree to roundoff."""
+    from cluster_generator_tpu_torch import fields as F
+
+    _card()
+    r = torch.logspace(0, 4, 200, dtype=torch.float64)
+    g = 1e-6 * (1.0 + r / 300.0) ** -1.5
+    cases = {
+        "vector_potential": (dict(B_rms=1e-6), F.RandomMagneticVectorPotential,
+                             (24, 24, 21)),
+        "radial": (dict(ctr1=[-200.0] * 3, profile1=(r, g), ctr2=[300.0] * 3,
+                        profile2=(r, 2 * g)), F.RadialRandomMagneticField,
+                   (24, 24, 24)),
+    }
+    for name, (kw, cls, dims) in cases.items():
+        shape = tuple(d + 2 * int(np.ceil(0.05 * d)) for d in dims)
+        noise = torch.randn((3,) + shape, dtype=torch.float64,
+                            generator=torch.Generator().manual_seed(1))
+        a = cls([-1000.0] * 3, [1000.0] * 3, dims, 100.0, 800.0,
+                noise=noise.cuda(), device="cuda", **kw)
+        b = cls([-1000.0] * 3, [1000.0] * 3, dims, 100.0, 800.0,
+                noise=noise, device="cpu", **kw)
+        for ga, gb in ((a.gx, b.gx), (a.gy, b.gy), (a.gz, b.gz)):
+            assert ga.is_cuda and ga.dtype == torch.float64
+            err = float((ga.cpu() - gb).abs().max() / gb.abs().max())
+            assert err < 1e-10, (name, err)
+
+
+@pytest.mark.cuda
+def test_scene_batch_on_the_card_against_the_cpu():
+    """Two scenes with the same uniforms on both devices: one K1 launch
+    per species, every output finite, draws within float32 roundoff (a
+    speed may move one joint-table row where u and w tie)."""
+    from cluster_generator_tpu_torch.parallel import mergers as MG
+
+    _card()
+    p = MG.sample_merger_scene_params(torch.Generator().manual_seed(4), 2,
+                                      device="cpu")
+    ctr, vel = MG.binary_scene_geometry(p["M200"], p["d"], p["b"],
+                                        p["v_rel"])
+    ng, nd, ns = (3000, 2000), (2500, 2500), (600, 400)
+    gen = torch.Generator().manual_seed(5)
+
+    def u(n):
+        return torch.rand((2, n), generator=gen, dtype=torch.float32)
+
+    unif = {}
+    for i in range(2):
+        unif["gas", i] = (u(ng[i]), (u(ng[i]) * 2 - 1, u(ng[i])))
+        for kind, n in (("dm", nd[i]), ("star", ns[i])):
+            unif[kind, i] = (u(n), u(n), u(n), (u(n) * 2 - 1, u(n)),
+                             (u(n) * 2 - 1, u(n)))
+
+    def to(tree, dev):
+        if isinstance(tree, tuple):
+            return tuple(to(x, dev) for x in tree)
+        return tree.to(dev)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fn = MG._merger_batch_fn(256, ng, nd, ns, device=dev)
+        before = invert_cdf_rows.launches
+        out[dev] = fn(p["M200"], p["conc"], ctr, vel, [5000.0, 5000.0],
+                      uniforms={k: to(v, dev) for k, v in unif.items()})
+        launched = invert_cdf_rows.launches - before
+        assert launched == (2 if dev == "cuda" else 0)
+    for k, a in out["cpu"].items():
+        b = out["cuda"][k].cpu()
+        assert b.shape == a.shape and bool(torch.isfinite(b).all()), k
+        a, b = a.double(), b.double()
+        if k.endswith("_velocity") and not k.startswith("gas"):
+            bulk = torch.cat([torch.as_tensor(vel[:, i, None, :]).expand(
+                -1, (nd if k.startswith("dm") else ns)[i], -1)
+                for i in range(2)], dim=1)
+            sa, sb = (a - bulk).norm(dim=-1), (b - bulk).norm(dim=-1)
+            assert int(((sa - sb).abs() > 1e-4 * sa).sum()) <= 2, k
+        elif k == "gas_velocity":
+            assert float((a - b).abs().max()) < 2e-5 * float(
+                np.abs(vel).max()), k
+        elif a.ndim == 3:
+            rel = (a - b).norm(dim=-1) / a.norm(dim=-1)
+            assert float(rel.max()) < 2e-5, k
+        else:
+            assert float(((a - b).abs() / a.abs()).max()) < 2e-5, k

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of it and running a small
-merger IC (with every switch), a small datagen batch and the single-cluster
-class path on the CPU loads neither JAX nor the JAX package, nor h5py."""
+merger IC (with every switch), a small datagen batch, the single-cluster
+class path, every random-field class with its particle sampling, and a
+merger-scene stream with its QA on the CPU loads neither JAX nor the JAX
+package, nor h5py."""
 
 import os
 import subprocess
@@ -70,6 +72,30 @@ import tempfile
 with tempfile.TemporaryDirectory() as d:
     m.write_model_to_ascii(d + "/m.ecsv")
     m.write_model_to_binary(d + "/m.dat")
+le, re = [-3000.0] * 3, [3000.0] * 3
+for cls in ("RandomMagneticField", "RandomMagneticVectorPotential",
+            "RandomVelocityField"):
+    getattr(cgt, cls)(le, re, [12, 12, 10], 400.0, 2000.0, 1.0, prng=1,
+                      device="cpu")
+for cls in ("RadialRandomMagneticField", "RadialRandomMagneticVectorPotential",
+            "RadialRandomVelocityField"):
+    prof = (m["radius"], m["magnetic_field_strength"])
+    f = getattr(cgt, cls)(le, re, [12, 12, 12], 400.0, 2000.0, [0.0] * 3,
+                          prof, ctr2=[900.0] * 3, profile2=prof, prng=2,
+                          dtype=torch.float32, device="cpu")
+cgt.attach_field_to_particles(parts, f)
+f.map_field_to_particles(p, "gas")
+assert bool(torch.isfinite(p["gas", "velocity"]).all())
+from cluster_generator_tpu_torch.parallel.mergers import verify_scene_batch
+sc = cgt.sample_merger_scene_params(None, 3, device="cpu")
+counts = {"dm": (200, 200), "gas": (150, 150), "star": (50, 50)}
+for b0, out in cgt.merger_scene_batches(sc, counts, batch_size=2,
+                                        num_points=128, device="cpu"):
+    sl = slice(b0, b0 + 2)
+    ctr, vel = cgt.binary_scene_geometry(sc["M200"][sl], sc["d"][sl],
+                                         sc["b"][sl], sc["v_rel"][sl])
+    verify_scene_batch(out, sc["M200"][sl], sc["conc"][sl], ctr, vel, 5000.0,
+                       counts, num_points=128)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "cluster_generator_tpu", "h5py"))
@@ -80,8 +106,9 @@ print("FOREIGN", bad)
 MODULES = """
 convert core core.config core.constants core.cosmology core.device
 core.draws core.grid core.interp core.logging core.quadrature core.units
-model model.builders model.cluster_model model.gravity ops ops.build
-ops.cdf_inverse parallel parallel.ensemble parallel.qa particles pipeline
+fields fields.grf model model.builders model.cluster_model model.gravity ops
+ops.build ops.cdf_inverse parallel parallel.ensemble parallel.mergers
+parallel.qa particles pipeline
 profiles profiles.algebra profiles.library profiles.relations
 profiles.solvers sampling virial
 """.split()
