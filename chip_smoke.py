@@ -51,8 +51,20 @@ Phases, in order; any failure exits non-zero before the last line:
     scenes of 1e5 particles, batches of 64, a 512-point grid): first
     batch, the warm stream, one Osipkov-Merritt batch, each with K1's
     launches and the physics QA of the scene catalog on the card;
-13. print one JSON line of kernel numbers;
-14. print the card's name and power limit, then the last line
+13. the IC scene of ``ClusterICs`` (BASELINE.md's config 4) through the
+    module functions its methods call, since the machine has no ``h5py``
+    for its files: bench2h-1e7's two halos as class-path models, 1.05e7
+    particles pro-rated by ``halo_particle_counts``, each halo drawn by
+    ``draw_halo_particles`` (K1 once per species and model), then
+    ``combine_two_clusters``, ``resample_two_clusters`` with a passive
+    scalar, AREPO's 128^3 background grid, the Gadget blocks for a 14000
+    kpc box and the Fortran particle file of the dark matter, each step
+    first and warm, with the scene's QA; card against CPU for combine and
+    resample on the same particles;
+14. the same with a third halo (``combine_three_clusters``,
+    ``resample_three_clusters``);
+15. print one JSON line of kernel numbers;
+16. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -148,6 +160,21 @@ SCENE_COUNTS = {"gas": (20_000, 20_000), "dm": (25_000, 25_000),
                 "star": (5_000, 5_000)}
 SCENE_SEED = 7
 SCENE_R_A = 1500.0          # kpc, the Osipkov-Merritt batch
+
+# the IC scene: BASELINE.md's config (4), ClusterICs over bench2h-1e7's halos
+IC_CENTER, IC_D, IC_B = [7000.0] * 3, 3000.0, 500.0
+IC_TOTALS = {"gas": 5_000_000, "dm": 4_000_000, "star": 1_000_000,
+             "tracer": 500_000}
+IC_BOX, AREPO_NX = 14000.0, 128
+THIRD_HALO = (5e14, 6.0)                # M200, c of the three-halo scene
+THIRD_CENTER = (7000.0, 9000.0, 7000.0)
+THIRD_VELOCITY = (0.0, -0.25, 0.0)
+IC_QA_POINTS = 10_000       # gas densities recomputed in float64 by scipy
+IC_DENSITY_RTOL = 1e-10
+IC_SIGMAS = 5.0             # bulk velocity per halo block, standard errors
+IC_CPU_COUNTS = {"dm": 60_000, "gas": 100_000, "star": 20_000,
+                 "tracer": 10_000}
+IC_CPU_RTOL = 1e-12         # max |card - CPU| / max |CPU| per field
 
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
@@ -1243,17 +1270,22 @@ def curl_check(F):
 
 
 # ----------------------------------------------------------------- phase 11
-def merger_models(cg):
-    """The merger's two halos as class-path models with beta = 100 B
-    fields."""
+def scene_models(cg, halos, **dev):
+    """Halos ``(M200, c)`` as class-path models with beta = 100 B fields
+    (1000-point grids)."""
     models = []
-    for m200, conc in zip(M200, CONC):
-        rhog, rhot = class_profiles(cg, m200, conc)
+    for m200, conc in halos:
+        rhog, rhot = class_profiles(cg, m200, conc, **dev)
         m = cg.ClusterModel.from_dens_and_tden(
-            0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot)
+            0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot, **dev)
         m.set_magnetic_field_from_beta(RADIAL_BETA)
         models.append(m)
     return models
+
+
+def merger_models(cg):
+    """The merger's two halos as class-path models."""
+    return scene_models(cg, zip(M200, CONC))
 
 
 def radial_field(F, models, dims, device, noise=None, seed=3):
@@ -1433,6 +1465,273 @@ def run_scenes(MG, K, card):
     return launches
 
 
+# ------------------------------------------------------------ phases 13, 14
+def ic_geometry(cg, n_halos):
+    """Centers and bulk velocities of the two- or three-halo scene."""
+    c1, c2 = cg.compute_centers_for_binary(IC_CENTER, IC_D, IC_B)
+    centers = [c1, c2, THIRD_CENTER][:n_halos]
+    velocities = [VELOCITIES[0], VELOCITIES[1], THIRD_VELOCITY][:n_halos]
+    return centers, velocities
+
+
+def ic_draws(I, models, counts, seed):
+    """Each halo's particles about its own center, one generator per
+    species and halo from ``seed``."""
+    base = torch.Generator(device=models[0].device).manual_seed(seed)
+    return [I.draw_halo_particles(m, {k: counts[k][i] for k in counts},
+                                  R_MAX, generators=I.halo_generators(base))
+            for i, m in enumerate(models)]
+
+
+def ic_combine(PA, halos, models, centers, velocities):
+    fn = (PA.combine_two_clusters if len(halos) == 2
+          else PA.combine_three_clusters)
+    return fn(*halos, *models, *centers, *velocities)
+
+
+def ic_resample(PA, scene, models, centers, velocities):
+    fn = (PA.resample_two_clusters if len(models) == 2
+          else PA.resample_three_clusters)
+    return fn(scene, *models, *centers, *velocities, [R_MAX] * len(models),
+              passive_scalars=["metallicity"])
+
+
+def ic_scene_density_qa(scene, models, centers):
+    """The mixed gas density at ``IC_QA_POINTS`` particles against the sum
+    of the halos' densities recomputed in float64 by scipy's not-a-knot
+    spline on the host; returns the largest relative difference."""
+    import numpy as np
+    from scipy.interpolate import CubicSpline
+
+    n = scene.num_particles["gas"]
+    idx = torch.linspace(0, n - 1, IC_QA_POINTS,
+                         device=scene.device).round().long()
+    pos = scene["gas", "particle_position"][idx].cpu().numpy()
+    got = scene["gas", "density"][idx].cpu().numpy()
+    want = np.zeros(IC_QA_POINTS)
+    for m, c in zip(models, centers):
+        rr, dens = m["radius"].cpu().numpy(), m["density"].cpu().numpy()
+        r = np.clip(np.linalg.norm(pos - np.asarray(c), axis=1), rr[0],
+                    rr[-1])
+        want += CubicSpline(rr, dens)(r)
+    return float(np.max(np.abs(got - want) / want))
+
+
+def ic_scene_qa(halos, scene, counts, centers, velocities, label):
+    """Counts, finiteness and bulk velocities of a combined scene; returns
+    the numbers it checked."""
+    n_h = len(halos)
+    rep = {"nonfinite": sum(int((~torch.isfinite(v)).sum())
+                            for v in scene.fields.values())}
+    check(rep["nonfinite"] == 0, f"{label}: non-finite values {rep}")
+    for sp, total in IC_TOTALS.items():
+        got = [h.num_particles.get(sp, 0) for h in halos]
+        check(got == counts[sp], f"{label} {sp}: drawn {got} != pro-rated "
+              f"{counts[sp]}")
+        check(abs(sum(got) - total) <= n_h,
+              f"{label} {sp}: {sum(got)} of {total} in all")
+        check(scene.num_particles[sp] == sum(got),
+              f"{label} {sp}: scene holds {scene.num_particles[sp]}")
+    sig = 0.0
+    for sp in ("dm", "star", "tracer"):
+        v = scene[sp, "particle_velocity"]
+        off = 0
+        for n, want in zip(counts[sp], velocities):
+            blk = v[off:off + n]
+            off += n
+            mean = blk.mean(dim=0)
+            se = blk.std(dim=0) / math.sqrt(n)
+            dev = (mean - torch.tensor(want, dtype=v.dtype,
+                                       device=v.device)).abs()
+            check(bool((dev <= IC_SIGMAS * se + 1e-12).all()),
+                  f"{label} {sp}: bulk {mean.tolist()} vs {want} "
+                  f"(se {se.tolist()})")
+            if sp != "tracer":
+                sig = max(sig, float((dev / se).max()))
+    rep["bulk_velocity_max_sigmas"] = sig
+    gv = scene["gas", "particle_velocity"]
+    bulk = torch.tensor(velocities, dtype=gv.dtype, device=gv.device)
+    out = ((gv < bulk.min(dim=0).values - 1e-12)
+           | (gv > bulk.max(dim=0).values + 1e-12))
+    rep["gas_velocity_outside_hull"] = int(out.any(dim=1).sum())
+    check(rep["gas_velocity_outside_hull"] == 0,
+          f"{label}: mixed gas velocities outside the bulk hull")
+    return rep
+
+
+def ic_gadget_qa(full, blocks, n_in, table, bg, centers, label):
+    """Gadget IDs 1..N once each, MassTable as the float32 first mass,
+    every background cell outside every halo."""
+    import numpy as np
+
+    ids = np.concatenate([b["ParticleIDs"] for b in blocks.values()])
+    check(ids.dtype == np.uint32 and ids.size == sum(n_in.values())
+          and np.array_equal(ids, np.arange(1, ids.size + 1,
+                                            dtype=np.uint32)),
+          f"{label}: Gadget IDs are not 1..N")
+    for sp, slot in (("dm", 1), ("star", 4)):
+        first = int(torch.nonzero(full._clip_to_box(sp, IC_BOX))[0])
+        want = np.float64(np.float32(
+            float(full[sp, "particle_mass"][first]) / 1e10))
+        check(table[slot] == want and blocks[sp]["Masses"].dtype
+              == np.float32, f"{label}: MassTable[{slot}] {table[slot]} "
+              f"!= {want}")
+    pos = bg["gas", "particle_position"]
+    gap = min(float(((pos - torch.as_tensor(c, dtype=pos.dtype,
+                                            device=pos.device)) ** 2)
+                    .sum(dim=1).min().sqrt()) - R_MAX for c in centers)
+    check(pos.shape[0] > 0 and gap > 0.0,
+          f"{label}: a background cell within r_max ({gap} kpc)")
+    return {"ids": int(ids.size), "mass_table": table.tolist(),
+            "background_cells": int(pos.shape[0]),
+            "background_min_gap_kpc": gap}
+
+
+def run_ic_scene(cg, I, PA, CO, K, card, n_halos):
+    """The IC scene of ``n_halos`` halos at 1.05e7 particles, every step
+    first and warm; returns K1's launches over the phase (one per species
+    and model: none on the second draw at the same r_max)."""
+    import numpy as np
+    from scipy.io import FortranFile
+
+    label = f"IC scene {n_halos} halos"
+    halos_def = list(zip(M200, CONC)) + [THIRD_HALO]
+    torch.cuda.reset_peak_memory_stats()
+    K.invert_cdf_rows.launches = 0
+    models, model_s = timed(lambda: scene_models(cg, halos_def[:n_halos]))
+    centers, velocities = ic_geometry(cg, n_halos)
+    r_max = [R_MAX] * n_halos
+    counts, count_s = timed(lambda: I.halo_particle_counts(
+        models, r_max, IC_TOTALS))
+    times = {"models": model_s, "counts": count_s}
+    first, times["draws_first"] = timed(lambda: ic_draws(I, models, counts,
+                                                         n_halos))
+    launched = K.invert_cdf_rows.launches
+    warm, times["draws_warm"] = timed(lambda: ic_draws(I, models, counts,
+                                                       10 + n_halos))
+    check(K.invert_cdf_rows.launches == launched,
+          f"{label}: the second draw launched K1")
+    scene, times["combine_first"] = timed(lambda: ic_combine(
+        PA, first, models, centers, velocities))
+    scene_b, times["combine_warm"] = timed(lambda: ic_combine(
+        PA, warm, models, centers, velocities))
+    rep = ic_scene_qa(first, scene, counts, centers, velocities, label)
+    rep["density_max_rel_err"] = ic_scene_density_qa(scene, models, centers)
+    check(rep["density_max_rel_err"] < IC_DENSITY_RTOL,
+          f"{label}: mixed density vs scipy {rep['density_max_rel_err']}")
+
+    for m in models:
+        m.set_field("metallicity", torch.linspace(
+            1.0, 0.1, m.num_elements, dtype=torch.float64, device="cuda"))
+    for sc in (scene, scene_b):
+        sc.set_field("gas", "metallicity",
+                     torch.zeros(sc.num_particles["gas"], device="cuda"),
+                     passive_scalar=True)
+    mass0 = scene["gas", "particle_mass"].clone()
+    _, times["resample_first"] = timed(lambda: ic_resample(
+        PA, scene, models, centers, velocities))
+    _, times["resample_warm"] = timed(lambda: ic_resample(
+        PA, scene_b, models, centers, velocities))
+    # the particles did not move: the resample finds the same density, so
+    # the masses keep their values
+    rep["resample_mass_max_rel_change"] = float(
+        ((scene["gas", "particle_mass"] - mass0).abs() / mass0).max())
+    z = scene["gas", "metallicity"]
+    check(rep["resample_mass_max_rel_change"] < 1e-12
+          and bool(torch.isfinite(z).all()) and float(z.min()) >= 0.1 - 1e-12
+          and float(z.max()) <= 1.0 + 1e-12,
+          f"{label}: resample {rep}, metallicity [{float(z.min())}, "
+          f"{float(z.max())}]")
+    del scene_b, warm, mass0
+
+    def background():
+        bg = CO._arepo_background(centers, r_max, IC_BOX, AREPO_NX, scene)
+        return bg, scene + cg.ClusterParticles.from_fields(bg,
+                                                           device="cuda")
+
+    _, times["background_first"] = timed(background)
+    (bg, full), times["background_warm"] = timed(background)
+    _, times["gadget_blocks_first"] = timed(lambda: PA._gadget_blocks(
+        full, IC_BOX, code="arepo"))
+    (blocks, n_in, table), times["gadget_blocks_warm"] = timed(
+        lambda: PA._gadget_blocks(full, IC_BOX, code="arepo"))
+    rep.update(ic_gadget_qa(full, blocks, n_in, table, bg, centers, label))
+    rep["gadget_bytes"] = sum(a.nbytes for b in blocks.values()
+                              for a in b.values())
+    del blocks, full, bg
+
+    with tempfile.TemporaryDirectory() as d:
+        fn = os.path.join(d, "halo_part.dat")
+
+        def write():
+            CO.write_amr_particles(scene, fn, ["dm"], {"dm": 1},
+                                   format="fortran", in_cgs=True)
+
+        _, times["fortran_dm_first"] = timed(write)
+        _, times["fortran_dm_warm"] = timed(write)
+        with FortranFile(fn, "r") as f:
+            n = int(f.read_ints()[0])
+            rec = f.read_reals().reshape(n, 7)
+    want = torch.cat([scene["dm", "particle_position"]
+                      * CO._cgs_factor("particle_position"),
+                      scene["dm", "particle_velocity"]
+                      * CO._cgs_factor("particle_velocity"),
+                      (scene["dm", "particle_mass"]
+                       * CO._cgs_factor("particle_mass"))[:, None]],
+                     dim=1).cpu().numpy()
+    check(n == scene.num_particles["dm"] and np.array_equal(rec, want),
+          f"{label}: the Fortran record does not read back exactly")
+    rep["fortran_dm_bytes"] = int(rec.nbytes)
+    launches = K.invert_cdf_rows.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} ({sum(IC_TOTALS.values())} particles, counts "
+          f"{json.dumps(dict(counts))}), seconds:",
+          json.dumps({k: round(v, 4) for k, v in times.items()}),
+          f"[{card}]")
+    print(f"{label}: QA", json.dumps(rep))
+    print(f"{label}: peak memory {peak:.2f} GiB; K1 launches {launches} "
+          f"[{card}]")
+    check(launches == 2 * n_halos,
+          f"{label}: K1 launches {launches}, want {2 * n_halos}")
+    return launches
+
+
+def ic_device_agreement(cg, I, PA, counts=IC_CPU_COUNTS):
+    """The same particles (drawn on the CPU) through combine_two_clusters
+    and resample_two_clusters on the card and on the CPU; returns max
+    |card - CPU| / max |CPU| per stage and field."""
+    models = scene_models(cg, zip(M200, CONC), device="cpu")
+    centers, velocities = ic_geometry(cg, 2)
+    for m in models:
+        m.set_field("metallicity", torch.linspace(
+            1.0, 0.1, m.num_elements, dtype=torch.float64))
+    host = [h.to_numpy() for h in ic_draws(
+        I, models, I.halo_particle_counts(models, [R_MAX] * 2, counts), 3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        halos = [cg.ClusterParticles.from_fields(
+            {k: torch.from_numpy(v.copy()).to(dev) for k, v in h.items()},
+            device=dev) for h in host]
+        scene = ic_combine(PA, halos, models, centers, velocities)
+        combined = {k: v.clone() for k, v in scene.fields.items()}
+        scene.set_field("gas", "metallicity",
+                        torch.zeros(scene.num_particles["gas"]),
+                        passive_scalar=True)
+        # relaxed: the gas moved, so the resample writes new values
+        scene["gas", "particle_position"] = (
+            scene["gas", "particle_position"] * 1.001)
+        ic_resample(PA, scene, models, centers, velocities)
+        out[dev] = {"combine": combined, "resample": scene.fields}
+    errs = {}
+    for stage, want in out["cpu"].items():
+        for k, b in want.items():
+            a = out["cuda"][stage][k]
+            check(a.is_cuda, f"card vs CPU: {stage} {k} left the card")
+            errs[f"{stage}/{k[0]}/{k[1]}"] = float(
+                (a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-300))
+    return errs
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1509,10 +1808,26 @@ def main() -> int:
     run_fields(F, card)
     run_radial_field(cg, F, P, card)
 
+    from cluster_generator_tpu_torch import codes as CO
+    from cluster_generator_tpu_torch import ics as I
+    from cluster_generator_tpu_torch import particles as PA
+
+    for n_halos in (2, 3):
+        launches[f"ic_scene_{n_halos}"] = run_ic_scene(cg, I, PA, CO, K,
+                                                       card, n_halos)
+    errs = ic_device_agreement(cg, I, PA)
+    print(f"IC scene card vs CPU ({sum(IC_CPU_COUNTS.values())} particles "
+          "per halo, combine and resample), max |diff| / max |CPU|:",
+          json.dumps({k: f"{v:.1e}" for k, v in errs.items()}),
+          f"(limit {IC_CPU_RTOL})")
+    check(all(v < IC_CPU_RTOL for v in errs.values()),
+          f"IC scene card vs CPU: {errs}")
+
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in
     # "shapes", and "launches" sums the runs of the main paths (the scene
-    # batches' DM rows have the same shape)
+    # batches' DM rows have the same shape, the IC scenes' rows the class
+    # path's)
     top = k1["datagen_dm"]
     kernels = [{
         "name": "invert_cdf_rows",

@@ -2,9 +2,12 @@
 
 The same galaxy-cluster initial-conditions engine on one NVIDIA H100:
 equilibrium models, Eddington DFs, inverse-CDF tables and particle draws.
-Five paths: the class API of a single cluster (:class:`ClusterModel`,
+Six paths: the class API of a single cluster (:class:`ClusterModel`,
 :class:`VirialEquilibrium`, :class:`ClusterParticles`, with the profile
-library, every constructor and the MOND gravity laws), the fused merger IC
+library, every constructor and the MOND gravity laws), the multi-cluster
+IC scene (:class:`ClusterICs`: pro-rating, per-halo draws, gas mixing and
+resampling) with its exporters (:mod:`.codes`: Gadget/AREPO, GAMER, FLASH,
+RAMSES), the fused merger IC
 (:mod:`.pipeline`), the ensemble datagen batch program
 (:mod:`.parallel.ensemble`) and the merger-scene batch program
 (:mod:`.parallel.mergers`), the last three as plain functions on tensors
@@ -14,11 +17,14 @@ tables and fused draws.  The TPU kernel of the JAX package is a
 hand-written CUDA kernel here (``ops/csrc``), compiled by ``nvcc`` at
 first use.  Entry points run on the card unless called with
 ``device="cpu"``.  This package imports neither JAX nor
-``cluster_generator_tpu``.
+``cluster_generator_tpu``; ``h5py``, PyYAML and ``yt`` are imported only
+inside the functions that read or write their formats.
 """
 
 from __future__ import annotations
 
+from .codes import (resample_arepo_ics, setup_arepo_ics, setup_flash_ics,
+                    setup_gamer_ics, setup_ramses_ics)
 from .core.config import cgparams
 from .core.constants import G, kboltz, mp, mu, mue
 from .core.cosmology import Cosmology, default_cosmology
@@ -29,6 +35,7 @@ from .fields import (ClusterField, GaussianRandomField,
                      RadialRandomMagneticVectorPotential,
                      RadialRandomVelocityField, RandomMagneticField,
                      RandomMagneticVectorPotential, RandomVelocityField)
+from .ics import ClusterICs, compute_centers_for_binary
 from .model import ClusterModel, HydrostaticEquilibrium
 from .parallel.ensemble import (build_ensemble, datagen_batches,
                                 prorate_species_counts,
@@ -61,7 +68,9 @@ __all__ = ["attach_field_to_particles", "binary_merger_ic",
            "merger_ic_fused", "prorate_species_counts",
            "sample_ensemble_params", "sample_merger_ic",
            "ClusterModel", "HydrostaticEquilibrium", "VirialEquilibrium",
-           "ClusterParticles", "Cosmology", "default_cosmology", "G",
+           "ClusterParticles", "ClusterICs", "compute_centers_for_binary",
+           "resample_arepo_ics", "setup_arepo_ics", "setup_flash_ics",
+           "setup_gamer_ics", "setup_ramses_ics", "Cosmology", "default_cosmology", "G",
            "kboltz", "mp", "mu", "mue", "cgparams", "log_radius_grid",
            "mylog", "relations", "convert_ne_to_density", "f_gas", "m_bcg",
            "m_sat", "r_bcg", *_profile_names]

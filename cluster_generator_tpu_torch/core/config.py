@@ -22,6 +22,7 @@ defaults: dict = {
                 "level": "INFO",
                 "stream": "STDERR",
             },
+            "developer": {"enabled": False, "output_directory": None},
         },
     },
     "numerical": {

@@ -1,12 +1,15 @@
-"""The particle container.
+"""Particle containers, gas mixing and Gadget I/O.
 
 :class:`ClusterParticles` is a (ptype, field)-keyed dict of tensors in
 galactic units on one device: float64, except ``particle_index``, which
-keeps its integer dtype.  Nothing here copies a field to the host but the
-writer :meth:`ClusterParticles.write_particles` and the explicit
-:meth:`ClusterParticles.to_numpy`.  The Gadget reader and writer, the yt
-bridge and the combine/resample functions of
-``cluster_generator_tpu.particles`` are not part of this module yet.
+keeps its integer dtype.  The gas mixing of :func:`combine_two_clusters`,
+:func:`combine_three_clusters` and the ``resample_*`` functions runs on
+the particles' device, one halo at a time (halo models may sit on grids of
+different sizes).  Nothing here copies a field to the host but the writers,
+:meth:`ClusterParticles.to_numpy` and :meth:`ClusterParticles.to_yt_dataset`;
+the Gadget writer assembles its blocks on the device and copies them to the
+host at once (:func:`_gadget_blocks`).  ``h5py`` and ``yt`` are imported
+inside the functions that need them.
 """
 
 from __future__ import annotations
@@ -20,9 +23,14 @@ import torch
 
 from .core import constants as C
 from .core.device import resolve_device
+from .core.interp import bracket_for_spline, cubic_spline, spline_eval_at
 from .core.logging import mylog
 
-__all__ = ["ClusterParticles", "gadget_fields", "ptype_map", "rptype_map"]
+__all__ = [
+    "ClusterParticles", "combine_two_clusters", "combine_three_clusters",
+    "resample_one_cluster", "resample_two_clusters", "resample_three_clusters",
+    "gadget_fields", "ptype_map", "rptype_map",
+]
 
 # ---------------------------------------------------------------- gadget maps
 gadget_fields = {
@@ -101,12 +109,18 @@ class ClusterParticles:
     only); pass ``"cpu"`` to keep arrays on the CPU."""
 
     def _coerce(self, key, value):
-        # particle_index carries Gadget IDs: it keeps its integer dtype
+        # particle_index carries Gadget IDs: it stays integral, the
+        # unsigned ones (uint32 in Gadget files) widened to int64, since
+        # torch's unsigned types lack most operations
         if key[1] == "particle_index":
-            if isinstance(value, torch.Tensor):
-                return value.to(self.device)
-            return torch.as_tensor(np.array(value),
-                                   device=self.device)
+            if not isinstance(value, torch.Tensor):
+                value = np.array(value)
+                if value.dtype.kind == "u":
+                    value = value.astype(np.int64)
+                value = torch.as_tensor(value)
+            elif value.dtype in (torch.uint16, torch.uint32, torch.uint64):
+                value = value.to(torch.int64)
+            return value.to(self.device)
         if isinstance(value, torch.Tensor):
             return value.to(device=self.device, dtype=torch.float64)
         return torch.as_tensor(np.array(value, dtype=np.float64),
@@ -292,14 +306,16 @@ class ClusterParticles:
         """Read native-HDF5 particles onto ``device``."""
         import h5py
 
+        from .core.h5raw import RawReader
+
         fields = OrderedDict()
-        with h5py.File(filename, "r") as f:
+        with h5py.File(filename, "r") as f, RawReader(f) as raw:
             if ptypes is None:
                 ptypes = list(f.keys())
             ptypes = _ensure_list(ptypes)
             for ptype in ptypes:
                 for field in f[ptype]:
-                    arr = f[ptype][field][()]
+                    arr = raw.read(f[ptype][field])
                     if field == "particle_index":
                         fields[ptype, field] = np.asarray(arr)
                     else:
@@ -308,10 +324,77 @@ class ClusterParticles:
 
     from_h5_file = from_file
 
+    @classmethod
+    def from_gadget_file(cls, filename, ptypes=None, device="cuda"):
+        """Read a Gadget/AREPO/GIZMO HDF5 snapshot onto ``device``; the
+        values are converted from the file's units to galactic ones."""
+        import h5py
+
+        from .core.h5raw import RawReader
+
+        fields = OrderedDict()
+        particle_types = []
+        with h5py.File(filename, "r") as f, RawReader(f) as raw:
+            if ptypes is None:
+                ptypes = [k for k in f if k.startswith("PartType")]
+            else:
+                ptypes = [rptype_map[k] for k in _ensure_list(ptypes)]
+            for ptype in ptypes:
+                my_ptype = ptype_map[ptype]
+                particle_types.append(my_ptype)
+                g = f[ptype]
+                for field in gadget_fields[my_ptype]:
+                    if field in g:
+                        if field == "ParticleIDs":
+                            fields[my_ptype, "particle_index"] = g[field][:]
+                        else:
+                            fd = gadget_field_map[field]
+                            fields[my_ptype, fd] = (
+                                raw.read(g[field]).astype(np.float64)
+                                * gadget_field_factors[field])
+                if "Masses" not in g:
+                    n_ptype = g["ParticleIDs"].size
+                    n_type = int(ptype[-1])
+                    m = f["Header"].attrs["MassTable"][n_type]
+                    fields[my_ptype, "particle_mass"] = (
+                        m * gadget_field_factors["Masses"]
+                        * np.ones(n_ptype))
+        return cls(particle_types, fields, device=device)
+
+    @classmethod
+    def from_gadget_files(cls, filenames, ptypes=None, device="cuda"):
+        """Read a multi-file Gadget snapshot (``NumFilesPerSnapshot > 1``).
+
+        ``filenames``: a list of shard paths, or the path of shard 0
+        (``...0.h5`` / ``...0.hdf5``), from which the other names follow
+        by the header's ``NumFilesPerSnapshot``.  Shards are concatenated
+        in file order."""
+        import h5py
+
+        if isinstance(filenames, (str, Path)):
+            first = Path(filenames)
+            with h5py.File(first, "r") as f:
+                n_files = int(f["Header"].attrs["NumFilesPerSnapshot"])
+            stem, suffix = first.name, first.suffix
+            if not stem.endswith(f".0{suffix}"):
+                raise ValueError(f"Pass shard 0 (named *.0{suffix}) or an "
+                                 f"explicit list; got {first}")
+            base = stem[: -len(f".0{suffix}")]
+            filenames = [first.parent / f"{base}.{i}{suffix}"
+                         for i in range(n_files)]
+        shards = [cls.from_gadget_file(fn, ptypes=ptypes, device=device)
+                  for fn in filenames]
+        out = shards[0]
+        for s in shards[1:]:
+            out = out + s
+        return out
+
     def write_particles(self, output_filename, overwrite=False):
         """Write native-HDF5 particles: one group per particle type, one
         dataset per field with a ``units`` attribute."""
         import h5py
+
+        from .core.h5raw import RawWriter
 
         if Path(output_filename).exists() and not overwrite:
             raise IOError(f"Cannot create {output_filename}. "
@@ -319,10 +402,12 @@ class ClusterParticles:
         with h5py.File(output_filename, "w") as f:
             for ptype in self.particle_types:
                 f.create_group(ptype)
+            raw = RawWriter(f)
             for (ptype, name), arr in self.to_numpy().items():
-                ds = f[ptype].create_dataset(name, data=arr)
+                ds = raw.add(f[ptype], name, arr)
                 if name != "particle_index":
                     ds.attrs["units"] = particle_field_units.get(name, "")
+            raw.flush()
 
     def write_particles_to_h5(self, output_filename, overwrite=False):
         self.write_particles(output_filename, overwrite=overwrite)
@@ -369,3 +454,368 @@ class ClusterParticles:
                 self.fields[ptype, "particle_position"] + r_ctr)
             self.fields[ptype, "particle_velocity"] = (
                 self.fields[ptype, "particle_velocity"] + v_ctr)
+
+    # ------------------------------------------------------------- gadget
+    def _gadget_field_blocks(self, ptype, index, dtype, code):
+        """``(Gadget name, tensor)`` for every block of ``ptype`` but the
+        IDs, at the particles ``index`` selects, in file units and
+        ``dtype`` (the passive scalars keep float64, as written)."""
+        fields = list(gadget_fields[ptype])
+        if code in code_fields:
+            fields += code_fields[code].get(ptype, [])
+        for field in fields:
+            if field == "ParticleIDs":
+                continue
+            if field == "PassiveScalars":
+                if self.num_passive_scalars > 0:
+                    data = torch.stack([self[ptype, s] for s in
+                                        self.passive_scalars], dim=-1)
+                    yield field, data[index]
+                continue
+            my_field = gadget_field_map[field]
+            if ((ptype, my_field) not in self.fields
+                    and my_field == "potential_energy"
+                    and (ptype, "particle_potential") in self.fields):
+                # the generators store 'particle_potential'
+                my_field = "particle_potential"
+            if (ptype, my_field) in self.fields:
+                fd = self.fields[ptype, my_field]
+                yield field, (fd[index] / gadget_field_factors[field]).to(
+                    dtype)
+
+    def _write_gadget_fields(self, ptype, h5_group, idxs, dtype, code,
+                             raw=None):
+        """Write the blocks of ``ptype`` but its IDs into ``h5_group`` for
+        the particles the boolean mask ``idxs`` keeps."""
+        _add = (raw.add if raw is not None
+                else lambda g, k, v: g.create_dataset(k, data=v))
+        index = torch.as_tensor(idxs, device=self.device)
+        for field, block in self._gadget_field_blocks(ptype, index,
+                                                      _torch_dtype(dtype),
+                                                      code):
+            _add(h5_group, field, block.cpu().numpy())
+
+    def write_to_gadget_file(self, ic_filename, box_size, dtype="float32",
+                             overwrite=False, code=None, num_files=1,
+                             file_num=0, id_offset=0, npart_total=None):
+        """Write a Gadget-HDF5 IC file.
+
+        ``num_files``/``file_num``/``id_offset``/``npart_total`` serve
+        multi-file snapshots (``NumFilesPerSnapshot > 1``): this container
+        becomes file ``file_num`` of ``num_files`` with particle IDs from
+        ``id_offset + 1`` and ``NumPart_Total`` from ``npart_total`` (a
+        uint32[6]); with ``npart_total`` None the totals equal
+        ``NumPart_ThisFile``.  Returns the per-type counts written."""
+        import h5py
+
+        from .core.h5raw import RawWriter
+
+        if Path(ic_filename).exists() and not overwrite:
+            raise IOError(f"Cannot create {ic_filename}. "
+                          "It exists and overwrite=False.")
+        blocks, num_particles, mass_table = _gadget_blocks(
+            self, box_size, dtype=dtype, code=code, id_offset=id_offset)
+        with h5py.File(ic_filename, "w") as f:
+            raw = RawWriter(f)  # pwrite at each dataset's offset
+            for ptype, arrays in blocks.items():
+                g = f.create_group(rptype_map[ptype])
+                for name, arr in arrays.items():
+                    raw.add(g, name, arr)
+            raw.flush()
+            hg = f.create_group("Header")
+            hg.attrs["Time"] = 0.0
+            hg.attrs["Redshift"] = 0.0
+            hg.attrs["BoxSize"] = box_size
+            hg.attrs["Omega0"] = 0.0
+            hg.attrs["OmegaLambda"] = 0.0
+            hg.attrs["HubbleParam"] = 1.0
+            hg.attrs["NumPart_ThisFile"] = np.array(
+                [num_particles.get("gas", 0), num_particles.get("dm", 0),
+                 num_particles.get("tracer", 0), 0,
+                 num_particles.get("star", 0),
+                 num_particles.get("black_hole", 0)], dtype="uint32")
+            hg.attrs["NumPart_Total"] = (
+                hg.attrs["NumPart_ThisFile"] if npart_total is None
+                else np.asarray(npart_total, dtype="uint32"))
+            hg.attrs["NumPart_Total_HighWord"] = np.zeros(6, dtype="uint32")
+            hg.attrs["NumFilesPerSnapshot"] = int(num_files)
+            hg.attrs["MassTable"] = mass_table
+            for flag in ["Flag_Sfr", "Flag_Cooling", "Flag_StellarAge",
+                         "Flag_Metals", "Flag_Feedback",
+                         "Flag_DoublePrecision", "Flag_IC_Info"]:
+                hg.attrs[flag] = 0
+            if code == "arepo":
+                cg = f.create_group("Config")
+                cg.attrs["VORONOI"] = 1
+        return num_particles
+
+    def to_yt_dataset(self, box_size, ptypes=None):
+        """In-memory yt particle dataset of the fields (copied to the
+        host).  Needs ``yt``."""
+        from yt import load_particles
+
+        data = {}
+        if ptypes is None:
+            ptypes = self.particle_types
+        for key, val in self.to_numpy().items():
+            if key[0] not in ptypes:
+                continue
+            ptype, fname = key
+            if fname == "particle_position":
+                for i, ax in enumerate("xyz"):
+                    data[ptype, f"particle_position_{ax}"] = (val[:, i], "kpc")
+            elif fname == "particle_velocity":
+                for i, ax in enumerate("xyz"):
+                    data[ptype, f"particle_velocity_{ax}"] = (val[:, i],
+                                                              "kpc/Myr")
+            else:
+                data[ptype, fname] = (val, particle_field_units.get(fname, ""))
+        return load_particles(data, length_unit="kpc",
+                              bbox=np.array([[0.0, box_size]] * 3),
+                              mass_unit="Msun", time_unit="Myr")
+
+
+def _torch_dtype(dtype):
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def _to_host(tensors):
+    """The tensors as numpy arrays through one device-to-host copy: their
+    bytes are laid end to end (each start 8-byte aligned) in one buffer on
+    the device."""
+    if not tensors:
+        return []
+    pieces, spans, off = [], [], 0
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = -b.numel() % 8
+        pieces.append(b)
+        if pad:
+            pieces.append(b.new_zeros(pad))
+        spans.append((off, b.numel()))
+        off += b.numel() + pad
+    host = torch.cat(pieces).cpu().numpy()
+    return [host[o:o + n].view(_NUMPY_OF[t.dtype]).reshape(tuple(t.shape))
+            for t, (o, n) in zip(tensors, spans)]
+
+
+_NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64,
+             torch.int32: np.uint32}  # IDs: int32 bits read as uint32
+
+
+def _gadget_blocks(particles, box_size, dtype="float32", code=None,
+                   id_offset=0):
+    """Everything a Gadget file holds but its header's constants, built on
+    the particles' device: per type the in-box selection, the unit scaling,
+    the cast to ``dtype``, the IDs ``id_offset + 1, ...`` (uint32 in the
+    file) and the ``MassTable`` entry, which is the first cast mass, as
+    the file gives it back.  Returns ``(blocks, counts, mass_table)``:
+    ``blocks[ptype]`` maps each Gadget name to a numpy array, in file
+    order with ``ParticleIDs`` last; one copy brings them to the host."""
+    tdtype = _torch_dtype(dtype)
+    names, tensors, counts = [], [], {}
+    npart = id_offset
+    for ptype in particles.particle_types:
+        index = torch.nonzero(particles._clip_to_box(ptype,
+                                                     box_size)).squeeze(1)
+        n = counts[ptype] = int(index.numel())
+        for field, block in particles._gadget_field_blocks(ptype, index,
+                                                           tdtype, code):
+            names.append((ptype, field))
+            tensors.append(block)
+        ids = torch.arange(npart + 1, npart + 1 + n, dtype=torch.int64,
+                           device=particles.device)
+        names.append((ptype, "ParticleIDs"))
+        tensors.append(ids.to(torch.int32))  # two's complement = uint32
+        npart += n
+    blocks = OrderedDict((ptype, OrderedDict())
+                         for ptype in particles.particle_types)
+    for (ptype, field), arr in zip(names, _to_host(tensors)):
+        blocks[ptype][field] = arr
+    mass_table = np.zeros(6)
+    for ptype in ("star", "dm", "black_hole"):
+        if counts.get(ptype, 0) > 0:
+            mass_table[int(rptype_map[ptype][-1])] = \
+                blocks[ptype]["Masses"][0]
+    return blocks, counts, mass_table
+
+
+# ----------------------------------------------------------- cluster mixing
+def _halo_field(h, name, device):
+    """Field ``name`` of a halo model (a ``ClusterModel`` or a dict of
+    arrays) as a float64 tensor on ``device``."""
+    return torch.as_tensor(h[name], dtype=torch.float64, device=device)
+
+
+def _put(t, value, mask):
+    """``t[mask] = value[mask]`` in place, with no host sync (``mask``
+    None: every row)."""
+    if mask is None:
+        t.copy_(value)
+    else:
+        m = mask.reshape(mask.shape + (1,) * (t.ndim - 1))
+        t.copy_(torch.where(m, value, t))
+
+
+def _sample_clusters(particles, hses, center, velocity, radii=None,
+                     resample=False, passive_scalars=None):
+    """Mix overlapping gas distributions on the particles' device.
+
+    Each halo's gas density is evaluated at every particle position and
+    summed; thermal energy and bulk momentum mix density-weighted:
+        rho   = sum_h rho_h(r_h)
+        e_int = sum_h e_h rho_h / rho
+        v     = sum_h v_h rho_h / rho
+    One halo at a time, so that halos whose models sit on radial grids of
+    different sizes mix as well.  Particle radii are clamped to each
+    halo's grid: gas draws start below its first point and most particles
+    lie far beyond the other halo's r_max, where the boundary polynomial's
+    extrapolation can turn density or 1.5 P/rho negative.  With ``radii``
+    only particles within ``radii[h]`` of some halo ``h`` are rewritten.
+    The fields are written in place.
+    """
+    scalars = list(passive_scalars) if passive_scalars else []
+    dev = particles.device
+    halo_centers = torch.as_tensor(np.asarray(center, dtype=np.float64),
+                                   device=dev)
+    bulk = torch.as_tensor(np.asarray(velocity, dtype=np.float64),
+                           device=dev)
+    pos = particles["gas", "particle_position"]
+
+    usable = []
+    for i, h in enumerate(hses):
+        if "density" in h:
+            usable.append(i)
+        else:
+            mylog.warning("No density field found in %s. Skipping.", h)
+    if not usable:
+        raise ValueError(
+            "Gas mixing needs at least one halo model with a 'density' "
+            f"field; none of the {len(hses)} provided models has one.")
+
+    # halo-centric radii for every halo, so that the radial cut holds
+    # even where a halo has no gas fields
+    halo_radius = [torch.sqrt(((pos - c) ** 2).sum(dim=1))
+                   for c in halo_centers]
+    in_cut = None
+    if radii is not None:
+        r_cut = np.asarray(radii, dtype=np.float64)
+        in_cut = torch.zeros(pos.shape[0], dtype=torch.bool, device=dev)
+        for r_h, rc in zip(halo_radius, r_cut):
+            in_cut |= r_h <= float(rc)
+
+    rho = e_sum = mom = 0.0
+    per_halo = []
+    for i in usable:
+        h = hses[i]
+        rr = _halo_field(h, "radius", dev)
+        dens = _halo_field(h, "density", dev)
+        r_part = torch.clamp(halo_radius[i], rr[0], rr[-1])
+        idx = bracket_for_spline(rr, r_part)
+        rho_i = spline_eval_at(cubic_spline(rr, dens), r_part, idx)
+        eint_grid = 1.5 * _halo_field(h, "pressure", dev) / dens
+        e_sum = e_sum + spline_eval_at(cubic_spline(rr, eint_grid), r_part,
+                                       idx) * rho_i
+        rho = rho + rho_i
+        mom = mom + bulk[i][None, :] * rho_i[:, None]
+        per_halo.append((h, rr, r_part, idx, rho_i))
+
+    if resample:
+        # the volume of the OLD density, before it is overwritten
+        vol = (particles["gas", "particle_mass"]
+               / particles["gas", "density"])
+        _put(particles["gas", "particle_mass"], rho * vol, in_cut)
+    _put(particles["gas", "density"], rho, in_cut)
+    _put(particles["gas", "thermal_energy"], e_sum / rho, in_cut)
+    _put(particles["gas", "particle_velocity"], mom / rho[:, None], in_cut)
+    for name in scalars:
+        mixed = 0.0
+        for h, rr, r_part, idx, rho_i in per_halo:
+            sp = cubic_spline(rr, _halo_field(h, name, dev))
+            mixed = mixed + spline_eval_at(sp, r_part, idx) * rho_i
+        _put(particles["gas", name], mixed / rho, in_cut)
+    return particles
+
+
+def _combine(parts, hses, centers, velocities):
+    """Every species moved to its halo's center, the collisionless ones
+    given its bulk velocity, the containers summed, the gas mixed."""
+    centers = [np.asarray(c, dtype=np.float64) for c in centers]
+    velocities = [np.asarray(v, dtype=np.float64) for v in velocities]
+    for particles, center in zip(parts, centers):
+        if "gas" in particles.particle_types:
+            particles.add_offsets(center, [0.0] * 3, ptypes=["gas"])
+    for particles, center, velocity in zip(parts, centers, velocities):
+        ptypes = [p for p in particles.particle_types if p != "gas"]
+        particles.add_offsets(center, velocity, ptypes=ptypes)
+    particles = parts[0]
+    for p in parts[1:]:
+        particles = particles + p
+    if "gas" in particles.particle_types:
+        particles = _sample_clusters(particles, hses, centers, velocities)
+    return particles
+
+
+def combine_two_clusters(particles1, particles2, hse1, hse2, center1, center2,
+                         velocity1, velocity2):
+    """Two halos' particles in one scene, the overlapping gas mixed."""
+    return _combine([particles1, particles2], [hse1, hse2],
+                    [center1, center2], [velocity1, velocity2])
+
+
+def combine_three_clusters(particles1, particles2, particles3, hse1, hse2,
+                           hse3, center1, center2, center3, velocity1,
+                           velocity2, velocity3):
+    """Three halos' particles in one scene, the overlapping gas mixed."""
+    return _combine([particles1, particles2, particles3], [hse1, hse2, hse3],
+                    [center1, center2, center3],
+                    [velocity1, velocity2, velocity3])
+
+
+def resample_one_cluster(particles, hse, center, velocity):
+    """One halo's profiles resampled onto relaxed gas particles: density
+    and thermal energy splined at each particle's radius, masses scaled by
+    the new density at fixed volume, velocities set to ``velocity``."""
+    if "gas" not in particles.particle_types:
+        return particles
+    dev = particles.device
+    center = torch.as_tensor(np.asarray(center, dtype=np.float64),
+                             device=dev)
+    velocity = torch.as_tensor(np.asarray(velocity, dtype=np.float64),
+                               device=dev)
+    pos = particles["gas", "particle_position"]
+    rr = _halo_field(hse, "radius", dev)
+    dens_grid = _halo_field(hse, "density", dev)
+    # clamped to the model grid, as in _sample_clusters
+    r = torch.clamp(torch.sqrt(((pos - center) ** 2).sum(dim=1)),
+                    rr[0], rr[-1])
+    idx = bracket_for_spline(rr, r)
+    dens = spline_eval_at(cubic_spline(rr, dens_grid), r, idx)
+    e_grid = 1.5 * _halo_field(hse, "pressure", dev) / dens_grid
+    particles["gas", "thermal_energy"] = spline_eval_at(
+        cubic_spline(rr, e_grid), r, idx)
+    vol = particles["gas", "particle_mass"] / particles["gas", "density"]
+    particles["gas", "particle_mass"] = dens * vol
+    particles["gas", "particle_velocity"][:, :] = velocity
+    particles["gas", "density"] = dens
+    return particles
+
+
+def resample_two_clusters(particles, hse1, hse2, center1, center2, velocity1,
+                          velocity2, radii, passive_scalars=None):
+    """Two halos' profiles resampled onto relaxed gas particles within
+    ``radii`` of their centers, mixed as in :func:`combine_two_clusters`,
+    masses scaled by the new density at fixed volume."""
+    return _sample_clusters(particles, [hse1, hse2], [center1, center2],
+                            [velocity1, velocity2], radii=radii,
+                            resample=True, passive_scalars=passive_scalars)
+
+
+def resample_three_clusters(particles, hse1, hse2, hse3, center1, center2,
+                            center3, velocity1, velocity2, velocity3, radii,
+                            passive_scalars=None):
+    """:func:`resample_two_clusters` for three halos."""
+    return _sample_clusters(particles, [hse1, hse2, hse3],
+                            [center1, center2, center3],
+                            [velocity1, velocity2, velocity3], radii=radii,
+                            resample=True, passive_scalars=passive_scalars)

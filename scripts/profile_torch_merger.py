@@ -15,7 +15,13 @@ potential, the 282^3 float64 radial field over the merger IC, and its
 sampling at the IC's 5e6 gas particles, at ``chip_smoke.py``'s sizes.
 ``--path scenes``: the four stages of one merger-scene batch
 (``parallel.mergers._merger_batch_fn``) at cfg6, 64 binary scenes of 1e5
-particles on a 512-point grid.  Each path runs
+particles on a 512-point grid.
+``--path ics``: the stages of ``chip_smoke.py``'s two-halo IC scene
+(1.05e7 particles): the per-halo draws (tables built), the gas mixing of
+``combine_two_clusters``, ``resample_two_clusters`` with a passive scalar,
+AREPO's 128^3 background grid added to the scene, the Gadget block
+assembly with its copy to the host, and the Fortran particle file of the
+dark matter.  Each path runs
 warm, under ``torch.profiler``, one stage at a time, and prints for each
 stage one JSON line: host wall time, number of kernel launches, device busy
 time (union of kernel intervals) and busy share.  Then it prints the
@@ -24,7 +30,7 @@ the whole path.  The default, ``both``, runs the merger and the datagen
 path.
 
     python3 scripts/profile_torch_merger.py \
-        [--path merger|datagen|model|fields|scenes|both]
+        [--path merger|datagen|model|fields|scenes|ics|both]
 
 Needs a CUDA device; imports no JAX.
 """
@@ -42,12 +48,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (CENTERS, CLASS_COUNTS, CLASS_POINTS,  # noqa: E402
-                        CONC, DATAGEN_BATCH, DATAGEN_COUNTS, DATAGEN_POINTS,
-                        DATAGEN_SEED, FIELD_DIMS, FIELD_SEED, M200, N_DM,
-                        N_GAS, N_STAR, R_MAX, RADIAL_DIMS, SCENE_BATCH,
-                        SCENE_COUNTS, SCENE_POINTS, VELOCITIES,
-                        class_profiles, kernel_profile, make_field,
+from chip_smoke import (AREPO_NX, CENTERS, CLASS_COUNTS,  # noqa: E402
+                        CLASS_POINTS, CONC, DATAGEN_BATCH, DATAGEN_COUNTS,
+                        DATAGEN_POINTS, DATAGEN_SEED, FIELD_DIMS, FIELD_SEED,
+                        IC_BOX, IC_TOTALS, M200, N_DM, N_GAS, N_STAR, R_MAX,
+                        RADIAL_DIMS, SCENE_BATCH, SCENE_COUNTS, SCENE_POINTS,
+                        VELOCITIES, class_profiles, ic_combine, ic_draws,
+                        ic_geometry, ic_resample, kernel_profile, make_field,
                         merger_models, nvidia_smi_line, radial_field,
                         run_main_path, scene_params)
 
@@ -177,6 +184,56 @@ def scenes_stages():
     ]
 
 
+def ics_stages():
+    import tempfile
+
+    import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch import codes as CO
+    from cluster_generator_tpu_torch import ics as I
+    from cluster_generator_tpu_torch import particles as PA
+
+    models = merger_models(cg)
+    for m in models:
+        m.set_field("metallicity", torch.linspace(
+            1.0, 0.1, m.num_elements, dtype=torch.float64, device="cuda"))
+    centers, velocities = ic_geometry(cg, 2)
+    counts = I.halo_particle_counts(models, [R_MAX] * 2, IC_TOTALS)
+    state = {}
+
+    def combine():
+        scene = ic_combine(PA, state["halos"], models, centers, velocities)
+        scene.set_field("gas", "metallicity",
+                        torch.zeros(scene.num_particles["gas"],
+                                    device="cuda"), passive_scalar=True)
+        state["scene"] = scene
+
+    def background():
+        bg = CO._arepo_background(centers, [R_MAX] * 2, IC_BOX, AREPO_NX,
+                                  state["scene"])
+        state["full"] = state["scene"] + cg.ClusterParticles.from_fields(
+            bg, device="cuda")
+
+    def fortran_dm():
+        with tempfile.TemporaryDirectory() as d:
+            CO.write_amr_particles(state["scene"], os.path.join(d, "p.dat"),
+                                   ["dm"], {"dm": 1}, format="fortran",
+                                   in_cgs=True)
+
+    # the first round of profile_path's warm-up builds the draw tables; the
+    # profiled draws reuse them, as a second draw at the same r_max does
+    return [
+        ("draws", lambda: state.__setitem__("halos", ic_draws(
+            I, models, counts, 2))),
+        ("combine", combine),
+        ("resample", lambda: ic_resample(PA, state["scene"], models,
+                                         centers, velocities)),
+        ("background", background),
+        ("gadget_blocks", lambda: PA._gadget_blocks(state["full"], IC_BOX,
+                                                    code="arepo")),
+        ("fortran_dm", fortran_dm),
+    ]
+
+
 def profile_path(path, stages, card):
     for _ in range(2):  # warm: kernels built, allocator pools filled
         for _, fn in stages:
@@ -224,7 +281,8 @@ def profile_path(path, stages, card):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("merger", "datagen", "model", "fields",
-                                       "scenes", "both"), default="both")
+                                       "scenes", "ics", "both"),
+                    default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_merger: no CUDA device", file=sys.stderr)
@@ -241,6 +299,8 @@ def main() -> int:
         profile_path("fields", fields_stages(), card)
     if args.path == "scenes":
         profile_path("scenes", scenes_stages(), card)
+    if args.path == "ics":
+        profile_path("ics", ics_stages(), card)
     return 0
 
 

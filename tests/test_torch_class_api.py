@@ -180,38 +180,71 @@ def test_other_constructors_match_jax(ctor, law):
         _close(got[k], want[k], atol=1e-12 * np.abs(want[k]).max(), msg=k)
 
 
-def test_public_names_of_the_slice_exist_with_the_same_signatures():
-    """Every name the JAX package exports from the modules of this slice
-    exists in the port; the class constructors and generators keep their
-    parameters and add only ``device`` or ``uniforms``."""
+def _same_parameters(want_fn, got_fn, label):
+    """``got_fn`` keeps ``want_fn``'s parameters in order and adds only
+    ``device`` or ``uniforms``."""
     import inspect
 
+    want = list(inspect.signature(want_fn).parameters)
+    got = list(inspect.signature(got_fn).parameters)
+    extra = [p for p in got if p not in want]
+    assert [p for p in got if p in want] == want, label
+    assert set(extra) <= {"device", "uniforms"}, (label, extra)
+
+
+def test_public_names_of_the_slice_exist_with_the_same_signatures():
+    """Every name the JAX package exports from the modules ported so far
+    exists in the port; the classes' methods, the IC scene, the exporters
+    and the combine/resample functions keep their parameters and add only
+    ``device`` or ``uniforms``."""
+    import inspect
+
+    import cluster_generator_tpu.codes as JC
+    import cluster_generator_tpu.ics as JI
+    import cluster_generator_tpu.particles as JPa
     import cluster_generator_tpu.profiles as JP
+    import cluster_generator_tpu_torch.codes as TC
+    import cluster_generator_tpu_torch.ics as TI
+    import cluster_generator_tpu_torch.particles as TPa
 
     names = set(JP.__all__) | {
         "Cosmology", "G", "cgparams", "default_cosmology", "kboltz",
         "log_radius_grid", "mp", "mu", "mue", "mylog", "relations",
         "convert_ne_to_density", "f_gas", "m_bcg", "m_sat", "r_bcg",
         "ClusterModel", "HydrostaticEquilibrium", "VirialEquilibrium",
-        "ClusterParticles"}
+        "ClusterParticles", "ClusterICs", "compute_centers_for_binary",
+        "resample_arepo_ics", "setup_arepo_ics", "setup_flash_ics",
+        "setup_gamer_ics", "setup_ramses_ics"}
     assert names <= set(tcg.__all__)
     assert all(hasattr(tcg, n) and hasattr(jcg, n) for n in names)
     assert issubclass(tcg.HydrostaticEquilibrium, tcg.ClusterModel)
-    for cls in ("ClusterModel", "VirialEquilibrium", "ClusterParticles"):
+    for cls in ("ClusterModel", "VirialEquilibrium", "ClusterParticles",
+                "ClusterICs"):
         for name, member in inspect.getmembers(getattr(jcg, cls),
                                                callable):
-            if name.startswith("_") or not hasattr(getattr(tcg, cls), name):
+            if name.startswith("_") and name not in (
+                    "__init__", "_write_gadget_fields",
+                    "_determine_num_particles", "_generate_particles"):
                 continue
-            want = list(inspect.signature(member).parameters)
-            got = list(inspect.signature(getattr(getattr(tcg, cls),
-                                                 name)).parameters)
-            extra = [p for p in got if p not in want]
-            assert [p for p in got if p in want] == want, (cls, name)
-            assert set(extra) <= {"device", "uniforms"}, (cls, name, extra)
-    # what the port has not got yet is what the roadmap lists
-    missing = {n for n in dir(jcg.ClusterModel)
-               if not n.startswith("_") and not hasattr(tcg.ClusterModel, n)}
-    assert missing == set(), missing
+            if not hasattr(getattr(tcg, cls), name):
+                continue
+            _same_parameters(member, getattr(getattr(tcg, cls), name),
+                             (cls, name))
+    for jmod, tmod in ((JC, TC), (JI, TI), (JPa, TPa)):
+        assert set(jmod.__all__) <= set(tmod.__all__), tmod.__name__
+        for name in jmod.__all__:
+            if inspect.isfunction(getattr(jmod, name)):
+                _same_parameters(getattr(jmod, name), getattr(tmod, name),
+                                 (tmod.__name__, name))
+    _same_parameters(JPa._sample_clusters, TPa._sample_clusters,
+                     "_sample_clusters")
+    _same_parameters(JC._cgs_factor, TC._cgs_factor, "_cgs_factor")
+    # nothing of these classes is left to port
+    for cls in ("ClusterModel", "ClusterParticles", "ClusterICs"):
+        missing = {n for n in dir(getattr(jcg, cls))
+                   if not n.startswith("_")
+                   and not hasattr(getattr(tcg, cls), n)}
+        assert missing == set(), (cls, missing)
 
 
 def test_entry_points_need_a_card_unless_told_cpu():

@@ -269,3 +269,20 @@ def test_scene_batch_on_the_card_against_the_cpu():
             assert float(rel.max()) < 2e-5, k
         else:
             assert float(((a - b).abs() / a.abs()).max()) < 2e-5, k
+
+
+@pytest.mark.cuda
+def test_ic_scene_on_the_card_against_the_cpu():
+    """The same particles, drawn on the CPU, through combine_two_clusters
+    and resample_two_clusters on the card and on the CPU: every field
+    within 1e-12 of its largest CPU value."""
+    import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch import ics as I
+    from cluster_generator_tpu_torch import particles as PA
+
+    _card()
+    errs = chip_smoke.ic_device_agreement(
+        cg, I, PA, counts={"dm": 3000, "gas": 5000, "star": 1000,
+                           "tracer": 500})
+    assert len(errs) >= 20
+    assert all(v < chip_smoke.IC_CPU_RTOL for v in errs.values()), errs

@@ -2,7 +2,9 @@
 merger IC (with every switch), a small datagen batch, the single-cluster
 class path, every random-field class with its particle sampling, and a
 merger-scene stream with its QA on the CPU loads neither JAX nor the JAX
-package, nor h5py."""
+package, nor h5py.  With h5py and PyYAML blocked, as on a machine that has
+neither, the package still imports and a two-halo IC scene runs through
+everything but the files."""
 
 import os
 import subprocess
@@ -104,14 +106,71 @@ print("FOREIGN", bad)
 
 # every module of the port; a new file must be listed here
 MODULES = """
-convert core core.config core.constants core.cosmology core.device
-core.draws core.grid core.interp core.logging core.quadrature core.units
-fields fields.grf model model.builders model.cluster_model model.gravity ops
-ops.build ops.cdf_inverse parallel parallel.ensemble parallel.mergers
-parallel.qa particles pipeline
+codes convert core core.config core.constants core.cosmology core.device
+core.draws core.grid core.h5raw core.interp core.logging core.quadrature
+core.units fields fields.grf ics model model.builders model.cluster_model
+model.gravity ops ops.build ops.cdf_inverse parallel parallel.ensemble
+parallel.mergers parallel.qa particles pipeline
 profiles profiles.algebra profiles.library profiles.relations
-profiles.solvers sampling virial
+profiles.solvers sampling utils virial
 """.split()
+
+# h5py and PyYAML blocked: an import of either raises ImportError
+BLOCKED = """
+import sys
+sys.modules["h5py"] = None
+sys.modules["yaml"] = None
+import os
+import tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import cluster_generator_tpu_torch as cgt
+from cluster_generator_tpu_torch import codes, ics, particles, utils
+from cluster_generator_tpu_torch.core import h5raw
+rhot = cgt.snfw_density_profile(6e14, 350.0)
+rhog = cgt.vikhlinin_density_profile(1.0e6, 80.0, 1200.0, 1.0, 0.67, 3)
+models = [cgt.ClusterModel.from_dens_and_tden(
+    0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot, num_points=128,
+    device="cpu") for _ in range(2)]
+counts = ics.halo_particle_counts(models, [3000.0] * 2,
+                                  {"dm": 600, "gas": 400, "star": 100})
+base = cgt.sampling.parse_prng(3, "cpu")
+halos = [ics.draw_halo_particles(m, {k: counts[k][i] for k in counts},
+                                 3000.0, generators=ics.halo_generators(base))
+         for i, m in enumerate(models)]
+c1, c2 = cgt.compute_centers_for_binary([7000.0] * 3, 3000.0, 500.0)
+scene = particles.combine_two_clusters(*halos, *models, c1, c2,
+                                       [0.3, 0, 0], [-0.45, 0, 0])
+scene.set_field("gas", "metallicity", np.zeros(scene.num_particles["gas"]),
+                passive_scalar=True)
+for m in models:
+    m.set_field("metallicity", np.linspace(1.0, 0.1, m.num_elements))
+scene = particles.resample_two_clusters(scene, *models, c1, c2, [0.3, 0, 0],
+                                        [-0.45, 0, 0], [3000.0] * 2,
+                                        passive_scalars=["metallicity"])
+blocks, n, table = particles._gadget_blocks(scene, 14000.0, code="arepo")
+assert sum(n.values()) == sum(scene.num_particles.values())
+bg = codes._arepo_background([c1, c2], [3000.0] * 2, 14000.0, 16, scene)
+with tempfile.TemporaryDirectory() as d:
+    codes.write_amr_particles(scene, os.path.join(d, "p.dat"), ["dm"],
+                              {"dm": 1}, format="fortran")
+    for call in (lambda: scene.write_to_gadget_file(d + "/g.h5", 14000.0),
+                 lambda: codes.write_amr_particles(scene, d + "/a.h5", ["dm"],
+                                                   {"dm": 1}),
+                 lambda: ics.ClusterICs("s", 1, [d + "/m.h5"], [0.0] * 3,
+                                        [0.0] * 3, device="cpu"),
+                 lambda: cgt.ClusterICs.from_file(d + "/s.yaml",
+                                                  device="cpu")):
+        try:
+            call()
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("a file call ran without h5py and yaml")
+assert all(bool(torch.isfinite(v).all()) for v in scene.fields.values())
+print("BLOCKED OK", len(bg[("gas", "particle_position")]))
+"""
 
 
 def test_port_imports_no_jax():
@@ -126,6 +185,14 @@ def test_port_imports_no_jax():
               if line.startswith("MODULES")][0].split()[2:]
     assert listed == sorted("cluster_generator_tpu_torch." + m
                             for m in MODULES)
+
+
+def test_port_runs_a_scene_without_h5py_and_yaml():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BLOCKED OK" in out.stdout, out.stdout
 
 
 def test_no_source_of_the_port_names_a_foreign_import():
