@@ -63,8 +63,28 @@ Phases, in order; any failure exits non-zero before the last line:
     resample on the same particles;
 14. the same with a third halo (``combine_three_clusters``,
     ``resample_three_clusters``);
-15. print one JSON line of kernel numbers;
-16. print the card's name and power limit, then the last line
+15. the ensemble catalog's device stage at cfg5c (1024 clusters of
+    ``sample_ensemble_params``, batches of 256, 512 points, 1e5 particles
+    over three species): the batch program, the copy to pinned host memory
+    on a side stream while the next batch computes, the writer's
+    per-cluster split into the catalog's layout (the machine has no
+    ``h5py``), first and warm, with K1's launches (2 per batch), the
+    non-finite values counted on the card, compute alone, copy alone
+    (GB/s) and the overlapped wall per batch, the synchronizing calls of
+    one stream, the verifier's checks on one batch against models rebuilt
+    at once on the card, and the particle bridge for one cluster;
+16. the same for the merger catalog at cfg6 (256 binary scenes, batches of
+    64), with the scene verifier's checks and ``scene_to_particles``'
+    mapping;
+17. the chunked grid's painter: the class-path model (4096 points, beta
+    100, bulk velocity 0.3 kpc/Myr) on a 512^3 grid over a 14000 kpc box
+    in 64^3 chunks, batches of 64 chunks, every field of the file f8 and
+    f4 into host memory through the painter's stream (the density's three
+    momentum copies scaled on the host), 16 chunks (the 8 corners, the
+    centre) against the CPU, the corners against the boundary value;
+    paint alone, copy alone and the overlapped stream per field;
+18. print one JSON line of kernel numbers;
+19. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -175,6 +195,20 @@ IC_SIGMAS = 5.0             # bulk velocity per halo block, standard errors
 IC_CPU_COUNTS = {"dm": 60_000, "gas": 100_000, "star": 20_000,
                  "tracer": 10_000}
 IC_CPU_RTOL = 1e-12         # max |card - CPU| / max |CPU| per field
+
+# the streamed products: the ensemble catalog at cfg5c (DATAGEN_BATCH,
+# DATAGEN_POINTS, DATAGEN_COUNTS), the merger catalog at cfg6 (the scene
+# constants above) and the chunked grid over the class-path model
+CATALOG_CLUSTERS = 1024
+CATALOG_SEED = 0
+GRID_DIMS, GRID_CHUNK, GRID_BATCH = 512, 64, 64
+GRID_BOX = 14000.0                      # kpc, centred on the cluster
+GRID_BETA = 100.0
+GRID_VELOCITY = (0.3, 0.0, 0.0)         # kpc/Myr
+GRID_FIELDS = ("density", "dark_matter_density", "stellar_density",
+               "pressure", "magnetic_pressure")
+GRID_F8_TOL = 1e-12                     # card vs CPU, of each field's max
+GRID_F4_RTOL = 2.0 ** -23               # float32 rounding
 
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
@@ -1733,6 +1767,465 @@ def ic_device_agreement(cg, I, PA, counts=IC_CPU_COUNTS):
 
 
 # -------------------------------------------------------------------- main
+# ------------------------------------------------------------ phases 15-17
+def copy_alone(tensors):
+    """Seconds of one batch's copy to pinned host memory through the
+    staging ring (best of three: the first two allocate its buffers)."""
+    from cluster_generator_tpu_torch.core.staging import _Ring
+
+    ring = _Ring(tensors[0].device)
+    best = math.inf
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        ring.finish(ring.stage(tensors))
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronizing calls it made, as ``{file:line: count}`` of the innermost
+    frame in the port (else in this script) that made each."""
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = os.path.join(root, "cluster_generator_tpu_torch")
+    where = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        if any(f.name == "set_sync_debug_mode" for f in stack):
+            return  # the first switch of the debug mode itself
+        frames = ([f for f in stack if f.filename.startswith(port)]
+                  or [f for f in stack if f.filename.startswith(root)]
+                  or stack)
+        key = f"{os.path.relpath(frames[-1].filename, root)}:" \
+              f"{frames[-1].lineno}"
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return where
+
+
+def no_copy_ring():
+    """The staging ring with its copies taken out: the same events, waits
+    and schedule, no bytes moved (what the overlapped stream would take if
+    the copies cost nothing)."""
+    from cluster_generator_tpu_torch.core import staging
+
+    class NoCopyRing(staging._Ring):
+        def stage(self, tensors, ready=None):
+            ready = self.ready() if ready is None else ready
+            done = torch.cuda.Event()
+            with torch.cuda.stream(self.stream):
+                self.stream.wait_event(ready)
+                done.record(self.stream)
+            return None, [], [], done
+
+        @staticmethod
+        def finish(staged):
+            staged[3].synchronize()
+            return []
+
+    return NoCopyRing
+
+
+def interleaved(stream, compute, host_s, reps=7):
+    """``reps`` turns, each running the batch programs alone, the stream
+    with its copies taken out and the overlapped stream, the last two in
+    alternating order (host-bound eager programs drift by ~5% between
+    turns, more than a copy): the median seconds of each, the median of
+    each turn's overlapped minus copy-free stream, the median host work
+    and the programs' last output."""
+    from cluster_generator_tpu_torch.core import staging
+
+    plain, dry = staging._Ring, no_copy_ring()
+
+    def copy_free():
+        staging._Ring = dry
+        try:
+            return timed(lambda: stream(consume=False))[1]
+        finally:
+            staging._Ring = plain
+
+    runs = {"compute": [], "no_copy": [], "wall": [], "host": [],
+            "cost": []}
+    for turn in range(reps):
+        out, t = timed(compute)
+        runs["compute"].append(t)
+        if turn % 2:
+            wall, host = timed(stream)[1], host_s[0]
+            dry_s = copy_free()
+        else:
+            dry_s = copy_free()
+            wall, host = timed(stream)[1], host_s[0]
+        runs["no_copy"].append(dry_s)
+        runs["wall"].append(wall)
+        runs["host"].append(host)
+        runs["cost"].append(wall - dry_s)
+    return {k: statistics.median(v) for k, v in runs.items()}, out
+
+
+def overlap_report(label, card, n_batches, med, copy_s, nbytes, syncs):
+    """Print per batch the programs alone, the same stream with its copies
+    taken out, the copy alone, the host's own work on a batch (the
+    consumer's loop body), the overlapped stream's wall and what the copies
+    cost it (the median of each turn's difference).  The overlap holds when
+    the copies cost less than the copy alone."""
+    per = {k: v / n_batches for k, v in med.items()}
+    print(f"{label}: per batch programs alone {per['compute']:.4f} s, the "
+          f"stream without its copies {per['no_copy']:.4f} s, copy alone "
+          f"{copy_s:.4f} s ({nbytes / 1e9:.3f} GB at "
+          f"{nbytes / copy_s / 1e9:.2f} GB/s to pinned memory), host work "
+          f"{per['host']:.4f} s, overlapped stream {per['wall']:.4f} s "
+          f"({n_batches} batches, medians of seven turns): the copies cost "
+          f"{per['cost']:+.4f} s per batch; overlap "
+          f"{'holds' if per['cost'] < copy_s else 'FAILS'} (cost < copy "
+          f"alone); synchronizing calls in one stream: "
+          f"{sum(syncs.values())} {json.dumps(syncs)} [{card}]")
+
+
+def run_catalog(E, K, PA, card, n_clusters=CATALOG_CLUSTERS,
+                batch=DATAGEN_BATCH, points=DATAGEN_POINTS,
+                counts=DATAGEN_COUNTS, dev="cuda"):
+    """The ensemble catalog's device stage at cfg5c: the batch program,
+    the staging into pinned host memory, the writer's per-cluster split
+    into the catalog's layout (no ``h5py``), first and warm; the verifier's
+    checks on one batch against models rebuilt at once on the card; the
+    particle bridge for one cluster.  Returns K1's launches in the warm
+    stream."""
+    label = f"catalog stream ({n_clusters} clusters of {counts})"
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device=dev).manual_seed(CATALOG_SEED), n_clusters,
+        device=dev)
+    M_host, c_host = M.cpu().numpy(), c.cpu().numpy()
+    _, _, prog = E._resolve_batch_fn(dict(counts), points)
+    b0s = list(range(0, n_clusters, batch))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def counted(Mb, cb, gen):
+        # non-finite values counted on the card, read after the stream
+        out = prog(Mb, cb, gen)
+        for arrays in out.values():
+            for a in arrays:
+                bad.add_((~torch.isfinite(a)).sum())
+        return out
+
+    host_s = [0.0]
+
+    def stream(fn=counted, consume=True):
+        groups = 0
+        host_s[0] = 0.0
+        for b0, host in E._catalog_batches(M, c, fn, batch, CATALOG_SEED,
+                                           b0s):
+            if not consume:
+                continue
+            t0 = time.perf_counter()
+            for _, attrs, data in E._cluster_records(
+                    True, b0, M_host[b0:b0 + batch], c_host[b0:b0 + batch],
+                    host):
+                groups += len(data) > 0
+            host_s[0] += time.perf_counter() - t0
+        return groups
+
+    torch.cuda.reset_peak_memory_stats()
+    groups, first_s = timed(stream)
+    K.invert_cdf_rows.launches = 0
+    groups, warm_s = timed(stream)
+    launches = K.invert_cdf_rows.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_bad = int(bad)
+    print(f"{label}: first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{n_clusters / warm_s:.1f} clusters/s; {groups} cluster records; "
+          f"K1 launches {launches}; non-finite values {n_bad}; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    check(groups == n_clusters, f"{label}: {groups} records")
+    check(launches == 2 * len(b0s),
+          f"{label}: K1 launches {launches}, want {2 * len(b0s)}")
+    check(n_bad == 0, f"{label}: {n_bad} non-finite values")
+
+    def compute():
+        for b0 in b0s:
+            out = prog(M[b0:b0 + batch], c[b0:b0 + batch],
+                       E._batch_generator(CATALOG_SEED, b0, M.device))
+        return out
+
+    med, out = interleaved(stream, compute, host_s)
+    _, tensors = E._flat_outputs(out)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copy_s = copy_alone(tensors)
+    del out, tensors
+    syncs = count_syncs(stream)
+    overlap_report(label, card, len(b0s), med, copy_s, nbytes, syncs)
+
+    report = E._new_report()
+    for b0, host in E._catalog_batches(M, c, prog, batch, CATALOG_SEED, [0]):
+        items = [(i, E._record_dict(r)) for i, r in enumerate(
+            E._cluster_records(True, b0, M_host[:batch], c_host[:batch],
+                               host))]
+        fields, rebuild_s = timed(lambda: E._rebuild_fields(
+            M[:batch], c[:batch], points, "newtonian", dev))
+        t0 = time.perf_counter()
+        E._check_clusters(items, fields, report)
+        check_s = time.perf_counter() - t0
+        p = PA.ClusterParticles.from_fields(
+            E._cluster_particle_fields(items[0][1]), device=dev)
+    print(f"{label}: verify_catalog's checks on batch 0 ({batch} clusters, "
+          f"models rebuilt at once in {rebuild_s:.3f} s, host checks "
+          f"{check_s:.2f} s [{card}]):", json.dumps(report))
+    check(report["n_clusters_checked"] == batch and not report["violations"],
+          f"{label}: QA {report['violations'][:5]}")
+    check(p.num_particles == dict(counts) and p.device.type == M.device.type
+          and all(bool(torch.isfinite(v).all()) for v in p.fields.values()),
+          f"{label}: catalog_to_particles gave {p}")
+    print(f"{label}: catalog_to_particles' mapping of cluster 0: {p}")
+    return launches
+
+
+def run_merger_catalog(MG, K, PA, card, n_scenes=SCENES, batch=SCENE_BATCH,
+                       points=SCENE_POINTS, counts=SCENE_COUNTS, dev="cuda"):
+    """The merger catalog's device stage at cfg6: the scene-batch program,
+    the staging, the per-scene split into the catalog's layout, first and
+    warm; the verifier's checks on one batch against every halo rebuilt at
+    once on the card; ``scene_to_particles``' mapping of one scene.
+    Returns K1's launches in the warm stream."""
+    from cluster_generator_tpu_torch.parallel.ensemble import _record_dict
+
+    label = f"merger catalog stream ({n_scenes} binary scenes)"
+    p = MG.sample_merger_scene_params(
+        torch.Generator(device=dev).manual_seed(SCENE_SEED), n_scenes,
+        device=dev)
+    M, c, ctr, vel = MG._scene_inputs(p, torch.device(dev))
+    host = [MG._host(a) for a in (M, c, ctr, vel)]
+    counts = MG._normalize_counts(counts, 2)
+    prog = MG._merger_batch_fn(points, counts["gas"], counts["dm"],
+                               counts["star"], device=dev)
+    r_max = torch.full((2,), R_MAX, dtype=torch.float64, device=dev)
+    b0s = list(range(0, n_scenes, batch))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def counted(*args):
+        out = prog(*args)
+        for a in out.values():
+            bad.add_((~torch.isfinite(a)).sum())
+        return out
+
+    host_s = [0.0]
+
+    def stream(fn=counted, consume=True):
+        groups = 0
+        host_s[0] = 0.0
+        for b0, out in MG._scene_batches(fn, M, c, ctr, vel, r_max, batch,
+                                         SCENE_SEED, b0s):
+            if not consume:
+                continue
+            t0 = time.perf_counter()
+            sl = slice(b0, b0 + batch)
+            for _, attrs, data in MG._scene_records(
+                    b0, *(a[sl] for a in host), out):
+                groups += len(data) > 0
+            host_s[0] += time.perf_counter() - t0
+        return groups
+
+    torch.cuda.reset_peak_memory_stats()
+    groups, first_s = timed(stream)
+    K.invert_cdf_rows.launches = 0
+    groups, warm_s = timed(stream)
+    launches = K.invert_cdf_rows.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_bad = int(bad)
+    print(f"{label}: first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{n_scenes / warm_s:.1f} scenes/s; {groups} scene records; K1 "
+          f"launches {launches}; non-finite values {n_bad}; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    check(groups == n_scenes, f"{label}: {groups} records")
+    check(launches == 2 * len(b0s),
+          f"{label}: K1 launches {launches}, want {2 * len(b0s)}")
+    check(n_bad == 0, f"{label}: {n_bad} non-finite values")
+
+    def compute():
+        for b0 in b0s:
+            sl = slice(b0, b0 + batch)
+            out = prog(M[sl], c[sl], ctr[sl], vel[sl], r_max,
+                       MG._batch_generator(SCENE_SEED, b0, M.device))
+        return out
+
+    med, out = interleaved(stream, compute, host_s)
+    tensors = list(out.values())
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copy_s = copy_alone(tensors)
+    del out, tensors
+    syncs = count_syncs(stream)
+    overlap_report(label, card, len(b0s), med, copy_s, nbytes, syncs)
+
+    report = MG._merger_report()
+    for b0, out in MG._scene_batches(prog, M, c, ctr, vel, r_max, batch,
+                                     SCENE_SEED, [0]):
+        items = [(i, _record_dict(r)) for i, r in enumerate(
+            MG._scene_records(b0, *(a[:batch] for a in host), out))]
+        fields, rebuild_s = timed(lambda: MG._rebuild_halos(
+            host[0][:batch], host[1][:batch], points, "newtonian", dev))
+        t0 = time.perf_counter()
+        MG._check_scenes(items, fields, counts, r_max.cpu().numpy(), report)
+        check_s = time.perf_counter() - t0
+        parts = PA.ClusterParticles.from_fields(
+            MG._scene_particle_fields(items[0][1], counts), device=dev)
+    print(f"{label}: verify_merger_catalog's checks on batch 0 ({batch} "
+          f"scenes, halos rebuilt at once in {rebuild_s:.3f} s, host checks "
+          f"{check_s:.2f} s [{card}]):", json.dumps(report))
+    check(report["n_scenes_checked"] == batch and not report["violations"],
+          f"{label}: QA {report['violations'][:5]}")
+    want = {sp: sum(n) for sp, n in counts.items() if sum(n)}
+    check(parts.num_particles == want
+          and all(bool(torch.isfinite(v).all())
+                  for v in parts.fields.values()),
+          f"{label}: scene_to_particles gave {parts}")
+    print(f"{label}: scene_to_particles' mapping of scene 0: {parts}")
+    return launches
+
+
+def grid_picks(n_side):
+    """16 chunks of an n_side^3 chunkmap as ``(index, (i, j, k))``: the 8
+    corners first, then the two chunks that meet at the centre and 6 more
+    spread through the box."""
+    half = n_side // 2
+    ijk = [(i, j, k) for i in (0, n_side - 1) for j in (0, n_side - 1)
+           for k in (0, n_side - 1)]
+    ijk += [(half - 1,) * 3, (half,) * 3]
+    ijk += [(1, half, n_side - 2), (half, 1, 2), (n_side - 2, half - 1, 1),
+            (2, n_side - 3, half), (half + 1, half - 2, n_side - 1),
+            (n_side - 1, 2, half - 3)]
+    return [((i * n_side + j) * n_side + k, (i, j, k)) for i, j, k in ijk]
+
+
+def run_grid(cg, DS, card, dims=GRID_DIMS, chunk=GRID_CHUNK,
+             batch=GRID_BATCH, points=CLASS_POINTS, dev="cuda"):
+    """The chunked grid's painter over the class-path model (beta 100, bulk
+    velocity GRID_VELOCITY): every field of the file, f8 then f4, through
+    the painter's stream into host memory (no file), the density's three
+    momentum copies scaled on the host as the writer scales them; each
+    batch reduced to a checksum and the 16 picked chunks.  Checks those
+    chunks against the same function on the CPU, the corners against the
+    boundary value, finiteness; prints paint alone, copy alone and the
+    overlapped stream per field."""
+    import numpy as np
+
+    from cluster_generator_tpu_torch.core.interp import (cubic_spline,
+                                                          spline_eval)
+
+    kw = {} if dev == "cuda" else {"device": dev}
+    m = build_class_model(cg, num_points=points, **kw)
+    m.set_magnetic_field_from_beta(GRID_BETA)
+    n_side = dims // chunk
+    starts = DS.construct_chunks([dims] * 3, chunk)[:, 0, :].T.astype(
+        np.float64)
+    deltas = np.full(3, GRID_BOX / dims)
+    left = np.full(3, -GRID_BOX / 2.0)
+    picked = grid_picks(n_side)
+    picks = [p for p, _ in picked]
+    # each corner chunk's outermost cell, in the z-first block layout
+    corner_cells = [tuple(0 if a == 0 else -1 for a in (k, j, i))
+                    for _, (i, j, k) in picked[:8]]
+    out = {}
+    for dtype in ("f8", "f4"):
+        f32 = dtype == "f4"
+        for name in GRID_FIELDS:
+            y = DS.YTHDF5._model_field(m, name)
+            sp = cubic_spline(m["radius"], y)
+            factors = (list(GRID_VELOCITY) if name == "density" else [])
+            label = f"grid {dims}^3 {dtype} {name}"
+            sums, got, host_s = [], {}, [0.0]
+
+            def stream():
+                scratch = None
+                host_s[0] = 0.0
+                for i0, blocks in DS._paint_blocks(sp, starts, deltas, left,
+                                                   chunk, batch=batch,
+                                                   f32=f32):
+                    t0 = time.perf_counter()
+                    for fac in factors:
+                        if scratch is None:
+                            scratch = np.empty_like(blocks)
+                        sums.append(float(np.multiply(blocks, fac,
+                                                      out=scratch).sum()))
+                    sums.append(float(blocks.sum(dtype=np.float64)))
+                    for p in picks:
+                        if i0 <= p < i0 + blocks.shape[0]:
+                            got[p] = blocks[p - i0].copy()
+                    host_s[0] += time.perf_counter() - t0
+
+            torch.cuda.reset_peak_memory_stats()
+            _, wall_s = timed(stream)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_batches = -(-starts.shape[0] // batch)
+            host_per = host_s[0] / n_batches
+            dstarts = torch.as_tensor(starts, device=y.device)
+
+            def paint():
+                for i0 in range(0, starts.shape[0], batch):
+                    blk = DS._paint_batch(sp, dstarts[i0:i0 + batch], deltas,
+                                          left, chunk, f32)
+                return blk
+
+            blk, paint_s = timed(paint)
+            paint_s /= n_batches
+            nbytes = blk.numel() * blk.element_size()
+            copy_s = copy_alone([blk])
+            del blk
+            syncs = count_syncs(stream) if name == "density" else {}
+            per = wall_s / n_batches
+            bound = ("host-bound" if per < host_per + paint_s + copy_s
+                     else "not overlapped")
+            print(f"{label}: {n_batches} batches of {batch} chunks in "
+                  f"{wall_s:.3f} s ({len(factors)} momentum copies on the "
+                  f"host); per batch paint alone {paint_s:.4f} s, copy "
+                  f"alone {copy_s:.4f} s ({nbytes / 1e9:.3f} GB at "
+                  f"{nbytes / copy_s / 1e9:.2f} GB/s to pinned memory), host "
+                  f"work {host_per:.4f} s, overlapped {per:.4f} s "
+                  f"({(per - host_per) * 1e3:+.2f} ms over the host work: "
+                  f"{bound}); peak memory {peak:.2f} GiB; synchronizing "
+                  f"calls in one stream: {sum(syncs.values())} "
+                  f"{json.dumps(syncs)} [{card}]")
+            # the picked chunks against the same function on the CPU
+            sp_cpu = cubic_spline(m["radius"].cpu(), y.cpu())
+            ref = DS._paint_batch(sp_cpu, starts[picks], deltas, left, chunk,
+                                  False).numpy()
+            g = np.stack([got[p] for p in picks]).astype(np.float64)
+            check(np.isfinite(g).all() and all(np.isfinite(sums)),
+                  f"{label}: non-finite values")
+            if f32:
+                err = float((np.abs(g - ref) / np.abs(ref)).max())
+                check(err <= GRID_F4_RTOL, f"{label}: f4 vs CPU {err}")
+            else:
+                # the picks hold the cells next to the centre, where every
+                # profile peaks: their max is the field's
+                err = float(np.abs(g - ref).max() / np.abs(ref).max())
+                check(err <= GRID_F8_TOL, f"{label}: f8 vs CPU {err}")
+            edge = float(spline_eval(sp, sp.x[-1:])[0])
+            if f32:
+                edge = float(np.float32(edge))
+            corners = [got[p][cell] for p, cell in zip(picks, corner_cells)]
+            check(all(v == edge for v in corners)
+                  and abs(edge - float(y[-1])) <= 1e-6 * abs(float(y[-1])),
+                  f"{label}: corners {corners[:2]} vs boundary {edge}")
+            out[label] = err
+    print(f"grid card vs CPU on {len(picks)} chunks (the 8 corners, the "
+          f"centre), max |diff| / max (f8) or max relative (f4):",
+          json.dumps({k: f"{v:.1e}" for k, v in out.items()}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1822,6 +2315,14 @@ def main() -> int:
           f"(limit {IC_CPU_RTOL})")
     check(all(v < IC_CPU_RTOL for v in errs.values()),
           f"IC scene card vs CPU: {errs}")
+
+    from cluster_generator_tpu_torch import data_structures as DS
+
+    launches["catalog"] = run_catalog(E, K, PA, card)
+    launches["merger_catalog"] = run_merger_catalog(MG, K, PA, card)
+    run_grid(cg, DS, card)
+    check(all(n > 0 for n in launches.values()),
+          f"a path never launched K1: {launches}")
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

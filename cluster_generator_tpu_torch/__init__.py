@@ -12,7 +12,11 @@ RAMSES), the fused merger IC
 (:mod:`.parallel.ensemble`) and the merger-scene batch program
 (:mod:`.parallel.mergers`), the last three as plain functions on tensors
 with a leading halo axis, and the 3D random fields (:mod:`.fields`,
-``torch.fft``).  Float64 for the equilibrium solve, float32 for
+``torch.fft``).  Two file products stream from the card: the datagen
+catalogs of both batch programs (write, resume, shards, read, batch,
+verify, to particles; :mod:`.parallel`) and the chunked grid that yt reads
+(:mod:`.data_structures`), each batch copied to pinned host memory while
+the next one computes (:mod:`.core.staging`).  Float64 for the equilibrium solve, float32 for
 tables and fused draws.  The TPU kernel of the JAX package is a
 hand-written CUDA kernel here (``ops/csrc``), compiled by ``nvcc`` at
 first use.  Entry points run on the card unless called with

@@ -25,3 +25,15 @@ def tensor_on(value, device="cuda", dtype=torch.float64) -> torch.Tensor:
         return value.to(dtype=dtype)
     return torch.as_tensor(np.array(value), dtype=dtype,
                            device=resolve_device(device))
+
+
+def host_to_device(value, device, dtype=None) -> torch.Tensor:
+    """A host value (a float, a list, a numpy array) as a tensor on
+    ``device``, with no host sync: to a card the bytes go through pinned
+    memory by a non-blocking copy, since a copy from pageable memory waits
+    until the device has run everything enqueued before it."""
+    t = torch.as_tensor(np.asarray(value), dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -14,8 +14,15 @@ def linspace(start, stop, num: int, dtype=torch.float64, device=None):
     ``start (1 - t) + stop t`` for ``t = i / (num - 1)`` and the endpoint
     copied exactly.  ``start``/``stop`` may be tensors of one batch shape
     (one row per batch element) or Python floats."""
-    start = torch.as_tensor(start, dtype=dtype, device=device)
-    stop = torch.as_tensor(stop, dtype=dtype, device=start.device)
+    # a float becomes a filled 0-d tensor on the device: no copy from the
+    # host, which would wait for the device or queue behind other copies
+    if not isinstance(start, torch.Tensor):
+        start = torch.full((), float(start), dtype=dtype,
+                           device=device or "cpu")
+    start = start.to(device=device or start.device, dtype=dtype)
+    if not isinstance(stop, torch.Tensor):
+        stop = torch.full((), float(stop), dtype=dtype, device=start.device)
+    stop = stop.to(device=start.device, dtype=dtype)
     if num == 1:
         return start[..., None].clone()
     div = num - 1

@@ -11,10 +11,13 @@ tail) and must broadcast over the same leading axes.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from .device import host_to_device
 
 __all__ = ["gauss_legendre", "cumulative_integral", "integrate_mass",
            "integrate_from", "integrate_tail_to_inf", "cumtrapz"]
@@ -23,10 +26,17 @@ _DEFAULT_ORDER = 16
 
 
 def gauss_legendre(order: int, like: torch.Tensor):
-    """GL nodes/weights on [-1, 1] as float64 tensors on ``like``'s device."""
+    """GL nodes/weights on [-1, 1] as float64 tensors on ``like``'s device
+    (read-only: one pair per order and device, copied there once, so that
+    a batch program makes no host-to-device copy)."""
+    return _gl_nodes(int(order), like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _gl_nodes(order, device):
     x, w = np.polynomial.legendre.leggauss(order)
-    return (torch.as_tensor(x, dtype=torch.float64, device=like.device),
-            torch.as_tensor(w, dtype=torch.float64, device=like.device))
+    return (host_to_device(x, device, torch.float64),
+            host_to_device(w, device, torch.float64))
 
 
 def _panel_nodes(rr: torch.Tensor, order: int):

@@ -320,6 +320,17 @@ class ClusterICs:
     def create_dataset(self, filename, domain_dimensions=(512, 512, 512),
                        left_edge=None, box_size=None, overwrite=False,
                        chunksize=64):
-        raise NotImplementedError(
-            "ClusterICs.create_dataset waits for Slice E of the port (the "
-            "uniform-grid writer of data_structures.py)")
+        """Paint every halo of the scene onto one chunked uniform grid
+        (:class:`~.data_structures.YTHDF5`); the default box spans
+        [-max r_max, max r_max] on each axis.  Returns the filename."""
+        from .data_structures import YTHDF5
+
+        if left_edge is None:
+            left_edge = 3 * [-np.amax(self.r_max)]
+        if box_size is None:
+            box_size = 2 * np.amax(self.r_max)
+        bbox = [[le, le + box_size] for le in left_edge]
+        ds_obj = YTHDF5.build(filename, domain_dimensions, bbox,
+                              chunksize=chunksize, overwrite=overwrite)
+        ds_obj.add_ICs(self)
+        return ds_obj.filename

@@ -499,9 +499,29 @@ class ClusterModel:
     def create_dataset(self, filename, domain_dimensions=(512, 512, 512),
                        left_edge=None, box_size=None, overwrite=False,
                        chunksize=64, dtype="f8", engine="device"):
-        raise NotImplementedError(
-            "ClusterModel.create_dataset waits for Slice E of the port "
-            "(the uniform-grid writer of data_structures.py)")
+        """Paint this model onto a chunked uniform grid that yt reads
+        (:class:`~..data_structures.YTHDF5`), centred on the origin, at
+        rest, on the model's device.  The default box spans
+        [-r_max, r_max] on each axis; ``dtype="f4"`` halves the bytes on
+        disk.  Returns the filename."""
+        from ..data_structures import YTHDF5, _check_engine
+
+        _check_engine(engine)
+        rmax = float(self["radius"].max())
+        if left_edge is None:
+            left_edge = 3 * [-rmax]
+        if box_size is None:
+            box_size = 3 * [2.0 * rmax]
+        left_edge = np.asarray(left_edge, dtype=np.float64)
+        box_size = np.broadcast_to(np.asarray(box_size, dtype=np.float64),
+                                   (3,))
+        bbox = np.array([[le, le + bs] for le, bs in zip(left_edge, box_size)],
+                        dtype="float64")
+        ds_obj = YTHDF5.build(filename, domain_dimensions, bbox,
+                              chunksize=chunksize, overwrite=overwrite,
+                              dtype=dtype)
+        ds_obj.add_model(self, [0, 0, 0], [0, 0, 0], engine=engine)
+        return ds_obj.filename
 
 
 class HydrostaticEquilibrium(ClusterModel):

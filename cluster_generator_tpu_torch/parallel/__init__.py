@@ -1,0 +1,24 @@
+"""Ensembles of clusters and merger scenes: the batch programs and their
+HDF5 catalogs."""
+
+from .ensemble import (build_ensemble, catalog_batches, catalog_to_particles,
+                       datagen_batches, ensemble_datagen,
+                       ensemble_datagen_multihost, prorate_species_counts,
+                       read_catalog, sample_ensemble_params, verify_catalog)
+from .mergers import (binary_scene_geometry, halo_mass_weights,
+                      merger_datagen, merger_datagen_multihost,
+                      merger_scene_batches, read_merger_catalog,
+                      sample_merger_scene_params, sample_triple_scene_params,
+                      scene_to_particles, triple_scene_geometry,
+                      verify_merger_catalog, verify_scene_batch)
+
+__all__ = ["build_ensemble", "catalog_batches", "catalog_to_particles",
+           "datagen_batches", "ensemble_datagen",
+           "ensemble_datagen_multihost", "prorate_species_counts",
+           "read_catalog", "sample_ensemble_params", "verify_catalog",
+           "binary_scene_geometry", "halo_mass_weights", "merger_datagen",
+           "merger_datagen_multihost", "merger_scene_batches",
+           "read_merger_catalog", "sample_merger_scene_params",
+           "sample_triple_scene_params", "scene_to_particles",
+           "triple_scene_geometry", "verify_merger_catalog",
+           "verify_scene_batch"]

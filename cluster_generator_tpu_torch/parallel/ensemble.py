@@ -1,4 +1,5 @@
-"""Cluster models from (M200, c), and the ensemble datagen batch program.
+"""Cluster models from (M200, c), the ensemble datagen batch program, and
+its HDF5 catalogs.
 
 * :func:`build_one_cluster` / :func:`build_ensemble`: the canonical cluster
   for a whole batch of (M200, c) at once (the batch axis takes the place of
@@ -8,9 +9,16 @@
   :func:`_datagen_full_batch_fn` returns: models, DFs, speed tables (kernel
   K1, one launch per species and batch), joint tables and draws, each a
   function of whole-batch tensors.
-
-The HDF5 catalog side of the product (writer, resume, readers,
-``verify_catalog``) is not ported yet.
+* The catalogs: :func:`ensemble_datagen` (and its multi-process form)
+  streams the same batches to one HDF5 file, crash-resumable; its device
+  stage (:func:`_catalog_batches`: the batch program, then the copy to
+  pinned host memory on a side stream) and its layout
+  (:func:`_cluster_records`) are functions of their own, which need no
+  ``h5py``.  :func:`read_catalog`, :func:`catalog_batches`,
+  :func:`verify_catalog` (physics QA against models rebuilt in batches on
+  the device; the per-cluster checks are :func:`_check_cluster`) and
+  :func:`catalog_to_particles` read them back.  ``h5py`` is imported
+  inside the functions that open files.
 """
 
 from __future__ import annotations
@@ -18,10 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import host_to_device, resolve_device
 from ..core.draws import isotropic, uniform
 from ..core.grid import linspace, log_radius_grid
 from ..core.interp import _gather, interp_monotone, loguniform_lerp
+from ..core.staging import stream_to_host, to_host
 from ..model.builders import build_from_dens_and_tden
 from ..model.gravity import get_gravity
 from ..profiles.library import (snfw_density_profile, snfw_mass_profile,
@@ -32,9 +41,12 @@ from ..profiles.solvers import (find_overdensity_radius, find_radius_mass,
 from ..virial import (build_joint_speed_pairs, compute_df, om_extended_df,
                       sample_speeds_joint, speed_inverse_cdf_table,
                       speed_table_defaults)
+from .qa import QA_TOLERANCES as _QA
 
 __all__ = ["build_one_cluster", "build_ensemble", "sample_ensemble_params",
-           "datagen_batches", "prorate_species_counts", "nonfinite_counts"]
+           "datagen_batches", "prorate_species_counts", "nonfinite_counts",
+           "ensemble_datagen", "ensemble_datagen_multihost", "read_catalog",
+           "catalog_batches", "verify_catalog", "catalog_to_particles"]
 
 
 def _f64(x, device):
@@ -111,6 +123,11 @@ _DRAWS_VERSION = 2
 # OM (r_a set) draws version separately: 3 = the extended-grid f(Q)
 # (virial.om_extended_df).
 _OM_DRAWS_VERSION = 3
+# A catalog records its draws' version plus this offset: the port draws
+# from torch's generators, whose draws never equal the JAX package's
+# threefry draws for the same scheme, so a catalog of one package must
+# never be resumed by the other (a resume refuses another version).
+_PORT_DRAWS = 1000
 
 
 class _DatagenProgram:
@@ -156,12 +173,22 @@ class _DatagenProgram:
                      dict(kw, n_s=star_n_s, n_q=star_n_q)),
         }
         self.gas_rq = rq
+        self._row_tensors = {}
 
     def _row_idx(self, n):
         """Grid indices of the speed-table rows: ``n`` evenly spaced."""
         n_pts = self.num_points
         return np.unique(np.round(
             np.linspace(0, n_pts - 1, min(n, n_pts))).astype(int))
+
+    def _rows(self, sp, device):
+        """The speed-table rows' grid indices of ``sp`` on ``device``,
+        copied there once per program."""
+        key = (sp, device)
+        if key not in self._row_tensors:
+            self._row_tensors[key] = host_to_device(self.species[sp][2],
+                                                    device)
+        return self._row_tensors[key]
 
     def _active(self):
         return [sp for sp in ("dm", "star") if self.counts[sp]]
@@ -196,8 +223,8 @@ class _DatagenProgram:
         ee = -torch.flip(f["gravitational_potential"], (-1,))
         out = {}
         for sp in self._active():
-            _, _, row_idx, _, kw = self.species[sp]
-            idx = torch.as_tensor(row_idx, device=ee.device)
+            kw = self.species[sp][4]
+            idx = self._rows(sp, ee.device)
             out[sp] = dict(kw, ee=dfs[sp][0], f_vals=dfs[sp][1],
                            row_ee=ee[..., idx])
         return out
@@ -222,9 +249,9 @@ class _DatagenProgram:
         psi = -f["gravitational_potential"]
         out = {}
         for sp in self._active():
-            _, mass_field, row_idx, rq, _ = self.species[sp]
+            _, mass_field, _, rq, _ = self.species[sp]
             tab = tabs[sp]
-            idx = torch.as_tensor(row_idx, device=rr.device)
+            idx = self._rows(sp, rr.device)
             row_ee = torch.flip(psi, (-1,))[..., idx]
             r_q = self._quantile_nodes(rr, f[mass_field], rq)
             psi_q = interp_monotone(r_q, rr, psi)
@@ -465,3 +492,715 @@ def nonfinite_counts(batch_out):
         for name, a in zip(names, arrays):
             out[f"{sp}/{name}"] = int((~torch.isfinite(a)).sum())
     return out
+
+
+# ------------------------------------------------------------------ catalogs
+def _flat_outputs(out):
+    """A batch program's output as ``(names, tensors)``: ``"dm/0"`` ... in
+    species order (a bare DM tuple counts as ``"dm"``)."""
+    if not isinstance(out, dict):
+        out = {"dm": out}
+    names, tensors = [], []
+    for sp, arrays in out.items():
+        for j, a in enumerate(arrays):
+            names.append((sp, j))
+            tensors.append(a)
+    return names, tensors
+
+
+def _catalog_batches(M200, conc, batch_fn, batch_size, seed, b0s):
+    """The device stage of :func:`ensemble_datagen`: for each batch offset
+    in ``b0s`` the batch program with the generator of ``(seed, b0)``, its
+    draws staged to pinned host memory while the next batch computes
+    (:func:`~..core.staging.stream_to_host`).  Yields ``(b0, host)`` with
+    ``host`` shaped as the program's output (``{species: (pos, vel or
+    energy, pmass)}``, numpy).  A batch's arrays are valid until the next
+    one is asked for."""
+    dev = M200.device
+
+    def programs():
+        for b0 in b0s:
+            sl = slice(b0, b0 + batch_size)
+            out = batch_fn(M200[sl], conc[sl], _batch_generator(seed, b0, dev))
+            names, tensors = _flat_outputs(out)
+            yield (b0, names), tensors
+
+    for (b0, names), arrays in stream_to_host(programs()):
+        host = {}
+        for (sp, j), a in zip(names, arrays):
+            host.setdefault(sp, []).append(a)
+        yield b0, {sp: tuple(v) for sp, v in host.items()}
+
+
+def _cluster_records(full, b0, Mb, cb, out):
+    """One batch in the catalog's layout: per cluster ``(group name,
+    attrs, [(dataset name, array), ...])``.  ``Mb``/``cb`` host float64,
+    ``out`` a host batch of :func:`_catalog_batches`."""
+    for i in range(Mb.shape[0]):
+        attrs = {"M200": float(Mb[i]), "conc": float(cb[i])}
+        data = []
+        if not full:
+            pos, vel, pmass = out["dm"]
+            attrs["particle_mass"] = float(pmass[i])
+            data = [("particle_position", pos[i]),
+                    ("particle_velocity", vel[i])]
+        else:
+            for sp in ("dm", "star"):
+                if sp in out:
+                    pos, vel, pmass = out[sp]
+                    attrs[f"particle_mass_{sp}"] = float(pmass[i])
+                    data += [(f"{sp}_position", pos[i]),
+                             (f"{sp}_velocity", vel[i])]
+            if "gas" in out:
+                pos, energy, pmass = out["gas"]
+                attrs["particle_mass_gas"] = float(pmass[i])
+                data += [("gas_position", pos[i]),
+                         ("gas_thermal_energy", energy[i])]
+        yield f"cluster_{b0 + i:06d}", attrs, data
+
+
+def _record_dict(record):
+    """A record of :func:`_cluster_records` as :func:`read_catalog` yields
+    the cluster: datasets and attrs in one dict."""
+    _, attrs, data = record
+    out = dict(data)
+    out.update(attrs)
+    return out
+
+
+def _write_records(f, records):
+    """Create each record's group with its attrs and datasets; the data
+    goes through the raw pwrite path (``core/h5raw.RawWriter``)."""
+    from ..core.h5raw import RawWriter
+
+    raw = RawWriter(f)
+    for name, attrs, data in records:
+        g = f.create_group(name)
+        for k, v in attrs.items():
+            g.attrs[k] = v
+        for k, arr in data:
+            raw.add(g, k, arr)
+    raw.flush()
+
+
+def _check_path(filename, overwrite, resume):
+    """``(path, resuming)`` of a catalog call; refuses to overwrite an
+    existing file unless asked."""
+    import pathlib
+
+    path = pathlib.Path(filename)
+    if resume and overwrite:
+        raise ValueError("resume=True and overwrite=True are mutually "
+                         "exclusive (resume keeps completed batches; "
+                         "overwrite discards the file)")
+    resuming = resume and path.exists()
+    if path.exists() and not overwrite and not resuming:
+        raise IOError(f"{path} exists (pass overwrite=True, or "
+                      "resume=True to continue an interrupted run)")
+    return path, resuming
+
+
+def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
+                     batch_size=256, num_points=512, seed=0,
+                     overwrite=False, resume=False, anisotropy_radius=None,
+                     gravity="newtonian", device="cuda", _only_batches=None,
+                     _extra_attrs=None):
+    """Stream an ensemble's particle draws to ONE HDF5 file.
+
+    ``n_particles_per_cluster`` selects the product:
+
+    * **int**: DM phase space only; each cluster lands as
+      ``cluster_%06d/{particle_position, particle_velocity}`` (kpc,
+      kpc/Myr) with ``M200 / conc / particle_mass`` attrs;
+    * **dict** ``{"dm": n, "gas": n, "star": n}``: the full per-cluster
+      product, ``dm_position / dm_velocity / star_position /
+      star_velocity / gas_position / gas_thermal_energy`` datasets and
+      per-species ``particle_mass_*`` attrs (gas is at rest in HSE and has
+      no velocity dataset).
+
+    A catalog holds exactly what :func:`datagen_batches` yields for the same
+    ``(seed, batch_size, num_points)``: batch ``b0`` draws from the
+    generator seeded from ``(seed, b0)``.  The host writes batch k while
+    the device computes batch k+1; the copy runs on its own stream into
+    pinned memory (:func:`_catalog_batches`).
+
+    ``anisotropy_radius``: Osipkov-Merritt r_a in kpc for every cluster
+    (``None``: isotropic).  ``resume=True`` restarts an interrupted run:
+    completed batches are kept verbatim, the partially written batch is
+    dropped and recomputed, the rest run.  A batch counts as complete only
+    when the ``_batches_done`` marker, written after its bytes land, lists
+    it; files without the marker fall back to the presence check.  The run
+    configuration must match the file's (counts, batch size, grid, seed,
+    shard identity, gravity, r_a and the draws' version), or the call
+    raises: the port's draws come from torch's generators, so a catalog of
+    the JAX package (another ``draws_version``) is never resumed here.
+    Returns the filename.
+    """
+    from ..core.logging import mylog
+
+    path, resuming = _check_path(filename, overwrite, resume)
+    dev = resolve_device(device)
+    M200 = _f64(M200, dev)
+    conc = _f64(conc, dev)
+    n_cl = int(M200.shape[0])
+    full, counts, batch_fn = _resolve_batch_fn(n_particles_per_cluster,
+                                               num_points,
+                                               r_a=anisotropy_radius,
+                                               gravity=gravity)
+    mylog.info("Ensemble datagen: %d clusters x %s particles%s -> %s",
+               n_cl, n_particles_per_cluster,
+               "" if anisotropy_radius is None
+               else f" (OM r_a={anisotropy_radius:g} kpc)", path)
+    if full:
+        expected = []
+        for sp in ("dm", "star"):
+            if counts[sp]:
+                expected += [f"{sp}_position", f"{sp}_velocity"]
+        if counts["gas"]:
+            expected += ["gas_position", "gas_thermal_energy"]
+    else:
+        expected = ["particle_position", "particle_velocity"]
+    extra = _extra_attrs or {}
+    # everything that shapes the draws, so that a resume splices only
+    # batches the interrupted run would have written
+    config = {"draws_version": _PORT_DRAWS + (
+                  _DRAWS_VERSION if anisotropy_radius is None
+                  else _OM_DRAWS_VERSION),
+              "n_clusters": n_cl, "batch_size": int(batch_size),
+              "num_points": int(num_points),
+              "r_a": (0.0 if anisotropy_radius is None
+                      else float(anisotropy_radius)),
+              "mesh_ens": 0,
+              "gravity": str(gravity),
+              "shard_rank": int(extra.get("shard_rank", 0)),
+              "shard_count": int(extra.get("shard_count", 1)),
+              "key_data": np.asarray([int(seed)], np.int64)}
+    if full:
+        for s, n in counts.items():
+            config[f"n_{s}_per_cluster"] = n
+    else:
+        config["n_particles_per_cluster"] = int(n_particles_per_cluster)
+    M_host = M200.cpu().numpy()
+    c_host = conc.cpu().numpy()
+
+    def produce(todo):
+        for b0, out in _catalog_batches(M200, conc, batch_fn, batch_size,
+                                        seed, todo):
+            sl = slice(b0, b0 + batch_size)
+            yield b0, _cluster_records(full, b0, M_host[sl], c_host[sl], out)
+
+    _stream_batched_catalog(path, resuming, config, _extra_attrs, expected,
+                            "cluster", n_cl, batch_size, _only_batches,
+                            produce)
+    return str(path)
+
+
+def _stream_batched_catalog(path, resuming, config, extra_attrs, expected,
+                            group_prefix, n_items, batch_size, only_batches,
+                            produce):
+    """The streaming loop of both catalog products: the config recorded
+    (or, on resume, validated key by key), the batches still to do found,
+    and each batch written, then marked done.
+
+    ``produce(todo)`` yields ``(b0, records)`` for the batch offsets
+    ``todo`` in order (:func:`_cluster_records`' layout); groups are named
+    ``{group_prefix}_{index:06d}``."""
+    import h5py
+
+    from ..core.logging import mylog
+
+    with h5py.File(path, "a" if resuming else "w") as f:
+        if resuming:
+            if bool(f.attrs.get("complete", False)):
+                mylog.info("Catalog %s is already complete.", path)
+                return
+            # the values of a plain run, for files that predate a key
+            defaults = {"shard_rank": 0, "shard_count": 1, "r_a": 0.0,
+                        "mesh_ens": 0, "gravity": "newtonian"}
+            for k, v in config.items():
+                have = f.attrs.get(k, defaults.get(k))
+                if have is None or not np.array_equal(have, v):
+                    raise ValueError(
+                        f"resume config mismatch on {k!r}: file has "
+                        f"{have!r}, this run asks {v!r}; resuming "
+                        "would splice incompatible draws")
+        else:
+            for k, v in config.items():
+                f.attrs[k] = v
+            for k, v in (extra_attrs or {}).items():
+                f.attrs[k] = v
+            f.attrs["units"] = "kpc, kpc/Myr, Msun (galactic)"
+            f.attrs["_batches_done"] = np.zeros((0,), np.int64)
+        if resuming and "_batches_done" in f.attrs:
+            done = set(np.asarray(f.attrs["_batches_done"]).tolist())
+        elif resuming:
+            mylog.warning(
+                "%s predates the _batches_done marker; falling back to "
+                "dataset-presence completion checks (cannot detect a "
+                "crash inside a batch's raw write window)", path)
+            done = None
+        else:
+            done = set()
+
+        todo = []
+        mine = (range(0, n_items, batch_size) if only_batches is None
+                else sorted(only_batches))
+        for b0 in mine:
+            names = [f"{group_prefix}_{i:06d}"
+                     for i in range(b0, min(b0 + batch_size, n_items))]
+            have_all = all(nm in f and all(ds in f[nm] for ds in expected)
+                           for nm in names)
+            if resuming and have_all and (done is None or b0 in done):
+                continue
+            if resuming:
+                for nm in names:  # drop the partial batch, recompute it
+                    if nm in f:
+                        del f[nm]
+            todo.append(b0)
+        if resuming:
+            mylog.info("Resuming %s: %d/%d batches already complete.",
+                       path, len(mine) - len(todo), len(mine))
+        for b0, records in produce(todo):
+            _write_records(f, records)
+            # after the batch's bytes are in the file: the marker is what
+            # makes it count on resume
+            if done is not None:
+                done.add(int(b0))
+                f.attrs["_batches_done"] = np.asarray(sorted(done),
+                                                      np.int64)
+        f.attrs["complete"] = True
+
+
+def _rank_and_count(rank, nproc):
+    """This process's rank and the process count: ``torch.distributed``'s
+    when it is initialized, else 0 and 1, unless given."""
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    if rank is None:
+        rank = dist.get_rank() if live else 0
+    if nproc is None:
+        nproc = dist.get_world_size() if live else 1
+    if not 0 <= rank < nproc:
+        raise ValueError(f"rank {rank} outside [0, {nproc})")
+    return int(rank), int(nproc)
+
+
+def _shard_plan(filename, n_items, batch_size, rank, nproc):
+    """``(shard filename, this rank's batch offsets)``: batches ``rank,
+    rank + nproc, ...`` into ``<stem>.<rank>of<nproc><suffix>``."""
+    import pathlib
+
+    path = pathlib.Path(filename)
+    shard = path.with_name(f"{path.stem}.{rank}of{nproc}{path.suffix}")
+    mine = [b0 for i, b0 in enumerate(range(0, n_items, batch_size))
+            if i % nproc == rank]
+    return str(shard), mine
+
+
+def ensemble_datagen_multihost(M200, conc, filename, n_particles_per_cluster,
+                               batch_size=256, num_points=512, seed=0,
+                               overwrite=False, resume=False,
+                               anisotropy_radius=None, gravity="newtonian",
+                               rank=None, nproc=None, device="cuda"):
+    """Multi-process :func:`ensemble_datagen`: process ``rank`` of
+    ``nproc`` computes batches ``rank, rank+nproc, ...`` and writes their
+    cluster groups (global indices) to ``<stem>.<rank>of<nproc><suffix>``.
+
+    Each batch's generator is seeded from ``(seed, b0)`` with the global
+    offset, so the shard set is bit-identical to a one-process catalog,
+    with no collectives.  ``rank``/``nproc`` default to
+    ``torch.distributed``'s rank and world size when it is initialized,
+    else 0 and 1.  Feed the shard list to :func:`read_catalog` or
+    :func:`catalog_batches`.  ``resume=True`` resumes this shard alone.
+    Returns this process's shard filename."""
+    rank, nproc = _rank_and_count(rank, nproc)
+    n_cl = len(M200)
+    shard, mine = _shard_plan(filename, n_cl, batch_size, rank, nproc)
+    return ensemble_datagen(
+        M200, conc, shard, n_particles_per_cluster, batch_size=batch_size,
+        num_points=num_points, seed=seed, overwrite=overwrite, resume=resume,
+        anisotropy_radius=anisotropy_radius, gravity=gravity, device=device,
+        _only_batches=mine,
+        _extra_attrs={"shard_rank": rank, "shard_count": nproc})
+
+
+def _catalog_filenames(filename):
+    """The filename-or-shard-sequence argument as a list, taken ONCE (a
+    one-shot iterable such as ``glob.iglob`` consumed twice would leave the
+    second consumer nothing)."""
+    import os
+
+    if isinstance(filename, (str, os.PathLike)):
+        return [str(filename)]
+    return [str(fn) for fn in filename]
+
+
+def _open_catalog(stack, filenames, prefix="cluster"):
+    """Open a catalog's shard files and raw readers on ``stack`` and map
+    each group to its shard (once per consumer call)."""
+    import h5py
+
+    from ..core.h5raw import RawReader
+
+    files = [stack.enter_context(h5py.File(fn, "r")) for fn in filenames]
+    readers = [stack.enter_context(RawReader(f)) for f in files]
+    n_cl = int(files[0].attrs["n_clusters"])
+    where = {name: j for j, f in enumerate(files) for name in f
+             if name.startswith(prefix + "_")}
+    return files, readers, n_cl, where
+
+
+def _read_cluster(files, readers, where, i, fields, filenames,
+                  prefix="cluster"):
+    name = f"{prefix}_{int(i):06d}"
+    j = where.get(name)
+    if j is None:
+        raise KeyError(
+            f"{name} missing from {filenames}: incomplete catalog "
+            "(interrupted run?); finish it with the datagen's resume=True")
+    g = files[j][name]
+    if fields is not None:
+        missing = [k for k in fields if k not in g]
+        if missing:
+            raise KeyError(f"fields {missing} not in cluster group "
+                           f"(has {sorted(g)})")
+    out = {k: readers[j].read(g[k])
+           for k in (g if fields is None else fields)}
+    out.update(g.attrs)
+    return out
+
+
+def read_catalog(filename, indices=None, fields=None):
+    """Iterate ``(index, cluster_dict)`` over an :func:`ensemble_datagen`
+    catalog (host numpy).
+
+    ``cluster_dict`` maps every dataset of the cluster's group to its array
+    (read by pread at the dataset's offset, ``core/h5raw.RawReader``) plus
+    the group attrs.  ``indices``: cluster indices (default all, in order);
+    ``fields``: dataset names to read (default all; attrs always come;
+    an unknown name raises).  ``filename`` may be a shard list of
+    :func:`ensemble_datagen_multihost`: indices are global."""
+    import contextlib
+
+    filenames = _catalog_filenames(filename)
+    with contextlib.ExitStack() as stack:
+        files, readers, n_cl, where = _open_catalog(stack, filenames)
+        if indices is None:
+            indices = range(n_cl)
+        if fields is not None:
+            fields = list(fields)
+        for i in indices:
+            yield int(i), _read_cluster(files, readers, where, int(i),
+                                        fields, filenames)
+
+
+def catalog_batches(filename, batch_size, generator=None, drop_remainder=True,
+                    prefetch=True, fields=None):
+    """Iterate a catalog in stacked batches, the training-loop form: each
+    yield is a dict of host numpy arrays, every dataset stacked on a leading
+    batch axis (``dm_position`` -> ``(B, n_dm, 3)``) and every attr to
+    ``(B,)``.
+
+    ``generator``: a ``torch.Generator`` or an int seed; shuffles the
+    cluster order with ``torch.randperm`` (``None``: catalog order).
+    ``drop_remainder`` drops a final short batch.  ``prefetch`` reads batch
+    k+1 on one worker thread while batch k is consumed.  ``fields`` and
+    shard lists as in :func:`read_catalog`."""
+    import contextlib
+
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    filenames = _catalog_filenames(filename)
+    with contextlib.ExitStack() as stack:
+        files, readers, n_cl, where = _open_catalog(stack, filenames)
+        fieldlist = None if fields is None else list(fields)
+        order = np.arange(n_cl)
+        if generator is not None:
+            if not isinstance(generator, torch.Generator):
+                generator = torch.Generator().manual_seed(int(generator))
+            order = torch.randperm(n_cl, generator=generator,
+                                   device=generator.device).cpu().numpy()
+        limit = n_cl - (n_cl % batch_size) if drop_remainder else n_cl
+        batches = [order[i:i + batch_size]
+                   for i in range(0, limit, batch_size)]
+
+        def _read(idx):
+            clusters = [_read_cluster(files, readers, where, int(i),
+                                      fieldlist, filenames) for i in idx]
+            return {k: np.stack([cl[k] for cl in clusters])
+                    for k in clusters[0]}
+
+        if not prefetch:
+            for b in batches:
+                yield _read(b)
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        # one worker: h5py objects are used by one thread at a time
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = None
+            for b in batches:
+                nxt = ex.submit(_read, b)
+                if fut is not None:
+                    yield fut.result()
+                fut = nxt
+            if fut is not None:
+                yield fut.result()
+
+
+_SPECIES_MASS = {"dm": "dark_matter_mass", "star": "stellar_mass",
+                 "gas": "gas_mass"}
+# the rebuilt fields the physics QA reads
+_QA_FIELDS = ("radius", "gravitational_potential", "pressure", "density",
+              "dark_matter_mass", "stellar_mass", "gas_mass")
+
+
+def _rebuild_fields(M200, conc, num_points, gravity, device):
+    """The models of a batch of clusters, rebuilt at once on ``device``
+    and brought to the host in one copy: ``{name: (B, num_points)}``
+    float64 numpy for the fields of ``_QA_FIELDS``."""
+    dev = resolve_device(device)
+    f = build_one_cluster(_f64(M200, dev), _f64(conc, dev),
+                          num_points=num_points, with_df=False,
+                          gravity=gravity)
+    return dict(zip(_QA_FIELDS, to_host([f[k] for k in _QA_FIELDS])))
+
+
+def _new_report():
+    return {"n_clusters_checked": 0, "n_particles_checked": 0,
+            "max_speed_frac": 0.0, "max_energy_rel_err": 0.0,
+            "max_radius_frac": 0.0, "min_radius_frac": np.inf,
+            "max_mass_rel_err": 0.0, "violations": []}
+
+
+def _check_cluster(i, cl, f, report, r_a=0.0, speed_tol=_QA["speed_tol"],
+                   energy_rtol=_QA["cluster"]["energy_rtol"],
+                   radius_tol=_QA["cluster"]["radius_tol"],
+                   mass_rtol=_QA["cluster"]["mass_rtol"],
+                   zero_row_tol=_QA["zero_row_tol"]):
+    """The physics QA of one catalog cluster on the host: ``cl`` the
+    cluster's dict (datasets and attrs, as :func:`read_catalog` yields it),
+    ``f`` its rebuilt model (float64 numpy of ``_QA_FIELDS``).  Adds to
+    ``report`` (see :func:`verify_catalog`)."""
+    def _check(cond, msg):
+        if not cond:
+            report["violations"].append(msg)
+
+    rr = f["radius"]
+    psi = -f["gravitational_potential"]
+    e_grid = 1.5 * f["pressure"] / f["density"]
+    if "particle_position" in cl:  # DM-only product
+        triples = [("dm", cl["particle_position"], cl["particle_velocity"],
+                    cl["particle_mass"])]
+        gas = None
+    else:
+        triples = [(sp, cl[f"{sp}_position"], cl[f"{sp}_velocity"],
+                    cl[f"particle_mass_{sp}"])
+                   for sp in ("dm", "star") if f"{sp}_position" in cl]
+        gas = ((cl["gas_position"], cl["gas_thermal_energy"],
+                cl["particle_mass_gas"]) if "gas_position" in cl else None)
+    for sp, pos, vel, pmass in triples:
+        _check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+               f"cluster {i} {sp}: non-finite values")
+        r = np.sqrt((np.asarray(pos, np.float64) ** 2).sum(axis=1))
+        zfrac = float((r == 0.0).mean())
+        _check(zfrac <= zero_row_tol,
+               f"cluster {i} {sp}: {zfrac:.2%} zero-radius rows "
+               "(unwritten file extents?)")
+        _check(np.count_nonzero(vel) > 0,
+               f"cluster {i} {sp}: all-zero velocities "
+               "(unwritten file extents?)")
+        report["min_radius_frac"] = min(report["min_radius_frac"],
+                                        float(r.min() / rr[-1]))
+        rfrac = float(r.max() / rr[-1])
+        report["max_radius_frac"] = max(report["max_radius_frac"], rfrac)
+        _check(rfrac <= 1.0 + radius_tol,
+               f"cluster {i} {sp}: radius {rfrac:.6f} of r_max")
+        v = np.sqrt((np.asarray(vel, np.float64) ** 2).sum(axis=1))
+        v_esc = np.sqrt(2.0 * np.interp(r, rr, psi))
+        frac = float((v / v_esc).max())
+        report["max_speed_frac"] = max(report["max_speed_frac"], frac)
+        _check(frac <= 1.0 + speed_tol,
+               f"cluster {i} {sp}: speed {frac:.6f} of local v_esc")
+        if r_a > 0.0:
+            # drawn beta in a shell outside r_a against beta_OM =
+            # r^2 / (r^2 + r_a^2): isotropic draws in an OM catalog fail
+            nh = np.asarray(pos, np.float64) / np.maximum(r, 1e-30)[:, None]
+            v_r = (np.asarray(vel, np.float64) * nh).sum(axis=1)
+            shell = (r >= 1.2 * r_a) & (r <= min(2.0 * r_a, rr[-1]))
+            if shell.sum() >= 1000:
+                v_t2 = v[shell] ** 2 - v_r[shell] ** 2
+                beta = 1.0 - v_t2.mean() / (2.0 * (v_r[shell] ** 2).mean())
+                rmid = float(r[shell].mean())
+                b_om = rmid ** 2 / (rmid ** 2 + r_a ** 2)
+                _check(abs(beta - b_om) < 0.15,
+                       f"cluster {i} {sp}: anisotropy beta {beta:.3f} vs "
+                       f"OM {b_om:.3f} at r~{rmid:.0f} (isotropic draws in "
+                       "an OM catalog?)")
+        m_tot = float(f[_SPECIES_MASS[sp]][-1])
+        merr = abs(float(pmass) * len(r) - m_tot) / m_tot
+        report["max_mass_rel_err"] = max(report["max_mass_rel_err"], merr)
+        _check(merr <= mass_rtol,
+               f"cluster {i} {sp}: mass budget off by {merr:.2e}")
+        report["n_particles_checked"] += len(r)
+    if gas is not None:
+        pos, energy, pmass = gas
+        _check(np.isfinite(pos).all() and np.isfinite(energy).all(),
+               f"cluster {i} gas: non-finite values")
+        r = np.sqrt((np.asarray(pos, np.float64) ** 2).sum(axis=1))
+        zfrac = float((r == 0.0).mean())
+        _check(zfrac <= zero_row_tol,
+               f"cluster {i} gas: {zfrac:.2%} zero-radius rows "
+               "(unwritten file extents?)")
+        report["min_radius_frac"] = min(report["min_radius_frac"],
+                                        float(r.min() / rr[-1]))
+        e_ref = np.interp(r, rr, e_grid)
+        rel = float((np.abs(np.asarray(energy, np.float64) - e_ref)
+                     / e_ref).max())
+        report["max_energy_rel_err"] = max(report["max_energy_rel_err"], rel)
+        _check(rel <= energy_rtol,
+               f"cluster {i} gas: thermal energy off by {rel:.3e}")
+        _check((np.asarray(energy) > 0).all(),
+               f"cluster {i} gas: non-positive thermal energy")
+        m_tot = float(f["gas_mass"][-1])
+        merr = abs(float(pmass) * len(r) - m_tot) / m_tot
+        report["max_mass_rel_err"] = max(report["max_mass_rel_err"], merr)
+        _check(merr <= mass_rtol,
+               f"cluster {i} gas: mass budget off by {merr:.2e}")
+        report["n_particles_checked"] += len(r)
+    report["n_clusters_checked"] += 1
+
+
+def _check_clusters(items, fields, report, **tol):
+    """:func:`_check_cluster` for each ``(index, cluster dict)`` of one
+    rebuilt batch (``fields`` as :func:`_rebuild_fields` returns them)."""
+    for j, (i, cl) in enumerate(items):
+        _check_cluster(i, cl, {k: v[j] for k, v in fields.items()}, report,
+                       **tol)
+
+
+def verify_catalog(filename, indices=None, strict=True,
+                   speed_tol=_QA["speed_tol"],
+                   energy_rtol=_QA["cluster"]["energy_rtol"],
+                   radius_tol=_QA["cluster"]["radius_tol"],
+                   mass_rtol=_QA["cluster"]["mass_rtol"],
+                   zero_row_tol=_QA["zero_row_tol"], batch_size=256,
+                   device="cuda"):
+    """Physics QA gate of a datagen catalog: the models are REBUILT from
+    the recorded ``(M200, conc, num_points, gravity)``, ``batch_size``
+    clusters at once on ``device``, and the stored draws checked against
+    them (tolerances: :mod:`~.qa`):
+
+    * every dataset finite;
+    * no zero-filled extents: at most ``zero_row_tol`` of a species' radii
+      exactly zero, no all-zero collisionless velocity block;
+    * radii inside the model grid (``radius_tol``);
+    * collisionless speeds under the local escape speed sqrt(2 psi(r))
+      (``speed_tol``); for an OM catalog (``r_a`` > 0) the anisotropy
+      in a shell outside r_a;
+    * gas thermal energies against 1.5 P / rho at the particle radius
+      (``energy_rtol``), and positive;
+    * ``n_part * pmass`` against the species' grid mass (``mass_rtol``).
+
+    A merger-scene catalog goes to :func:`~.mergers.verify_merger_catalog`
+    with the tolerances clamped to its floors.  Returns a report (worst
+    values and ``violations``); ``strict`` raises ``ValueError`` on any
+    violation.  ``filename`` may be a shard list."""
+    import h5py
+
+    filenames = _catalog_filenames(filename)
+    with h5py.File(filenames[0], "r") as f:
+        product = f.attrs.get("product")
+        num_points = int(f.attrs["num_points"])
+        n_cl = int(f.attrs["n_clusters"])
+        r_a = float(f.attrs.get("r_a", 0.0))  # 0 = isotropic
+        gravity = str(f.attrs.get("gravity", "newtonian"))
+    if product == "merger_scenes":
+        from .mergers import verify_merger_catalog
+
+        mt = _QA["merger"]
+        return verify_merger_catalog(
+            filenames, indices=indices, speed_tol=speed_tol,
+            energy_rtol=max(energy_rtol, mt["energy_rtol"]),
+            mass_rtol=max(mass_rtol, mt["mass_rtol"]),
+            radius_tol=max(radius_tol, mt["radius_tol"]),
+            zero_row_tol=zero_row_tol, strict=strict,
+            batch_size=batch_size, device=device)
+    if indices is None:
+        indices = range(n_cl)
+    report = _new_report()
+    tol = dict(r_a=r_a, speed_tol=speed_tol, energy_rtol=energy_rtol,
+               radius_tol=radius_tol, mass_rtol=mass_rtol,
+               zero_row_tol=zero_row_tol)
+    items = []
+
+    def flush():
+        fields = _rebuild_fields([cl["M200"] for _, cl in items],
+                                 [cl["conc"] for _, cl in items],
+                                 num_points, gravity, device)
+        _check_clusters(items, fields, report, **tol)
+        items.clear()
+
+    for i, cl in read_catalog(filenames, indices=list(indices)):
+        items.append((i, cl))
+        if len(items) == batch_size:
+            flush()
+    if items:
+        flush()
+    if strict and report["violations"]:
+        raise ValueError("catalog failed physics QA:\n  "
+                         + "\n  ".join(report["violations"][:20]))
+    return report
+
+
+def _cluster_particle_fields(cl):
+    """A catalog cluster's dict as ``ClusterParticles`` fields (numpy):
+    the full product's ``dm/gas/star`` datasets per type (gas with its
+    thermal energy and zero velocities: the catalogs hold HSE clusters),
+    the DM-only product as one ``dm`` type."""
+    fields = {}
+    if "particle_position" in cl:  # DM-only product
+        n = cl["particle_position"].shape[0]
+        fields["dm", "particle_position"] = cl["particle_position"]
+        fields["dm", "particle_velocity"] = cl["particle_velocity"]
+        fields["dm", "particle_mass"] = np.full(n, cl["particle_mass"],
+                                                dtype=np.float32)
+        return fields
+    for sp in ("dm", "gas", "star"):
+        pos = cl.get(f"{sp}_position")
+        if pos is None:
+            continue
+        n = pos.shape[0]
+        fields[sp, "particle_position"] = pos
+        vel = cl.get(f"{sp}_velocity")
+        fields[sp, "particle_velocity"] = (vel if vel is not None
+                                           else np.zeros_like(pos))
+        fields[sp, "particle_mass"] = np.full(
+            n, cl[f"particle_mass_{sp}"], dtype=np.float32)
+        if sp == "gas":
+            fields[sp, "thermal_energy"] = cl["gas_thermal_energy"]
+    return fields
+
+
+def catalog_to_particles(filename, index, device="cuda"):
+    """One catalog cluster as a :class:`~..particles.ClusterParticles` on
+    ``device``: the bridge from the catalogs to the exporters.  Every form
+    is handled (full-species, DM-only; merger-scene catalogs go to
+    :func:`~.mergers.scene_to_particles`).  Positions are centred on the
+    origin: place the cluster in a Gadget box first, e.g.
+    ``p.add_offsets([box / 2] * 3, [0] * 3)``."""
+    import h5py
+
+    from ..particles import ClusterParticles
+
+    filenames = _catalog_filenames(filename)
+    with h5py.File(filenames[0], "r") as f:
+        merger = f.attrs.get("product") == "merger_scenes"
+    if merger:
+        from .mergers import scene_to_particles
+
+        return scene_to_particles(filenames, index, device=device)
+    (_, cl), = read_catalog(filenames, indices=[index])
+    return ClusterParticles.from_fields(_cluster_particle_fields(cl),
+                                        device=device)

@@ -13,11 +13,18 @@ uniforms.  :func:`merger_scene_batches` streams an ensemble batch by batch
 as tensors on the device; :func:`verify_scene_batch` holds a batch to the
 physics QA of the merger catalog.
 
-The HDF5 catalog side of the product (writer, resume, readers, the catalog
-verifier, ``scene_to_particles``) is not ported yet.
+The catalogs: :func:`merger_datagen` (and its multi-process form) streams
+the scene batches to one HDF5 file on the loop of
+:func:`~.ensemble.ensemble_datagen`; its device stage
+(:func:`_scene_batches`) and layout (:func:`_scene_records`) need no
+``h5py``.  :func:`read_merger_catalog`, :func:`verify_merger_catalog` (the
+per-scene checks are :func:`_check_scene`) and :func:`scene_to_particles`
+read them back.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -25,15 +32,22 @@ import torch
 from ..core.device import resolve_device
 from ..core.draws import uniform
 from ..core.interp import interp
+from ..core.staging import stream_to_host
 from ..model.gravity import get_gravity
 from ..pipeline import (build_merger_models, build_radius_tables,
                         build_speed_tables, sample_merger_ic)
-from .ensemble import _batch_generator, _check_r_a, _f64, build_one_cluster
+from .ensemble import (_PORT_DRAWS, _SPECIES_MASS, _batch_generator,
+                       _catalog_filenames, _check_path, _check_r_a, _f64,
+                       _open_catalog, _rank_and_count, _read_cluster,
+                       _rebuild_fields, _shard_plan, _stream_batched_catalog,
+                       build_one_cluster)
 from .qa import QA_TOLERANCES as _QA
 
 __all__ = ["sample_merger_scene_params", "binary_scene_geometry",
            "triple_scene_geometry", "sample_triple_scene_params",
-           "halo_mass_weights", "merger_scene_batches", "verify_scene_batch"]
+           "halo_mass_weights", "merger_scene_batches", "verify_scene_batch",
+           "merger_datagen", "merger_datagen_multihost", "read_merger_catalog",
+           "verify_merger_catalog", "scene_to_particles"]
 
 # Bump whenever the MEANING of the merger draws changes for a fixed
 # configuration.  1 = the pipeline.sample_merger_ic draw scheme (paired
@@ -482,8 +496,6 @@ def verify_scene_batch(out, M200, conc, centers, velocities, r_max, counts,
     psi = -f["gravitational_potential"]
     rho = f["density"]
     e_grid = 1.5 * f["pressure"] / rho
-    mass_key = {"dm": "dark_matter_mass", "star": "stellar_mass",
-                "gas": "gas_mass"}
     report = {"nonfinite": {}, "max_speed_frac": 0.0,
               "max_energy_rel_err": 0.0, "max_density_rel_err": 0.0,
               "max_velocity_err": 0.0, "max_radius_frac": 0.0,
@@ -527,7 +539,8 @@ def verify_scene_batch(out, M200, conc, centers, velocities, r_max, counts,
                                                     / r_max[h]).max()))
             _check(rfrac <= 1.0 + radius_tol,
                    f"{sp} halo {h}: radius {rfrac:.7f} of r_max")
-            m_tot = interp(r_max[h].expand(B, 1), rr[:, h], f[mass_key[sp]][:, h])
+            m_tot = interp(r_max[h].expand(B, 1), rr[:, h],
+                           f[_SPECIES_MASS[sp]][:, h])
             merr = worst("max_mass_rel_err", float(
                 ((pmass[:, h] * n_h - m_tot[:, 0]).abs() / m_tot[:, 0]).max()))
             _check(merr <= mass_rtol,
@@ -593,3 +606,443 @@ def verify_scene_batch(out, M200, conc, centers, velocities, r_max, counts,
         raise ValueError("merger scene batch failed physics QA:\n  "
                          + "\n  ".join(report["violations"][:20]))
     return report
+
+
+# ------------------------------------------------------------------ catalogs
+def _params_sha(M200, conc, centers, velocities):
+    """Identity of the scene-parameter arrays for the resume config: a
+    resume against another ensemble must raise, not splice."""
+    h = hashlib.sha256()
+    for a in (M200, conc, centers, velocities):
+        h.update(np.ascontiguousarray(_host(a)).tobytes())
+    return h.hexdigest()
+
+
+def _scene_batches(batch_fn, M200, conc, centers, velocities, r_max,
+                   batch_size, seed, b0s):
+    """The device stage of :func:`merger_datagen`: for each batch offset
+    in ``b0s`` the scene-batch program with the generator of ``(seed,
+    b0)``, its outputs staged to pinned host memory while the next batch
+    computes.  Yields ``(b0, host)``, ``host`` a dict of numpy arrays with
+    the program's keys; valid until the next batch is asked for."""
+    dev = M200.device
+
+    def programs():
+        for b0 in b0s:
+            sl = slice(b0, b0 + batch_size)
+            out = batch_fn(M200[sl], conc[sl], centers[sl], velocities[sl],
+                           r_max, _batch_generator(seed, b0, dev))
+            yield (b0, list(out)), list(out.values())
+
+    for (b0, names), arrays in stream_to_host(programs()):
+        yield b0, dict(zip(names, arrays))
+
+
+def _scene_records(b0, Mb, cb, ctr, vel, out):
+    """One scene batch in the catalog's layout: per scene ``(group name,
+    attrs, [(dataset name, array), ...])``; ``Mb``, ``cb``, ``ctr``,
+    ``vel`` host float64 of the batch, ``out`` a host batch of
+    :func:`_scene_batches`."""
+    for i in range(Mb.shape[0]):
+        attrs = {"M200": Mb[i], "conc": cb[i], "center": ctr[i],
+                 "bulk_velocity": vel[i]}
+        for sp in ("gas", "dm", "star"):
+            if f"mass_{sp}" in out:
+                attrs[f"particle_mass_{sp}"] = out[f"mass_{sp}"][i]
+        data = [(name, arr[i]) for name, arr in out.items()
+                if not name.startswith("mass_")]
+        yield f"scene_{b0 + i:06d}", attrs, data
+
+
+def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
+                   r_max=5000.0, seed=0, overwrite=False, resume=False,
+                   anisotropy_radius=None, gravity="newtonian", prorate=True,
+                   device="cuda", _only_batches=None, _extra_attrs=None):
+    """Stream an ensemble of merger-scene ICs to ONE HDF5 catalog.
+
+    ``params``: ``M200``/``conc`` (n_scenes, H) and either explicit
+    ``centers``/``velocities`` (n_scenes, H, 3) or the binary geometry
+    inputs ``d``/``b``/``v_rel`` (:func:`binary_scene_geometry`); the
+    output of :func:`sample_merger_scene_params` works as it is.
+    ``counts``: ``{"gas": n, "dm": n, "star": n}``, each an int (split
+    across halos by the ensemble-mean mass fraction, or evenly with
+    ``prorate=False``) or a per-halo tuple.  ``r_max``: sampling radius
+    (kpc), scalar or per halo.
+
+    Group ``scene_%06d`` holds ``gas_position / gas_velocity /
+    gas_thermal_energy / gas_density``, ``dm_position / dm_velocity``,
+    ``star_position / star_velocity`` (float32, each the halos' segments
+    in halo order, with the per-halo counts in the file attrs
+    ``n_<species>_per_halo``) and the attrs ``M200``, ``conc``,
+    ``center``, ``bulk_velocity`` and ``particle_mass_<species>`` (per
+    halo).  The scenes are what :func:`merger_scene_batches` yields for
+    the same ``(seed, batch_size)``; the resume semantics are those of
+    :func:`~.ensemble.ensemble_datagen` (shared loop), with the parameter
+    arrays' sha256 in the resume config.  Returns the filename.
+    """
+    from ..core.logging import mylog
+
+    path, resuming = _check_path(filename, overwrite, resume)
+    _check_r_a(anisotropy_radius)
+    dev = resolve_device(device)
+    M200, conc, centers, velocities = _scene_inputs(params, dev)
+    n_sc, H = M200.shape
+    counts = _normalize_counts(
+        counts, H, weights=halo_mass_weights(M200) if prorate else None)
+    r_max = _f64(r_max, dev).reshape(-1).expand(H).contiguous()
+    batch_fn = _merger_batch_fn(num_points, counts["gas"], counts["dm"],
+                                counts["star"], r_a=anisotropy_radius,
+                                gravity=gravity, device=dev)
+    mylog.info("Merger datagen: %d scenes x %d halos x %s particles%s -> %s",
+               n_sc, H, counts, "" if anisotropy_radius is None
+               else f" (OM r_a={anisotropy_radius:g} kpc)", path)
+    host = [_host(a) for a in (M200, conc, centers, velocities)]
+
+    def produce(todo):
+        for b0, out in _scene_batches(batch_fn, M200, conc, centers,
+                                      velocities, r_max, batch_size, seed,
+                                      todo):
+            sl = slice(b0, b0 + batch_size)
+            yield b0, _scene_records(b0, *(a[sl] for a in host), out)
+
+    expected = [k for sp in ("gas", "dm", "star") if sum(counts[sp])
+                for k in ([f"{sp}_position", f"{sp}_velocity"]
+                          + (["gas_thermal_energy", "gas_density"]
+                             if sp == "gas" else []))]
+    extra = _extra_attrs or {}
+    config = {"draws_version": _PORT_DRAWS + _MERGER_DRAWS_VERSION,
+              "product": "merger_scenes",
+              "n_clusters": n_sc,  # the count read_catalog keys on
+              "n_scenes": n_sc,
+              "n_halos": H, "batch_size": int(batch_size),
+              "num_points": int(num_points),
+              "r_a": (0.0 if anisotropy_radius is None
+                      else float(anisotropy_radius)),
+              "mesh_ens": 0,
+              "gravity": str(gravity),
+              "r_max": _host(r_max),
+              "params_sha": _params_sha(*host),
+              "shard_rank": int(extra.get("shard_rank", 0)),
+              "shard_count": int(extra.get("shard_count", 1)),
+              "key_data": np.asarray([int(seed)], np.int64)}
+    for sp in ("gas", "dm", "star"):
+        config[f"n_{sp}_per_halo"] = np.asarray(counts[sp], np.int64)
+    _stream_batched_catalog(path, resuming, config, _extra_attrs, expected,
+                            "scene", n_sc, batch_size, _only_batches,
+                            produce)
+    return str(path)
+
+
+def merger_datagen_multihost(params, filename, counts, batch_size=64,
+                             num_points=512, r_max=5000.0, seed=0,
+                             overwrite=False, resume=False,
+                             anisotropy_radius=None, gravity="newtonian",
+                             prorate=True, rank=None, nproc=None,
+                             device="cuda"):
+    """Multi-process :func:`merger_datagen`: process ``rank`` of ``nproc``
+    computes batches ``rank, rank+nproc, ...`` into
+    ``<stem>.<rank>of<nproc><suffix>``, bit-identical to one process's
+    catalog (see :func:`~.ensemble.ensemble_datagen_multihost`).  Returns
+    this process's shard filename."""
+    rank, nproc = _rank_and_count(rank, nproc)
+    shard, mine = _shard_plan(filename, len(params["M200"]), batch_size,
+                              rank, nproc)
+    return merger_datagen(
+        params, shard, counts, batch_size=batch_size, num_points=num_points,
+        r_max=r_max, seed=seed, overwrite=overwrite, resume=resume,
+        anisotropy_radius=anisotropy_radius, gravity=gravity,
+        prorate=prorate, device=device, _only_batches=mine,
+        _extra_attrs={"shard_rank": rank, "shard_count": nproc})
+
+
+def read_merger_catalog(filename, indices=None, fields=None):
+    """Iterate ``(index, scene_dict)`` over a :func:`merger_datagen`
+    catalog: the raw pread path, shard lists and ``fields=`` of
+    :func:`~.ensemble.read_catalog`; the scene attrs (per-halo ``M200``,
+    ``conc``, masses, ``center``, ``bulk_velocity``) always come."""
+    import contextlib
+
+    filenames = _catalog_filenames(filename)
+    with contextlib.ExitStack() as stack:
+        files, readers, n_sc, where = _open_catalog(stack, filenames,
+                                                    prefix="scene")
+        if indices is None:
+            indices = range(n_sc)
+        if fields is not None:
+            fields = list(fields)
+        for i in indices:
+            yield int(i), _read_cluster(files, readers, where, int(i),
+                                        fields, filenames, prefix="scene")
+
+
+def _merger_report():
+    return {"n_scenes_checked": 0, "n_particles_checked": 0,
+            "max_speed_frac": 0.0, "max_energy_rel_err": 0.0,
+            "max_density_rel_err": 0.0, "max_velocity_err": 0.0,
+            "max_radius_frac": 0.0, "max_mass_rel_err": 0.0,
+            "violations": []}
+
+
+def _check_scene(i, sc, f, n_per_halo, r_max, report, r_a=0.0,
+                 speed_tol=_QA["speed_tol"],
+                 energy_rtol=_QA["merger"]["energy_rtol"],
+                 mass_rtol=_QA["merger"]["mass_rtol"],
+                 radius_tol=_QA["merger"]["radius_tol"],
+                 zero_row_tol=_QA["zero_row_tol"]):
+    """The physics QA of one catalog scene on the host: ``sc`` the scene's
+    dict (as :func:`read_merger_catalog` yields it), ``f`` its halos'
+    rebuilt models (float64 numpy, (H, num_points) per field),
+    ``n_per_halo`` the per-species per-halo counts, ``r_max`` (H,).  Adds
+    to ``report`` (see :func:`verify_merger_catalog`)."""
+    def _check(cond, msg):
+        if not cond:
+            report["violations"].append(msg)
+
+    rr = f["radius"]
+    psi = -f["gravitational_potential"]
+    rho = f["density"]
+    e_grid = 1.5 * f["pressure"] / rho
+    centers = np.asarray(sc["center"], np.float64)
+    bulk = np.asarray(sc["bulk_velocity"], np.float64)
+
+    for sp in ("dm", "star"):
+        if f"{sp}_position" not in sc:
+            continue
+        pos = np.asarray(sc[f"{sp}_position"], np.float64)
+        vel = np.asarray(sc[f"{sp}_velocity"], np.float64)
+        _check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+               f"scene {i} {sp}: non-finite values")
+        o = 0
+        for h, n_h in enumerate(n_per_halo[sp]):
+            if n_h == 0:
+                continue
+            seg = slice(o, o + n_h)
+            o += n_h
+            r = np.sqrt(((pos[seg] - centers[h]) ** 2).sum(axis=1))
+            zfrac = float((r == 0.0).mean())
+            _check(zfrac <= zero_row_tol,
+                   f"scene {i} {sp} halo {h}: {zfrac:.2%} zero-radius rows "
+                   "(unwritten file extents?)")
+            # the stored values: an unwritten extent is zero-filled, healthy
+            # merger draws always carry bulk motion
+            _check(np.count_nonzero(vel[seg]) > 0,
+                   f"scene {i} {sp} halo {h}: all-zero stored velocities "
+                   "(unwritten file extents?)")
+            rfrac = float(r.max() / r_max[h])
+            report["max_radius_frac"] = max(report["max_radius_frac"], rfrac)
+            _check(rfrac <= 1.0 + radius_tol,
+                   f"scene {i} {sp} halo {h}: radius {rfrac:.6f} of r_max")
+            v = np.sqrt(((vel[seg] - bulk[h]) ** 2).sum(axis=1))
+            v_esc = np.sqrt(2.0 * np.interp(r, rr[h], psi[h]))
+            frac = float((v / v_esc).max())
+            report["max_speed_frac"] = max(report["max_speed_frac"], frac)
+            _check(frac <= 1.0 + speed_tol,
+                   f"scene {i} {sp} halo {h}: peculiar speed {frac:.6f} of "
+                   "local v_esc")
+            if r_a > 0.0:
+                nh = (pos[seg] - centers[h]) / np.maximum(r, 1e-30)[:, None]
+                v_r = ((vel[seg] - bulk[h]) * nh).sum(axis=1)
+                shell = ((r >= 1.2 * r_a)
+                         & (r <= min(2.0 * r_a, float(r_max[h]))))
+                if shell.sum() >= 1000:
+                    v_t2 = v[shell] ** 2 - v_r[shell] ** 2
+                    beta = 1.0 - v_t2.mean() / (2.0 * (v_r[shell] ** 2)
+                                                .mean())
+                    rmid = float(r[shell].mean())
+                    b_om = rmid ** 2 / (rmid ** 2 + r_a ** 2)
+                    _check(abs(beta - b_om) < 0.15,
+                           f"scene {i} {sp} halo {h}: anisotropy beta "
+                           f"{beta:.3f} vs OM {b_om:.3f} at r~{rmid:.0f} "
+                           "(isotropic draws in an OM catalog?)")
+            m_tot = float(np.interp(r_max[h], rr[h], f[_SPECIES_MASS[sp]][h]))
+            pmass = float(np.asarray(sc[f"particle_mass_{sp}"])[h])
+            merr = abs(pmass * n_h - m_tot) / m_tot
+            report["max_mass_rel_err"] = max(report["max_mass_rel_err"], merr)
+            _check(merr <= mass_rtol,
+                   f"scene {i} {sp} halo {h}: mass budget off by {merr:.2e}")
+            report["n_particles_checked"] += n_h
+
+    if "gas_position" in sc:
+        pos = np.asarray(sc["gas_position"], np.float64)
+        u = np.asarray(sc["gas_thermal_energy"], np.float64)
+        dens = np.asarray(sc["gas_density"], np.float64)
+        gvel = np.asarray(sc["gas_velocity"], np.float64)
+        _check(np.isfinite(pos).all() and np.isfinite(u).all(),
+               f"scene {i} gas: non-finite values")
+        _check((u > 0).all() and (dens > 0).all(),
+               f"scene {i} gas: non-positive energy or density")
+        # the density-weighted mix recomputed from the rebuilt fields with
+        # the draws' own lerp; the device mix sums the interpolated product
+        # rho * e per halo, so rho * e is interpolated, not e
+        tpos = torch.from_numpy(pos)
+        d_exp = de_exp = dv_exp = 0.0
+        for h in range(len(rr)):
+            r_h = (tpos - torch.from_numpy(centers[h])).norm(dim=-1)
+            rr_h = torch.from_numpy(rr[h])
+            d_h = _loglerp(r_h, rr_h, torch.from_numpy(rho[h])).numpy()
+            d_exp = d_exp + d_h
+            de_exp = de_exp + _loglerp(
+                r_h, rr_h, torch.from_numpy(rho[h] * e_grid[h])).numpy()
+            dv_exp = dv_exp + d_h[:, None] * bulk[h]
+        o = 0
+        for h, n_h in enumerate(n_per_halo["gas"]):
+            if n_h == 0:
+                continue
+            seg = slice(o, o + n_h)
+            o += n_h
+            r = np.sqrt(((pos[seg] - centers[h]) ** 2).sum(axis=1))
+            zfrac = float((r == 0.0).mean())
+            _check(zfrac <= zero_row_tol,
+                   f"scene {i} gas halo {h}: {zfrac:.2%} zero-radius rows "
+                   "(unwritten file extents?)")
+            rfrac = float(r.max() / r_max[h])
+            report["max_radius_frac"] = max(report["max_radius_frac"], rfrac)
+            _check(rfrac <= 1.0 + radius_tol,
+                   f"scene {i} gas halo {h}: radius {rfrac:.6f} of r_max")
+            m_tot = float(np.interp(r_max[h], rr[h], f["gas_mass"][h]))
+            pmass = float(np.asarray(sc["particle_mass_gas"])[h])
+            merr = abs(pmass * n_h - m_tot) / m_tot
+            report["max_mass_rel_err"] = max(report["max_mass_rel_err"], merr)
+            _check(merr <= mass_rtol,
+                   f"scene {i} gas halo {h}: mass budget off by {merr:.2e}")
+        u_exp = de_exp / d_exp
+        rel = float((np.abs(u - u_exp) / u_exp).max())
+        report["max_energy_rel_err"] = max(report["max_energy_rel_err"], rel)
+        _check(rel <= energy_rtol,
+               f"scene {i} gas: mixed thermal energy off by {rel:.3e}")
+        drel = float((np.abs(dens - d_exp) / d_exp).max())
+        report["max_density_rel_err"] = max(report["max_density_rel_err"],
+                                            drel)
+        _check(drel <= energy_rtol,
+               f"scene {i} gas: mixed density off by {drel:.3e}")
+        v_scale = max(float(np.abs(bulk).max()), 1e-3)
+        verr = float(np.abs(gvel - dv_exp / d_exp[:, None]).max() / v_scale)
+        report["max_velocity_err"] = max(report["max_velocity_err"], verr)
+        _check(verr <= energy_rtol,
+               f"scene {i} gas: mixed velocity off by {verr:.3e} of the "
+               "bulk-speed scale")
+        report["n_particles_checked"] += len(u)
+    report["n_scenes_checked"] += 1
+
+
+def _rebuild_halos(M200, conc, num_points, gravity, device):
+    """Every halo of a batch of scenes rebuilt at once on ``device``:
+    ``{name: (B, H, num_points)}`` float64 numpy (one copy to the host)."""
+    M200 = np.asarray(M200, np.float64)
+    B, H = M200.shape
+    f = _rebuild_fields(M200.reshape(-1), np.asarray(conc).reshape(-1),
+                        num_points, gravity, device)
+    return {k: v.reshape(B, H, -1) for k, v in f.items()}
+
+
+def _check_scenes(items, fields, n_per_halo, r_max, report, **tol):
+    """:func:`_check_scene` for each ``(index, scene dict)`` of one
+    rebuilt batch (``fields`` as :func:`_rebuild_halos` returns them)."""
+    for j, (i, sc) in enumerate(items):
+        _check_scene(i, sc, {k: v[j] for k, v in fields.items()},
+                     n_per_halo, r_max, report, **tol)
+
+
+def verify_merger_catalog(filename, indices=None,
+                          speed_tol=_QA["speed_tol"],
+                          energy_rtol=_QA["merger"]["energy_rtol"],
+                          mass_rtol=_QA["merger"]["mass_rtol"],
+                          radius_tol=_QA["merger"]["radius_tol"],
+                          zero_row_tol=_QA["zero_row_tol"], strict=True,
+                          batch_size=64, device="cuda"):
+    """Physics QA gate of a :func:`merger_datagen` catalog (also reached
+    through :func:`~.ensemble.verify_catalog`): every halo's model is
+    REBUILT from its recorded ``(M200, conc)``, the halos of
+    ``batch_size`` scenes at once on ``device``, and the stored draws are
+    checked against it, halo segment by halo segment:
+
+    * every value finite; no zero-radius rows past ``zero_row_tol``, no
+      all-zero stored velocity block;
+    * each halo's particles within its ``r_max`` of ITS centre
+      (``radius_tol``);
+    * collisionless peculiar speeds (velocity less the halo's bulk
+      velocity) under the halo's local escape speed (``speed_tol``); for
+      an OM catalog the anisotropy in a shell outside r_a;
+    * gas thermal energy, density and velocity against the
+      density-weighted mix of all halos recomputed from the rebuilt fields
+      (``energy_rtol``);
+    * each halo's particle mass against the species' grid mass at r_max
+      (``mass_rtol``).
+
+    Returns a report; ``strict`` raises ``ValueError`` on any violation."""
+    import h5py
+
+    filenames = _catalog_filenames(filename)
+    with h5py.File(filenames[0], "r") as f:
+        if f.attrs.get("product") != "merger_scenes":
+            raise ValueError(f"{filenames[0]} is not a merger-scene "
+                             "catalog; use verify_catalog")
+        num_points = int(f.attrs["num_points"])
+        n_sc = int(f.attrs["n_clusters"])
+        r_a = float(f.attrs.get("r_a", 0.0))  # 0 = isotropic
+        gravity = str(f.attrs.get("gravity", "newtonian"))
+        r_max = np.asarray(f.attrs["r_max"], np.float64)
+        n_per_halo = {sp: tuple(int(x) for x in f.attrs[f"n_{sp}_per_halo"])
+                      for sp in ("gas", "dm", "star")}
+    if indices is None:
+        indices = range(n_sc)
+    report = _merger_report()
+    tol = dict(r_a=r_a, speed_tol=speed_tol, energy_rtol=energy_rtol,
+               mass_rtol=mass_rtol, radius_tol=radius_tol,
+               zero_row_tol=zero_row_tol)
+    items = []
+
+    def flush():
+        fields = _rebuild_halos([sc["M200"] for _, sc in items],
+                                [sc["conc"] for _, sc in items],
+                                num_points, gravity, device)
+        _check_scenes(items, fields, n_per_halo, r_max, report, **tol)
+        items.clear()
+
+    for i, sc in read_merger_catalog(filenames, indices=list(indices)):
+        items.append((i, sc))
+        if len(items) == batch_size:
+            flush()
+    if items:
+        flush()
+    if strict and report["violations"]:
+        raise ValueError("merger catalog failed physics QA:\n  "
+                         + "\n  ".join(report["violations"][:20]))
+    return report
+
+
+def _scene_particle_fields(sc, n_per_halo):
+    """A catalog scene's dict as ``ClusterParticles`` fields (numpy): the
+    per-halo particle masses expanded over the halo segments; gas keeps its
+    mixed velocity, thermal energy and density."""
+    fields = {}
+    for sp in ("gas", "dm", "star"):
+        pos = sc.get(f"{sp}_position")
+        if pos is None:
+            continue
+        fields[sp, "particle_position"] = pos
+        fields[sp, "particle_velocity"] = sc[f"{sp}_velocity"]
+        pm = np.asarray(sc[f"particle_mass_{sp}"], np.float32)
+        fields[sp, "particle_mass"] = np.repeat(pm, n_per_halo[sp])
+        if sp == "gas":
+            fields[sp, "thermal_energy"] = sc["gas_thermal_energy"]
+            fields[sp, "density"] = sc["gas_density"]
+    return fields
+
+
+def scene_to_particles(filename, index, device="cuda"):
+    """One merger scene as a :class:`~..particles.ClusterParticles` on
+    ``device`` (:func:`~.ensemble.catalog_to_particles` dispatches here).
+    Positions are in the scene frame: for a Gadget box add
+    ``p.add_offsets([box / 2] * 3, [0] * 3)``."""
+    import h5py
+
+    from ..particles import ClusterParticles
+
+    filenames = _catalog_filenames(filename)
+    with h5py.File(filenames[0], "r") as f:
+        n_per_halo = {sp: tuple(int(x) for x in f.attrs[f"n_{sp}_per_halo"])
+                      for sp in ("gas", "dm", "star")}
+    (_, sc), = read_merger_catalog(filenames, indices=[index])
+    return ClusterParticles.from_fields(_scene_particle_fields(sc, n_per_halo),
+                                        device=device)

@@ -25,6 +25,7 @@ from .core import constants as C
 from .core.device import resolve_device
 from .core.interp import bracket_for_spline, cubic_spline, spline_eval_at
 from .core.logging import mylog
+from .core.staging import to_host
 
 __all__ = [
     "ClusterParticles", "combine_two_clusters", "combine_three_clusters",
@@ -111,14 +112,19 @@ class ClusterParticles:
     def _coerce(self, key, value):
         # particle_index carries Gadget IDs: it stays integral, the
         # unsigned ones (uint32 in Gadget files) widened to int64, since
-        # torch's unsigned types lack most operations
+        # torch's unsigned types lack most operations; the source dtype is
+        # remembered, and the host copy (to_numpy, the writers) casts back
         if key[1] == "particle_index":
+            self._index_dtypes.pop(key[0], None)
             if not isinstance(value, torch.Tensor):
                 value = np.array(value)
                 if value.dtype.kind == "u":
+                    self._index_dtypes[key[0]] = value.dtype
                     value = value.astype(np.int64)
                 value = torch.as_tensor(value)
             elif value.dtype in (torch.uint16, torch.uint32, torch.uint64):
+                self._index_dtypes[key[0]] = np.dtype(
+                    str(value.dtype).removeprefix("torch."))
                 value = value.to(torch.int64)
             return value.to(self.device)
         if isinstance(value, torch.Tensor):
@@ -132,6 +138,7 @@ class ClusterParticles:
             device = next((v.device for v in fields.values()
                            if isinstance(v, torch.Tensor)), "cuda")
         self.device = resolve_device(device)
+        self._index_dtypes = {}  # ptype -> unsigned dtype of its source IDs
         self.fields = OrderedDict(
             (k, self._coerce(k, v)) for k, v in fields.items())
         self._update_num_particles()
@@ -154,9 +161,15 @@ class ClusterParticles:
         return self.fields.keys()
 
     def to_numpy(self) -> "OrderedDict":
-        """Every field as a numpy array on the host."""
-        return OrderedDict((k, v.detach().cpu().numpy())
-                           for k, v in self.fields.items())
+        """Every field as a numpy array on the host; IDs read as unsigned
+        come back in their source dtype."""
+        out = OrderedDict((k, v.detach().cpu().numpy())
+                          for k, v in self.fields.items())
+        for ptype, dtype in self._index_dtypes.items():
+            if (ptype, "particle_index") in out:
+                out[ptype, "particle_index"] = \
+                    out[ptype, "particle_index"].astype(dtype)
+        return out
 
     def _update_num_particles(self):
         self.num_particles = {}
@@ -214,8 +227,12 @@ class ClusterParticles:
                     "ClusterParticles.__add__: dropping %s, present in "
                     "only one operand (no values exist for the other's "
                     "particles)", field)
-        particle_types = list(set(self.particle_types + other.particle_types))
+        # an ordered union: the order (and with it the Gadget ID ranges
+        # per type) must not depend on the interpreter's hash seed
+        particle_types = list(dict.fromkeys(self.particle_types
+                                            + other.particle_types))
         out = ClusterParticles(particle_types, fields, device=self.device)
+        out._index_dtypes = {**other._index_dtypes, **self._index_dtypes}
         out.passive_scalars = [
             s for s in dict.fromkeys(self.passive_scalars
                                      + other.passive_scalars)
@@ -580,23 +597,13 @@ def _torch_dtype(dtype):
 
 
 def _to_host(tensors):
-    """The tensors as numpy arrays through one device-to-host copy: their
-    bytes are laid end to end (each start 8-byte aligned) in one buffer on
-    the device."""
+    """The tensors as numpy arrays through one staged copy: from a card the
+    bytes go, laid end to end, to one pinned host buffer by non-blocking
+    copies on a side stream (``core/staging.to_host``)."""
     if not tensors:
         return []
-    pieces, spans, off = [], [], 0
-    for t in tensors:
-        b = t.contiguous().reshape(-1).view(torch.uint8)
-        pad = -b.numel() % 8
-        pieces.append(b)
-        if pad:
-            pieces.append(b.new_zeros(pad))
-        spans.append((off, b.numel()))
-        off += b.numel() + pad
-    host = torch.cat(pieces).cpu().numpy()
-    return [host[o:o + n].view(_NUMPY_OF[t.dtype]).reshape(tuple(t.shape))
-            for t, (o, n) in zip(tensors, spans)]
+    return [a.view(_NUMPY_OF[t.dtype])
+            for t, a in zip(tensors, to_host(tensors))]
 
 
 _NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64,

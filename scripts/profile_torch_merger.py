@@ -21,7 +21,13 @@ particles on a 512-point grid.
 ``combine_two_clusters``, ``resample_two_clusters`` with a passive scalar,
 AREPO's 128^3 background grid added to the scene, the Gadget block
 assembly with its copy to the host, and the Fortran particle file of the
-dark matter.  Each path runs
+dark matter.
+``--path catalog``: one batch of ``chip_smoke.py``'s cfg5c catalog stream:
+the batch program, the copy of its draws to pinned host memory through the
+staging ring (``core/staging``), the per-cluster split into the catalog's
+layout.  ``--path grid``: one batch of 64 chunks of the 512^3 grid painter
+over the class-path model: the paint (f8), its copy to pinned memory, the
+three momentum copies scaled on the host.  Each path runs
 warm, under ``torch.profiler``, one stage at a time, and prints for each
 stage one JSON line: host wall time, number of kernel launches, device busy
 time (union of kernel intervals) and busy share.  Then it prints the
@@ -30,7 +36,7 @@ the whole path.  The default, ``both``, runs the merger and the datagen
 path.
 
     python3 scripts/profile_torch_merger.py \
-        [--path merger|datagen|model|fields|scenes|ics|both]
+        [--path merger|datagen|model|fields|scenes|ics|catalog|grid|both]
 
 Needs a CUDA device; imports no JAX.
 """
@@ -48,15 +54,18 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (AREPO_NX, CENTERS, CLASS_COUNTS,  # noqa: E402
-                        CLASS_POINTS, CONC, DATAGEN_BATCH, DATAGEN_COUNTS,
-                        DATAGEN_POINTS, DATAGEN_SEED, FIELD_DIMS, FIELD_SEED,
+from chip_smoke import (AREPO_NX, CATALOG_SEED, CENTERS,  # noqa: E402
+                        CLASS_COUNTS, CLASS_POINTS, CONC, DATAGEN_BATCH,
+                        DATAGEN_COUNTS, DATAGEN_POINTS, DATAGEN_SEED,
+                        FIELD_DIMS, FIELD_SEED, GRID_BATCH, GRID_BETA,
+                        GRID_BOX, GRID_CHUNK, GRID_DIMS, GRID_VELOCITY,
                         IC_BOX, IC_TOTALS, M200, N_DM, N_GAS, N_STAR, R_MAX,
                         RADIAL_DIMS, SCENE_BATCH, SCENE_COUNTS, SCENE_POINTS,
-                        VELOCITIES, class_profiles, ic_combine, ic_draws,
-                        ic_geometry, ic_resample, kernel_profile, make_field,
-                        merger_models, nvidia_smi_line, radial_field,
-                        run_main_path, scene_params)
+                        VELOCITIES, build_class_model, class_profiles,
+                        ic_combine, ic_draws, ic_geometry, ic_resample,
+                        kernel_profile, make_field, merger_models,
+                        nvidia_smi_line, radial_field, run_main_path,
+                        scene_params)
 
 
 def merger_stages():
@@ -234,6 +243,74 @@ def ics_stages():
     ]
 
 
+def catalog_stages():
+    from cluster_generator_tpu_torch.core.staging import _Ring
+    from cluster_generator_tpu_torch.parallel import ensemble as E
+
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device="cuda").manual_seed(CATALOG_SEED),
+        DATAGEN_BATCH)
+    M_host, c_host = M.cpu().numpy(), c.cpu().numpy()
+    _, _, prog = E._resolve_batch_fn(dict(DATAGEN_COUNTS), DATAGEN_POINTS)
+    ring = _Ring(M.device)
+    state = {}
+
+    def program():
+        out = prog(M, c, E._batch_generator(CATALOG_SEED, 0, M.device))
+        state["names"], state["tensors"] = E._flat_outputs(out)
+
+    def stage():
+        arrays = ring.finish(ring.stage(state["tensors"]))
+        host = {}
+        for (sp, _), a in zip(state["names"], arrays):
+            host.setdefault(sp, []).append(a)
+        state["host"] = {sp: tuple(v) for sp, v in host.items()}
+
+    def records():
+        for _ in E._cluster_records(True, 0, M_host, c_host, state["host"]):
+            pass
+
+    return [("batch_program", program), ("stage_to_pinned", stage),
+            ("records", records)]
+
+
+def grid_stages():
+    import numpy as np
+
+    import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch import data_structures as DS
+    from cluster_generator_tpu_torch.core.interp import cubic_spline
+    from cluster_generator_tpu_torch.core.staging import _Ring
+
+    m = build_class_model(cg, num_points=CLASS_POINTS)
+    m.set_magnetic_field_from_beta(GRID_BETA)
+    sp = cubic_spline(m["radius"], m["density"])
+    starts = torch.as_tensor(DS.construct_chunks(
+        [GRID_DIMS] * 3, GRID_CHUNK)[:, 0, :GRID_BATCH].T.astype(np.float64),
+        device="cuda")
+    deltas = torch.full((3,), GRID_BOX / GRID_DIMS, dtype=torch.float64,
+                        device="cuda")
+    left = torch.full((3,), -GRID_BOX / 2.0, dtype=torch.float64,
+                      device="cuda")
+    ring = _Ring(starts.device)
+    state = {}
+
+    def paint():
+        state["blk"] = DS._paint_batch(sp, starts, deltas, left, GRID_CHUNK)
+
+    def stage():
+        state["host"], = ring.finish(ring.stage([state["blk"]]))
+
+    def scaled():
+        if "scratch" not in state:
+            state["scratch"] = np.empty_like(state["host"])
+        for fac in GRID_VELOCITY:
+            np.multiply(state["host"], fac, out=state["scratch"])
+
+    return [("paint_batch", paint), ("stage_to_pinned", stage),
+            ("momentum_copies", scaled)]
+
+
 def profile_path(path, stages, card):
     for _ in range(2):  # warm: kernels built, allocator pools filled
         for _, fn in stages:
@@ -281,7 +358,8 @@ def profile_path(path, stages, card):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("merger", "datagen", "model", "fields",
-                                       "scenes", "ics", "both"),
+                                       "scenes", "ics", "catalog", "grid",
+                                       "both"),
                     default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -301,6 +379,10 @@ def main() -> int:
         profile_path("scenes", scenes_stages(), card)
     if args.path == "ics":
         profile_path("ics", ics_stages(), card)
+    if args.path == "catalog":
+        profile_path("catalog", catalog_stages(), card)
+    if args.path == "grid":
+        profile_path("grid", grid_stages(), card)
     return 0
 
 

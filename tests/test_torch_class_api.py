@@ -265,7 +265,8 @@ def test_plot_and_create_dataset_name_their_slice(tm, tmp_path):
     with pytest.raises(NotImplementedError, match="Slice E"):
         tm.plot("density")
     with pytest.raises(NotImplementedError, match="Slice E"):
-        tm.create_dataset(str(tmp_path / "grid.h5"))
+        tm.create_dataset(str(tmp_path / "grid.h5"), engine="native")
+    assert not (tmp_path / "grid.h5").exists()
 
 
 # ---------------------------------------------------------------- the probes

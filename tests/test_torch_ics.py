@@ -6,10 +6,15 @@ Both packages read one model HDF5 file, written by the JAX package from
 the canonical cluster with both DFs, and the same per-halo particle
 files, written by the JAX package (the particles are the port's draws,
 which are quick here).  Tolerances: float64 fields rtol 1e-10 (the same
-splines, one summation order apart); counts, IDs, masks, headers and YAML
-exact; Gadget float32 blocks within one float32 ulp.
+splines, one summation order apart); counts, masks, headers and YAML
+exact; Gadget float32 blocks within one float32 ulp; IDs per type, since
+the JAX package orders a summed container's types by set iteration (the
+port keeps their order of first appearance, the same under every hash
+seed).
 """
 
+import os
+import subprocess
 import sys
 import types
 
@@ -69,6 +74,28 @@ def _scenes(n_halos, scene_files, **kw):
                                                        device="cpu")
 
 
+def _assert_ids_match(got, want, runs=False, union=False):
+    """Gadget IDs by type: the same count per type; ``runs``: each type's
+    IDs one run of consecutive values, as within one file; ``union``: the
+    same IDs over all types, as over one whole file.  Which IDs a type gets
+    follows the order of the types, and the JAX package orders the types
+    of a summed container by set iteration (it changes with the hash
+    seed), while the port keeps their order of first appearance."""
+    assert set(got) == set(want)
+    for ptype in want:
+        g, w = np.asarray(got[ptype]), np.asarray(want[ptype])
+        assert g.shape == w.shape, ptype
+        for ids in (g, w) if runs else ():
+            np.testing.assert_array_equal(np.diff(ids.astype(np.int64)), 1,
+                                          err_msg=ptype)
+    if union and want:
+        np.testing.assert_array_equal(
+            np.sort(np.concatenate([np.asarray(v, np.int64)
+                                    for v in got.values()])),
+            np.sort(np.concatenate([np.asarray(v, np.int64)
+                                    for v in want.values()])))
+
+
 def _assert_particles_match(got, want, rtol=RTOL):
     assert sorted(got.particle_types) == sorted(want.particle_types)
     assert got.num_particles == want.num_particles
@@ -78,12 +105,14 @@ def _assert_particles_match(got, want, rtol=RTOL):
         g = got[key].numpy()
         w = np.asarray(w)
         assert g.shape == w.shape, key
-        if key[1] == "particle_index":
-            np.testing.assert_array_equal(g, w, err_msg=str(key))
-        else:
+        if key[1] != "particle_index":
             assert got[key].dtype == torch.float64
             np.testing.assert_allclose(g, w, rtol=rtol, atol=0.0,
                                        err_msg=str(key))
+    _assert_ids_match(
+        {k[0]: v.numpy() for k, v in got.fields.items()
+         if k[1] == "particle_index"},
+        {k[0]: v for k, v in want.fields.items() if k[1] == "particle_index"})
 
 
 def _pair(tp):
@@ -97,10 +126,16 @@ def _pair(tp):
 
 def _assert_gadget_files_match(a, b):
     """Same groups, datasets and attributes: integers and header exact,
-    float32 blocks within one ulp, float64 blocks at RTOL."""
+    float32 blocks within one ulp, float64 blocks at RTOL; IDs by
+    :func:`_assert_ids_match`."""
+    ids = ({}, {})
     with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
         assert list(fa.keys()) == list(fb.keys())
         for g in fa:
+            if "ParticleIDs" in fa[g]:
+                ids[0][g] = fa[g]["ParticleIDs"][()]
+                ids[1][g] = fb[g]["ParticleIDs"][()]
+                assert ids[0][g].dtype == ids[1][g].dtype == np.uint32, g
             assert list(fa[g].keys()) == list(fb[g].keys()), g
             assert set(fa[g].attrs) == set(fb[g].attrs), g
             for k in fa[g].attrs:
@@ -114,8 +149,9 @@ def _assert_gadget_files_match(a, b):
                     np.testing.assert_array_max_ulp(x, y, maxulp=1)
                 elif x.dtype == np.float64:
                     np.testing.assert_allclose(x, y, rtol=RTOL, atol=0.0)
-                else:
+                elif k != "ParticleIDs":
                     np.testing.assert_array_equal(x, y, err_msg=f"{g}/{k}")
+    _assert_ids_match(*ids, runs=True, union=True)
 
 
 # ---------------------------------------------------- geometry, counting
@@ -329,8 +365,13 @@ def test_gadget_files_cross_both_ways(scene_files, tmp_path):
     want = jcg.ClusterParticles.from_gadget_file(theirs)
     got = tcg.ClusterParticles.from_gadget_file(theirs, device="cpu")
     for k, v in want.fields.items():
-        np.testing.assert_array_equal(back[k], v)
+        if k[1] != "particle_index":
+            np.testing.assert_array_equal(back[k], v)
         np.testing.assert_array_equal(got[k].numpy(), v)
+    _assert_ids_match(
+        {k[0]: v for k, v in back.fields.items() if k[1] == "particle_index"},
+        {k[0]: v for k, v in want.fields.items() if k[1] == "particle_index"},
+        runs=True)
     assert got["dm", "particle_index"].dtype == torch.int64  # from uint32
     only = tcg.ClusterParticles.from_gadget_file(ours, ptypes=["dm", "star"],
                                                  device="cpu")
@@ -439,8 +480,11 @@ def test_create_dataset_names_its_slice_and_the_card_is_the_default(
     ics = tcg.ClusterICs("ds", 1, [prof], [0.0] * 3, [0.0] * 3,
                          num_particles={"dm": 100}, r_max=2000.0,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        ics.create_dataset(str(tmp_path / "scene.h5"))
+    fn = ics.create_dataset(str(tmp_path / "scene.h5"), (16, 16, 16),
+                            chunksize=16)
+    from cluster_generator_tpu_torch.data_structures import YTHDF5
+
+    assert YTHDF5.load(fn).model_count == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tcg.ClusterICs("ds", 1, [prof], [0.0] * 3, [0.0] * 3,
@@ -466,3 +510,83 @@ def test_utils_match_jax():
     assert TU.field_label_map == JU.field_label_map
     for k in ("G", "mp", "kboltz", "kpc_to_cm", "X_H", "mu", "mue"):
         assert getattr(TU, k) == getattr(JU, k), k
+
+
+# ------------------------------------------------ repaired faults (F1, F2)
+SUM_PROGRAM = """
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cluster_generator_tpu_torch.particles import ClusterParticles, _gadget_blocks
+rng = np.random.RandomState(0)
+
+def part(types):
+    f = {}
+    for t in types:
+        f[t, "particle_position"] = rng.uniform(100.0, 900.0, (5, 3))
+        f[t, "particle_velocity"] = np.zeros((5, 3))
+        f[t, "particle_mass"] = np.ones(5)
+    return ClusterParticles.from_fields(f, device="cpu")
+
+p = part(["dm", "star", "gas", "tracer"]) + part(["dm", "star", "gas"])
+blocks, counts, _ = _gadget_blocks(p, 1000.0)
+ids = {t: (int(b["ParticleIDs"][0]), int(b["ParticleIDs"][-1]))
+       for t, b in blocks.items()}
+print("ORDER", p.particle_types, ids)
+"""
+
+
+def test_summed_species_order_does_not_depend_on_the_hash_seed():
+    """``ClusterParticles.__add__`` keeps the types in order of first
+    appearance: under PYTHONHASHSEED 0-5 one order and one ID range per
+    type."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SUM_PROGRAM], cwd=root, text=True,
+        env=dict(os.environ, PYTHONPATH=root, PYTHONHASHSEED=str(seed)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for seed in range(6)]
+    lines = set()
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-2000:]
+        lines.update(line for line in out.splitlines()
+                     if line.startswith("ORDER"))
+    assert lines == {"ORDER ['dm', 'star', 'gas', 'tracer'] {'dm': (1, 10), "
+                     "'star': (11, 20), 'gas': (21, 30), 'tracer': (31, 35)}"}
+
+
+def test_gadget_ids_keep_their_dtype_through_write_particles(tmp_path):
+    """IDs read from a Gadget file (uint32) are int64 in the container and
+    uint32 again in ``write_particles``' file, which the JAX package reads
+    with the same dtype and values as its own round trip."""
+    rng = np.random.RandomState(1)
+    fields = {}
+    for t, n in (("gas", 40), ("dm", 60)):
+        fields[t, "particle_position"] = rng.uniform(100.0, 900.0, (n, 3))
+        fields[t, "particle_velocity"] = rng.randn(n, 3)
+        fields[t, "particle_mass"] = np.ones(n)
+    fields["gas", "thermal_energy"] = np.ones(40)
+    fields["gas", "density"] = np.ones(40)
+    gadget = str(tmp_path / "snap.h5")
+    tcg.ClusterParticles.from_fields(fields, device="cpu").write_to_gadget_file(
+        gadget, 1000.0)
+    tp = tcg.ClusterParticles.from_gadget_file(gadget, device="cpu")
+    assert tp["dm", "particle_index"].dtype == torch.int64
+    assert tp.to_numpy()["dm", "particle_index"].dtype == np.uint32
+    ours, theirs = str(tmp_path / "ours.h5"), str(tmp_path / "theirs.h5")
+    tp.write_particles(ours)
+    jcg.ClusterParticles.from_gadget_file(gadget).write_particles(theirs)
+    got = jcg.ClusterParticles.from_file(ours)
+    want = jcg.ClusterParticles.from_file(theirs)
+    for t in ("gas", "dm"):
+        assert got[t, "particle_index"].dtype == np.uint32
+        np.testing.assert_array_equal(got[t, "particle_index"],
+                                      want[t, "particle_index"])
+    with h5py.File(ours) as a, h5py.File(theirs) as b:
+        for t in ("gas", "dm"):
+            assert a[t]["particle_index"].dtype == b[t][
+                "particle_index"].dtype == np.uint32
+    # the dtype survives a sum of such containers
+    summed = tp + tcg.ClusterParticles.from_gadget_file(gadget,
+                                                        device="cpu")
+    assert summed.to_numpy()["gas", "particle_index"].dtype == np.uint32

@@ -108,7 +108,8 @@ print("FOREIGN", bad)
 MODULES = """
 codes convert core core.config core.constants core.cosmology core.device
 core.draws core.grid core.h5raw core.interp core.logging core.quadrature
-core.units fields fields.grf ics model model.builders model.cluster_model
+core.staging core.units data_structures fields fields.grf ics model
+model.builders model.cluster_model
 model.gravity ops ops.build ops.cdf_inverse parallel parallel.ensemble
 parallel.mergers parallel.qa particles pipeline
 profiles profiles.algebra profiles.library profiles.relations
@@ -169,6 +170,64 @@ with tempfile.TemporaryDirectory() as d:
         else:
             raise AssertionError("a file call ran without h5py and yaml")
 assert all(bool(torch.isfinite(v).all()) for v in scene.fields.values())
+# the catalogs' and the grid's device stages, checks and layouts, with no
+# file: the ensemble stream, its records, the verifier's checks on models
+# rebuilt in one batch, the particle bridge
+from cluster_generator_tpu_torch import data_structures as DS
+from cluster_generator_tpu_torch.parallel import ensemble as E, mergers as MG
+M, c = [1.5e15, 4e14, 8e14], [4.0, 6.0, 5.0]
+_, _, prog = E._resolve_batch_fn({"dm": 300, "gas": 200, "star": 100}, 128)
+Mt, ct = torch.tensor(M, dtype=torch.float64), torch.tensor(c,
+                                                           dtype=torch.float64)
+report = E._new_report()
+for b0, host in E._catalog_batches(Mt, ct, prog, 2, 0, [0, 2]):
+    items = [(int(r[0][-6:]), E._record_dict(r)) for r in
+             E._cluster_records(True, b0, np.asarray(M[b0:b0 + 2]),
+                                np.asarray(c[b0:b0 + 2]), host)]
+    E._check_clusters(items, E._rebuild_fields(M[b0:b0 + 2], c[b0:b0 + 2],
+                                               128, "newtonian", "cpu"),
+                      report)
+assert report["violations"] == [] and report["n_clusters_checked"] == 3
+one = particles.ClusterParticles.from_fields(
+    E._cluster_particle_fields(items[0][1]), device="cpu")
+assert one.num_particles == {"dm": 300, "gas": 200, "star": 100}
+# the merger stream, its records and the scene checks
+sc = cgt.sample_merger_scene_params(None, 2, device="cpu")
+ctr, vel = cgt.binary_scene_geometry(sc["M200"], sc["d"], sc["b"],
+                                     sc["v_rel"])
+n_h = {"gas": (150, 150), "dm": (200, 200), "star": (50, 50)}
+prog = MG._merger_batch_fn(128, n_h["gas"], n_h["dm"], n_h["star"],
+                           device="cpu")
+r_max = torch.full((2,), 3000.0, dtype=torch.float64)
+rep = MG._merger_report()
+host = [MG._host(a) for a in (sc["M200"], sc["conc"], ctr, vel)]
+for b0, out in MG._scene_batches(prog, sc["M200"], sc["conc"],
+                                 torch.as_tensor(ctr), torch.as_tensor(vel),
+                                 r_max, 2, 0, [0]):
+    items = [(int(r[0][-6:]), E._record_dict(r))
+             for r in MG._scene_records(b0, *host, out)]
+    MG._check_scenes(items, MG._rebuild_halos(host[0], host[1], 128,
+                                              "newtonian", "cpu"),
+                     n_h, r_max.numpy(), rep)
+assert rep["violations"] == [] and rep["n_scenes_checked"] == 2
+MG._scene_particle_fields(items[1][1], n_h)
+# the painter's stream
+sp = cgt.core.interp.cubic_spline(models[0]["radius"], models[0]["density"])
+starts = DS.construct_chunks((16, 16, 32), 8)[:, 0, :].T.astype(np.float64)
+blocks = [b.copy() for _, b in DS._paint_blocks(
+    sp, starts, [500.0] * 3, [-4000.0] * 3, 8, batch=3)]
+assert sum(len(b) for b in blocks) == 16 and np.isfinite(blocks[0]).all()
+with tempfile.TemporaryDirectory() as d:
+    for call in (lambda: E.ensemble_datagen(M, c, d + "/c.h5", 100,
+                                            device="cpu"),
+                 lambda: DS.YTHDF5.build(d + "/g.h5", (16, 16, 16),
+                                         chunksize=8)):
+        try:
+            call()
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("a file call ran without h5py")
 print("BLOCKED OK", len(bg[("gas", "particle_position")]))
 """
 
@@ -206,7 +265,8 @@ def test_no_source_of_the_port_names_a_foreign_import():
                                     "**", "*.py"), recursive=True)
              + [os.path.join(ROOT, "chip_smoke.py"),
                 os.path.join(ROOT, "scripts", "bench_k1.py"),
-                os.path.join(ROOT, "scripts", "profile_torch_merger.py")])
+                os.path.join(ROOT, "scripts", "profile_torch_merger.py"),
+                os.path.join(ROOT, "scripts", "probe_overlap.py")])
     assert len(files) >= len(MODULES) + 3
     for path in files:
         with open(path) as fh:
