@@ -83,8 +83,17 @@ Phases, in order; any failure exits non-zero before the last line:
     momentum copies scaled on the host), 16 chunks (the 8 corners, the
     centre) against the CPU, the corners against the boundary value;
     paint alone, copy alone and the overlapped stream per field;
-18. print one JSON line of kernel numbers;
-19. print the card's name and power limit, then the last line
+18. the command line and the host tooling: ``cli.main(["info"])`` names
+    the card and the count, a ``datagen --aot-dir`` call exits 2; the
+    native (host C++) painter against the card's on the grid's density at
+    512^3 in 8 batches of 64 chunks (max |diff| / max <= 1e-12, seconds per
+    batch of each); ``stage`` around one warm 1e7 merger IC against CUDA
+    events on the same run; ``trace`` around one datagen batch, whose
+    trace names K1; ``device_memory_stats``; ``nan_guard`` raising on a
+    NaN made on the card; ``validate_model_fields`` on the merger's
+    models; K1 4 launches (2 per IC, 2 per batch);
+19. print one JSON line of kernel numbers;
+20. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -209,6 +218,12 @@ GRID_FIELDS = ("density", "dark_matter_density", "stellar_density",
                "pressure", "magnetic_pressure")
 GRID_F8_TOL = 1e-12                     # card vs CPU, of each field's max
 GRID_F4_RTOL = 2.0 ** -23               # float32 rounding
+
+# the command line and the host tooling: the native painter against the
+# card's on grid-512-class's density (512^3, 64^3 chunks, 8 batches of 64)
+NATIVE_TOL = 1e-12                      # max |native - card| / max |card|
+STAGE_TOL = (0.05, 0.002)               # |stage - events| <= 5% + 2 ms
+K1_KERNEL = "invert_cdf_rows_kernel"    # K1's name in a profiler trace
 
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
@@ -2226,6 +2241,180 @@ def run_grid(cg, DS, card, dims=GRID_DIMS, chunk=GRID_CHUNK,
     return out
 
 
+# ----------------------------------------------------------------- phase 18
+def run_cli(card):
+    """``cli.main(["info"])`` on the card names it and the count; a
+    ``--aot-dir`` call exits 2 before it computes anything."""
+    import contextlib
+    import io
+
+    from cluster_generator_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["info"])
+    text = out.getvalue()
+    name, n = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    check(rc == 0 and "backend=cuda" in text and f"devices={n}" in text
+          and f"device {name} x{n}" in text, f"cli info: rc {rc}, {text!r}")
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(err):
+        rc = cli.main(["datagen", "-n", "2", "--dm", "10", "--aot-dir", d,
+                       "-o", os.path.join(d, "never.h5")])
+        made = os.listdir(d)
+    check(rc == 2 and "eager" in err.getvalue() and not made,
+          f"cli datagen --aot-dir: rc {rc}, {err.getvalue()!r}, {made}")
+    print("cli info on the card:", " | ".join(text.strip().splitlines()),
+          f"[{card}]")
+    print("cli datagen --aot-dir: exit 2 (refused: the port is eager)")
+
+
+def run_native_grid(cg, DS, card, dims=GRID_DIMS, chunk=GRID_CHUNK,
+                    batch=GRID_BATCH, points=CLASS_POINTS, dev="cuda"):
+    """The native (host C++) painter against the card's on the class-path
+    model's density over the 512^3 grid: every batch of both streams, as
+    ``YTHDF5._add_field`` drives them, compared block for block; seconds
+    per batch of each, and the card's paint alone."""
+    import numpy as np
+
+    from cluster_generator_tpu_torch.core.interp import cubic_spline
+    from cluster_generator_tpu_torch.ops import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native library does not build")
+    build_s = time.perf_counter() - t0
+    m = build_class_model(cg, num_points=points,
+                          **({} if dev == "cuda" else {"device": dev}))
+    sp = cubic_spline(m["radius"], m["density"])
+    starts = DS.construct_chunks([dims] * 3, chunk)[:, 0, :].T.astype(
+        np.float64)
+    deltas = np.full(3, GRID_BOX / dims)
+    left = np.full(3, -GRID_BOX / 2.0)
+    n_batches = -(-starts.shape[0] // batch)
+
+    def drain(blocks_iter):
+        for _ in blocks_iter:
+            pass
+
+    _, native_s = timed(lambda: drain(DS._native_blocks(
+        sp, starts, deltas, left, chunk, batch)))
+    _, card_s = timed(lambda: drain(DS._paint_blocks(
+        sp, starts, deltas, left, chunk, batch)))
+    dstarts = torch.as_tensor(starts, device=sp.x.device)
+    paint_ms = cuda_ms(lambda: DS._paint_batch(sp, dstarts[:batch], deltas,
+                                               left, chunk), 5)
+    worst, top, seen = 0.0, 0.0, 0
+    for (i0, a), (j0, b) in zip(
+            DS._native_blocks(sp, starts, deltas, left, chunk, batch),
+            DS._paint_blocks(sp, starts, deltas, left, chunk, batch)):
+        check(i0 == j0 and a.shape == b.shape, f"native batch {i0} vs {j0}")
+        check(np.isfinite(a).all(), f"native batch {i0}: non-finite")
+        worst = max(worst, float(np.abs(a - b).max()))
+        top = max(top, float(np.abs(b).max()))
+        seen += a.shape[0]
+    check(seen == starts.shape[0], f"native painted {seen} chunks")
+    err = worst / top
+    print(f"native vs card painter, {dims}^3 density in {n_batches} batches "
+          f"of {batch} {chunk}^3 chunks: max |diff| / max {err:.1e} (limit "
+          f"{NATIVE_TOL}); per batch native (host C++, "
+          f"{os.cpu_count()} cores) {native_s / n_batches:.4f} s, card "
+          f"stream (paint + copy to pinned memory) {card_s / n_batches:.4f} "
+          f"s, card paint alone {paint_ms / 1e3:.4f} s; library built or "
+          f"loaded in {build_s:.1f} s [{card}]")
+    check(err <= NATIVE_TOL, f"native vs card painter {err}")
+    return err, native_s / n_batches, card_s / n_batches
+
+
+def run_tooling(P, E, card, counts=(N_GAS, N_DM, N_STAR),
+                batch=DATAGEN_BATCH, dev="cuda"):
+    """``stage`` around one warm merger IC against CUDA events on the same
+    run, ``trace`` around one datagen batch (the trace names K1),
+    ``device_memory_stats``, ``nan_guard`` on the card and
+    ``validate_model_fields`` on the merger's models."""
+    from cluster_generator_tpu_torch.core import debug, profiling
+
+    # stage: the host timer waits for the parts; the events bracket it
+    times = profiling.StageTimes()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    holder = []
+    with profiling.stage("merger IC", holder, accumulate=times, log=False):
+        holder.append(P.merger_ic_fused(
+            M200, CONC, CENTERS, VELOCITIES, R_MAX, *counts, generator=gen,
+            device=dev))
+    end.record()
+    sync()
+    stage_s = times.times["merger IC"]
+    event_s = start.elapsed_time(end) / 1e3
+    del holder
+    rel, absol = STAGE_TOL
+    print(f"stage('merger IC') {stage_s:.4f} s, CUDA events around it "
+          f"{event_s:.4f} s [{card}]")
+    check(abs(stage_s - event_s) <= rel * event_s + absol,
+          f"stage {stage_s} s vs events {event_s} s")
+
+    # trace: one datagen batch at the cfg5c width
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device=dev).manual_seed(DATAGEN_SEED), batch,
+        device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with profiling.trace(d) as prof:
+            (_, out), = E.datagen_batches(M, c, DATAGEN_COUNTS,
+                                          batch_size=batch,
+                                          num_points=DATAGEN_POINTS,
+                                          seed=DATAGEN_SEED, device=dev)
+            sync()
+        traced_s = time.perf_counter() - t0
+        path = os.path.join(d, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and K1_KERNEL in e.get("name", "")]
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    k1_us = sum(float(e.get("dur", 0.0)) for e in k1)
+    print(f"trace of one datagen batch ({batch} clusters): "
+          f"{traced_s:.3f} s with the profiler on, {size / 1e6:.1f} MB of "
+          f"Chrome trace, {n_kernels} kernels, K1 {len(k1)} times "
+          f"({k1_us:.1f} us) [{card}]")
+    check(len(k1) == 2, f"the trace names K1 {len(k1)} times, want 2")
+    check(sum(E.nonfinite_counts(out).values()) == 0,
+          "traced datagen batch: non-finite values")
+    del out, prof
+
+    stats = profiling.device_memory_stats()
+    alloc = stats["cuda:0"]["allocated_bytes.all.current"]
+    peak = stats["cuda:0"]["allocated_bytes.all.peak"]
+    print(f"device_memory_stats cuda:0: allocated {alloc / 2**20:.1f} MiB, "
+          f"peak {peak / 2**30:.2f} GiB, {len(stats)} card(s)")
+    check(set(stats) == {f"cuda:{i}" for i in range(
+        torch.cuda.device_count())} and alloc > 0, f"memory stats {alloc}")
+
+    x = torch.linspace(1.0, 2.0, 1 << 20, device=dev, dtype=torch.float64)
+    with debug.nan_guard():
+        clean = torch.log(x).sum()
+        try:
+            torch.log(x - 1.5)
+        except FloatingPointError as e:
+            caught = str(e)
+        else:
+            caught = ""
+    check(bool(torch.isfinite(clean)) and "aten.log" in caught
+          and torch.device(dev).type in caught,
+          f"nan_guard on the card: {caught!r}")
+    print(f"nan_guard on the card: {caught}")
+    fields = P.build_merger_models(M200, CONC, device=dev)
+    for h in range(len(M200)):
+        problems = debug.validate_model_fields(
+            {k: v[h] for k, v in fields.items()})
+        check(problems == [], f"validate_model_fields, halo {h}: {problems}")
+    return stage_s, event_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2321,6 +2510,15 @@ def main() -> int:
     launches["catalog"] = run_catalog(E, K, PA, card)
     launches["merger_catalog"] = run_merger_catalog(MG, K, PA, card)
     run_grid(cg, DS, card)
+
+    run_cli(card)
+    run_native_grid(cg, DS, card)
+    K.invert_cdf_rows.launches = 0
+    run_tooling(P, E, card)
+    launches["tooling"] = K.invert_cdf_rows.launches
+    check(launches["tooling"] == 4,
+          f"the tooling phase launched K1 {launches['tooling']} times, "
+          "want 4 (merger IC 2, datagen batch 2)")
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 

@@ -16,13 +16,17 @@ with a leading halo axis, and the 3D random fields (:mod:`.fields`,
 catalogs of both batch programs (write, resume, shards, read, batch,
 verify, to particles; :mod:`.parallel`) and the chunked grid that yt reads
 (:mod:`.data_structures`), each batch copied to pinned host memory while
-the next one computes (:mod:`.core.staging`).  Float64 for the equilibrium solve, float32 for
+the next one computes (:mod:`.core.staging`), or painted on the host by the
+C++ painter of ``native/cg_native.cpp`` (:mod:`.ops.native`); yt reads the
+grid through :mod:`.frontend`.  ``python -m cluster_generator_tpu_torch``
+(:mod:`.cli`) drives it all from the shell; :mod:`.core.profiling` and
+:mod:`.core.debug` time, trace and check it.  Float64 for the equilibrium solve, float32 for
 tables and fused draws.  The TPU kernel of the JAX package is a
 hand-written CUDA kernel here (``ops/csrc``), compiled by ``nvcc`` at
 first use.  Entry points run on the card unless called with
 ``device="cpu"``.  This package imports neither JAX nor
-``cluster_generator_tpu``; ``h5py``, PyYAML and ``yt`` are imported only
-inside the functions that read or write their formats.
+``cluster_generator_tpu``; ``h5py``, PyYAML and matplotlib are imported
+only inside the functions that need them, ``yt`` only by :mod:`.frontend`.
 """
 
 from __future__ import annotations
@@ -78,3 +82,5 @@ __all__ = ["attach_field_to_particles", "binary_merger_ic",
            "kboltz", "mp", "mu", "mue", "cgparams", "log_radius_grid",
            "mylog", "relations", "convert_ne_to_density", "f_gas", "m_bcg",
            "m_sat", "r_bcg", *_profile_names]
+
+__version__ = "0.1.0"

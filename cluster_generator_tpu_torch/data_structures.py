@@ -6,7 +6,9 @@
   radii clamped to the model's radial grid, each block in the z-first
   on-disk layout.  :func:`_paint_blocks` streams a field's batches to pinned
   host memory, batch k's copy overlapped with batch k+1's paint
-  (``core/staging``), and needs no ``h5py``;
+  (``core/staging``), and needs no ``h5py``; :func:`_native_blocks` is
+  the same stream painted on the host by the C++ painter (``ops/native``,
+  ``engine="native"``);
 * :class:`YTHDF5`: the file (``build``, ``load``, ``add_model`` with
   ``resume`` and accumulation, ``add_ICs``), written by pwrite at each
   dataset's offset (``core/h5raw``).
@@ -89,11 +91,33 @@ def _paint_blocks(sp, chunk_starts, deltas, left, cs, batch=64, f32=False):
 
 
 def _check_engine(engine):
-    if engine != "device":
-        raise NotImplementedError(
-            f"engine={engine!r}: the native painter waits for the port's "
-            "binding of native/cg_native.cpp (Slice E, E3); use "
-            "engine='device'")
+    if engine not in ("device", "native"):
+        raise ValueError(f"engine must be 'device' or 'native', got "
+                         f"{engine!r}")
+
+
+def _native_blocks(sp, chunk_starts, deltas, left, cs, batch=64, f32=False):
+    """The host painter's stream: yields ``(i0, host_blocks)`` like
+    :func:`_paint_blocks`, painted by the C++ painter
+    (``ops/native.paint_radial_chunks``) into one reused float64 buffer
+    (a fresh ~100 MB buffer per batch costs first-touch page faults
+    several times the paint), cast into a reused float32 buffer when
+    ``f32``.  A batch's blocks are valid until the next one is asked
+    for."""
+    from .ops import native
+
+    buf = buf32 = None
+    for i0 in range(0, chunk_starts.shape[0], batch):
+        starts = np.asarray(chunk_starts[i0:i0 + batch]).astype(np.int64)
+        if buf is None or buf.shape[0] != starts.shape[0]:
+            buf = np.empty((starts.shape[0], cs, cs, cs), dtype=np.float64)
+            buf32 = np.empty(buf.shape, np.float32) if f32 else None
+        blocks = native.paint_radial_chunks(sp, starts, cs, deltas, left,
+                                            out=buf)
+        if f32:
+            np.copyto(buf32, blocks, casting="same_kind")
+            blocks = buf32
+        yield i0, blocks
 
 
 def _host64(t):
@@ -274,8 +298,12 @@ class YTHDF5:
 
     def add_model(self, model, center, velocity, engine: str = "device",
                   resume: bool = False):
-        """Paint a :class:`~.model.ClusterModel` onto the grid, on the
-        model's device.
+        """Paint a :class:`~.model.ClusterModel` onto the grid.
+
+        ``engine="device"`` paints on the model's device;
+        ``engine="native"`` on the host, by the multithreaded C++ painter
+        of ``native/cg_native.cpp`` (``ops/native``), which raises when it
+        cannot be built.  The blocks go to the same sinks either way.
 
         The momentum densities are the density paint scaled by each
         component of ``velocity`` (no repaint).  A second and later model
@@ -284,8 +312,7 @@ class YTHDF5:
         repainted whole; it refuses when ``model_count > 0`` (a partly
         added field cannot be told from a finished one) and when the
         (model, center, velocity) digest differs from the interrupted
-        call's.  ``engine="native"`` (the host C++ painter) is not part of
-        the port yet."""
+        call's."""
         import h5py
 
         _check_engine(engine)
@@ -342,7 +369,7 @@ class YTHDF5:
                 self._add_field(fo, rr, yy, field, left, deltas,
                                 chunk_starts, cs,
                                 accumulate=int(fo.attrs["model_count"]) > 0,
-                                extra_scaled=extra_scaled)
+                                extra_scaled=extra_scaled, engine=engine)
                 # the marker AFTER the field and its scaled copies are in
                 # the file: a crash mid-field leaves it unlisted
                 done.add(field)
@@ -352,24 +379,27 @@ class YTHDF5:
             mylog.info("Core fields of %s were written to %s.", model, self)
             fo.attrs["model_count"] += 1
 
-    def add_ICs(self, ics):
+    def add_ICs(self, ics, engine: str = "device"):
         """Paint every halo model of a :class:`~.ics.ClusterICs` scene at its
-        centre with its bulk velocity."""
+        centre with its bulk velocity, by ``engine`` (see
+        :meth:`add_model`)."""
         mylog.info("Adding %s to %s.", ics.basename, self)
         for ic_id in range(ics.num_halos):
             self.add_model(ics.load_model(ic_id), ics.center[ic_id],
-                           ics.velocity[ic_id])
+                           ics.velocity[ic_id], engine=engine)
 
     def _add_field(self, fileio, r, y, fieldname, left, deltas, chunk_starts,
-                   cs, batch=64, accumulate=True, extra_scaled=()):
+                   cs, batch=64, accumulate=True, extra_scaled=(),
+                   engine="device"):
         """Paint one radial field on every chunk and write the blocks.
 
         ``accumulate=False`` (the first model) writes the blocks, otherwise
         they are added to what the file holds.  ``extra_scaled``:
         ``[(fieldname, factor), ...]``, datasets written as ``factor *
         blocks`` of the same paint (the momentum densities).  When every
-        sink is float32 the blocks are cast on the device, before the copy
-        to the host."""
+        sink is float32 the blocks are cast to it before the sinks see
+        them: on the device, before the copy to the host, or on the host
+        for ``engine="native"``."""
         sp = cubic_spline(r, y)
         grid = fileio["grid"]
         sinks = [(grid[fn], RawSlabIO(fileio, grid[fn]), fac)
@@ -378,8 +408,9 @@ class YTHDF5:
         scratch = None  # the reused scaled-copy buffer
 
         try:
-            for i0, blocks in _paint_blocks(sp, chunk_starts, deltas, left,
-                                            cs, batch=batch, f32=f32_out):
+            paint = _native_blocks if engine == "native" else _paint_blocks
+            for i0, blocks in paint(sp, chunk_starts, deltas, left, cs,
+                                    batch=batch, f32=f32_out):
                 for ds, raw, fac in sinks:
                     if fac == 1.0:
                         blk = blocks

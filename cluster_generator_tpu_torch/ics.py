@@ -319,11 +319,14 @@ class ClusterICs:
 
     def create_dataset(self, filename, domain_dimensions=(512, 512, 512),
                        left_edge=None, box_size=None, overwrite=False,
-                       chunksize=64):
+                       chunksize=64, engine="device"):
         """Paint every halo of the scene onto one chunked uniform grid
-        (:class:`~.data_structures.YTHDF5`); the default box spans
+        (:class:`~.data_structures.YTHDF5`), on the scene's device or by
+        the host C++ painter (``engine="native"``); the default box spans
         [-max r_max, max r_max] on each axis.  Returns the filename."""
-        from .data_structures import YTHDF5
+        from .data_structures import YTHDF5, _check_engine
+
+        _check_engine(engine)
 
         if left_edge is None:
             left_edge = 3 * [-np.amax(self.r_max)]
@@ -332,5 +335,5 @@ class ClusterICs:
         bbox = [[le, le + box_size] for le in left_edge]
         ds_obj = YTHDF5.build(filename, domain_dimensions, bbox,
                               chunksize=chunksize, overwrite=overwrite)
-        ds_obj.add_ICs(self)
+        ds_obj.add_ICs(self, engine=engine)
         return ds_obj.filename

@@ -489,19 +489,35 @@ class ClusterModel:
             compute_potential=compute_potential, prng=prng,
             uniforms=uniforms)
 
-    # ------------------------------------------- not part of the port yet
+    # ------------------------------------------------------------ plotting
     def plot(self, field, r_min=None, r_max=None, fig=None, ax=None,
              **kwargs):
-        raise NotImplementedError(
-            "ClusterModel.plot waits for Slice E of the port (the grid "
-            "and plotting layer, with data_structures.py)")
+        """Log-log plot of ``field`` against the radius (both brought to
+        host numpy), the axis labelled from ``utils.field_label_map``.
+        ``kwargs`` go to ``ax.loglog``.  Returns ``(fig, ax)``."""
+        import matplotlib.pyplot as plt
 
+        from ..utils import field_label_map
+
+        if fig is None:
+            fig = plt.figure(figsize=(10, 10))
+        if ax is None:
+            ax = fig.add_subplot(111)
+        ax.loglog(self["radius"].detach().cpu().numpy(),
+                  self[field].detach().cpu().numpy(), **kwargs)
+        ax.set_xlim(r_min, r_max)
+        ax.set_xlabel("Radius (kpc)")
+        ax.set_ylabel(field_label_map.get(field, ""))
+        return fig, ax
+
+    # ------------------------------------------------------------- dataset
     def create_dataset(self, filename, domain_dimensions=(512, 512, 512),
                        left_edge=None, box_size=None, overwrite=False,
                        chunksize=64, dtype="f8", engine="device"):
         """Paint this model onto a chunked uniform grid that yt reads
         (:class:`~..data_structures.YTHDF5`), centred on the origin, at
-        rest, on the model's device.  The default box spans
+        rest, on the model's device (``engine="device"``) or on the host
+        by the C++ painter (``engine="native"``).  The default box spans
         [-r_max, r_max] on each axis; ``dtype="f4"`` halves the bytes on
         disk.  Returns the filename."""
         from ..data_structures import YTHDF5, _check_engine

@@ -180,16 +180,22 @@ def test_other_constructors_match_jax(ctor, law):
         _close(got[k], want[k], atol=1e-12 * np.abs(want[k]).max(), msg=k)
 
 
+# parameters a method of the port adds beyond ``device`` and ``uniforms``:
+# the scene's grid takes the painting engine, as ClusterModel's does
+_EXTRA_PARAMETERS = {("ClusterICs", "create_dataset"): {"engine"}}
+
+
 def _same_parameters(want_fn, got_fn, label):
     """``got_fn`` keeps ``want_fn``'s parameters in order and adds only
-    ``device`` or ``uniforms``."""
+    ``device`` or ``uniforms`` (or what ``_EXTRA_PARAMETERS`` lists)."""
     import inspect
 
     want = list(inspect.signature(want_fn).parameters)
     got = list(inspect.signature(got_fn).parameters)
     extra = [p for p in got if p not in want]
     assert [p for p in got if p in want] == want, label
-    assert set(extra) <= {"device", "uniforms"}, (label, extra)
+    allowed = {"device", "uniforms"} | _EXTRA_PARAMETERS.get(label, set())
+    assert set(extra) <= allowed, (label, extra)
 
 
 def test_public_names_of_the_slice_exist_with_the_same_signatures():
@@ -262,11 +268,34 @@ def test_entry_points_need_a_card_unless_told_cpu():
 
 
 def test_plot_and_create_dataset_name_their_slice(tm, tmp_path):
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        tm.plot("density")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        tm.create_dataset(str(tmp_path / "grid.h5"), engine="native")
-    assert not (tmp_path / "grid.h5").exists()
+    """Both are ported: ``plot`` returns ``(fig, ax)`` and
+    ``engine="native"`` writes the grid the device engine writes."""
+    import h5py
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = tm.plot("density")
+    try:
+        assert ax.figure is fig and len(ax.lines) == 1
+        np.testing.assert_array_equal(ax.lines[0].get_xdata(),
+                                      tm["radius"].numpy())
+    finally:
+        plt.close(fig)
+    grids = {}
+    for engine in ("native", "device"):
+        fn = str(tmp_path / f"grid_{engine}.h5")
+        assert tm.create_dataset(fn, domain_dimensions=(16, 16, 16),
+                                 chunksize=8, engine=engine).exists()
+        with h5py.File(fn) as f:
+            grids[engine] = f["grid/density"][()]
+    want = grids["device"]
+    np.testing.assert_allclose(grids["native"], want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+    with pytest.raises(ValueError, match="engine"):
+        tm.create_dataset(str(tmp_path / "x.h5"), engine="gpu")
+    assert not (tmp_path / "x.h5").exists()
 
 
 # ---------------------------------------------------------------- the probes

@@ -8,8 +8,8 @@ each field's largest value (f8) and to float32 rounding (f4); the chunkmap,
 the attrs and the paint-config digest are identical; each package's
 ``YTHDF5.load`` reads the other's file, a second model accumulates onto
 either, and ``resume`` repaints only unfinished fields.  The cases of
-tests/test_data_structures.py are mirrored (the two native-engine cases
-wait for the port's binding of the C++ painter).
+tests/test_data_structures.py are mirrored; the native engine's cases are
+in tests/test_torch_native.py and tests/test_torch_cli.py.
 """
 
 import h5py
@@ -181,9 +181,16 @@ def test_create_dataset_end_to_end(models, tmp_path):
     assert ds.model_count == 1
     np.testing.assert_array_equal(ds.bbox, [[-1e4, 1e4]] * 3)
     ds.survey_memory()
-    with pytest.raises(NotImplementedError, match="E3"):
-        tm.create_dataset(str(tmp_path / "n.h5"), (32, 32, 32), chunksize=16,
-                          engine="native")
+    # the host C++ painter writes the same grid
+    fn_n = tm.create_dataset(str(tmp_path / "n.h5"), (32, 32, 32),
+                             chunksize=16, engine="native")
+    with h5py.File(fn) as f, h5py.File(fn_n) as g:
+        assert sorted(f.attrs) == sorted(g.attrs)
+        for k in f["grid"]:
+            want = f["grid"][k][()]
+            np.testing.assert_allclose(g["grid"][k][()], want, rtol=0,
+                                       atol=1e-12 * np.abs(want).max(),
+                                       err_msg=k)
 
 
 def test_add_ics_matches_the_jax_package(model_file, tmp_path):

@@ -1,10 +1,14 @@
-"""The port stands alone: importing every module of it and running a small
-merger IC (with every switch), a small datagen batch, the single-cluster
-class path, every random-field class with its particle sampling, and a
-merger-scene stream with its QA on the CPU loads neither JAX nor the JAX
-package, nor h5py.  With h5py and PyYAML blocked, as on a machine that has
-neither, the package still imports and a two-halo IC scene runs through
-everything but the files."""
+"""The port stands alone: importing every module of it (the yt frontend's
+modules refuse, naming yt, when yt is absent) and running a small merger IC
+(with every switch), a small datagen batch, the single-cluster class path,
+every random-field class with its particle sampling, a merger-scene stream
+with its QA, the command line's ``info`` and a refused flag, the native
+painter and the tooling (stage timer, trace, NaN guard, field validation)
+on the CPU loads neither JAX nor the JAX package, nor h5py.  Under the yt
+stand-in of tests/ytshim the frontend's modules import and read grids of
+both painting engines, again without JAX.  With h5py and PyYAML blocked,
+as on a machine that has neither, the package still imports and a two-halo
+IC scene runs through everything but the files."""
 
 import os
 import subprocess
@@ -26,7 +30,11 @@ import cluster_generator_tpu_torch as cgt
 names = sorted(m.name for m in pkgutil.walk_packages(cgt.__path__,
                                                      cgt.__name__ + "."))
 for name in names:
-    importlib.import_module(name)
+    # without yt the frontend's modules refuse to import, naming it
+    try:
+        importlib.import_module(name)
+    except ImportError as e:
+        assert ".frontend." in name and "yt" in str(e), (name, e)
 print("MODULES", len(names), " ".join(names))
 parts, fields = cgt.merger_ic_fused(
     [1.5e15, 1.0e15], [4.0, 5.0], [[-1500.0, 0, 0], [1500.0, 0, 0]],
@@ -98,6 +106,25 @@ for b0, out in cgt.merger_scene_batches(sc, counts, batch_size=2,
                                          sc["b"][sl], sc["v_rel"][sl])
     verify_scene_batch(out, sc["M200"][sl], sc["conc"][sl], ctr, vel, 5000.0,
                        counts, num_points=128)
+# the command line, the native painter and the tooling
+from cluster_generator_tpu_torch import cli
+from cluster_generator_tpu_torch.core import debug, profiling
+from cluster_generator_tpu_torch.ops import native
+import cluster_generator_tpu_torch.frontend as fe
+assert not fe._HAS_YT
+assert cli.main(["info"]) == 0
+assert cli.main(["datagen", "-n", "2", "--dm", "10", "--aot-dir", "a",
+                 "-o", "never.h5", "--device", "cpu"]) == 2
+sp = cgt.core.interp.cubic_spline(m["radius"], m["density"])
+blocks = native.paint_radial_chunks(sp, [[0, 0, 0]], 4, [100.0] * 3,
+                                    [-200.0] * 3)
+assert blocks.shape == (1, 4, 4, 4)
+assert debug.validate_model_fields(m.fields) == []
+with debug.nan_guard(), tempfile.TemporaryDirectory() as d:
+    holder = []
+    with profiling.stage("tables", holder, log=False), profiling.trace(d):
+        holder.append(cgt.core.interp.spline_eval(sp, m["radius"]))
+profiling.device_memory_stats()
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "cluster_generator_tpu", "h5py"))
@@ -106,12 +133,14 @@ print("FOREIGN", bad)
 
 # every module of the port; a new file must be listed here
 MODULES = """
-codes convert core core.config core.constants core.cosmology core.device
-core.draws core.grid core.h5raw core.interp core.logging core.quadrature
-core.staging core.units data_structures fields fields.grf ics model
+__main__ cli codes convert core core.config core.constants core.cosmology
+core.debug core.device core.draws core.grid core.h5raw core.interp
+core.logging core.profiling core.quadrature core.staging core.units
+data_structures fields fields.grf frontend frontend.api
+frontend.data_structures frontend.fields frontend.io ics model
 model.builders model.cluster_model
-model.gravity ops ops.build ops.cdf_inverse parallel parallel.ensemble
-parallel.mergers parallel.qa particles pipeline
+model.gravity ops ops.build ops.cdf_inverse ops.native parallel
+parallel.ensemble parallel.mergers parallel.qa particles pipeline
 profiles profiles.algebra profiles.library profiles.relations
 profiles.solvers sampling utils virial
 """.split()
@@ -244,6 +273,49 @@ def test_port_imports_no_jax():
               if line.startswith("MODULES")][0].split()[2:]
     assert listed == sorted("cluster_generator_tpu_torch." + m
                             for m in MODULES)
+
+
+# the frontend under the yt stand-in (which itself needs h5py): every
+# module imports, and a grid painted by both engines reads back
+FRONTEND = """
+import sys
+import tempfile
+sys.path.insert(0, "tests/ytshim")
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import yt
+import cluster_generator_tpu_torch as cgt
+from cluster_generator_tpu_torch.frontend import api
+from cluster_generator_tpu_torch.frontend import data_structures, fields, io
+assert api.ClusterGeneratorDataset is data_structures.ClusterGeneratorDataset
+rhot = cgt.snfw_density_profile(6e14, 350.0)
+m = cgt.ClusterModel.no_gas(0.1, 1e4, rhot, num_points=64, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    for engine in ("device", "native"):
+        fn = m.create_dataset(d + f"/{engine}.h5", (16, 16, 16), chunksize=8,
+                              engine=engine)
+        ds = yt.load(str(fn))
+        assert isinstance(ds, api.ClusterGeneratorDataset)
+        assert ds.index.num_grids == 8
+        out = ds.index.io._read_chunk_data(
+            type("C", (), {"objs": list(ds.index.grids)})(),
+            [("cluster_generator", "dark_matter_density")])
+        assert all(np.isfinite(v[("cluster_generator", "dark_matter_density")]
+                               ).all() for v in out.values())
+        ds.close()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "cluster_generator_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_frontend_under_the_yt_shim_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", FRONTEND], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
 
 
 def test_port_runs_a_scene_without_h5py_and_yaml():
