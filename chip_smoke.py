@@ -92,8 +92,23 @@ Phases, in order; any failure exits non-zero before the last line:
     trace names K1; ``device_memory_stats``; ``nan_guard`` raising on a
     NaN made on the card; ``validate_model_fields`` on the merger's
     models; K1 4 launches (2 per IC, 2 per batch);
-19. print one JSON line of kernel numbers;
-20. print the card's name and power limit, then the last line
+19. the multi-device layer over ``torch.distributed``, its ranks started
+    by ``torch.multiprocessing``: (a) a world of one on NCCL at full width
+    (the sharded merger draw at bench2h-1e7's counts, bit for bit against
+    ``sample_merger_ic`` with the rank's generator; the sharded random
+    field at 1024^3 float32 with its rms, divergence and peak memory; a
+    cfg5c mesh batch of 256 and a cfg6 mesh batch of 64 scenes, bit for
+    bit against no mesh), (b) a world of four on gloo with every rank on
+    ``cuda:0`` (the real decomposition with P = 4, the transport through
+    the host: each shard of the draw bit for bit against its generator,
+    the field at 256^3 against world 1, the batches gathered against
+    world 1, the union of the sharded Gadget blocks against one file's),
+    each also with one pencil transpose's all-to-all timed by events and
+    the dry run's steps; (c) a world of four on NCCL where the machine has
+    four cards, else a line saying why not.  K1 against its plain version
+    on each rank's first batch; its launches per rank;
+20. print one JSON line of kernel numbers;
+21. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -2415,6 +2430,426 @@ def run_tooling(P, E, card, counts=(N_GAS, N_DM, N_STAR),
     return stage_s, event_s
 
 
+# ----------------------------------------------------------------- phase 19
+# the multi-device layer over torch.distributed; every size at full width
+MD = {"dev": "cuda", "counts": (N_GAS, N_DM, N_STAR), "merger_points": 1000,
+      "grid": FIELD_BIG_DIMS, "grid_small": 256,
+      "datagen_batch": DATAGEN_BATCH, "datagen_points": DATAGEN_POINTS,
+      "datagen_counts": DATAGEN_COUNTS, "scenes": SCENE_BATCH,
+      "scene_points": SCENE_POINTS, "scene_counts": SCENE_COUNTS}
+MD_SEED = 5                 # the sharded merger draw's seed
+MD_GRF_TOL = 1e-5           # float32 field, world 4 vs world 1, of max |g|
+MD_RTOL, MD_ATOL = 5e-7, 1e-6   # mesh batches, world 4 vs world 1
+MD_TIMEOUT = 600.0          # seconds for one world's ranks
+
+
+def _md_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _md_timed(fn, dev):
+    _md_sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _md_sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _md_counted(K, fn):
+    """``fn()`` and the K1 launches it made."""
+    before = K.invert_cdf_rows.launches
+    out = fn()
+    return out, K.invert_cdf_rows.launches - before
+
+
+def _md_close(got, want):
+    """max over elements of |got - want| - (atol + rtol |want|): <= 0 when
+    the two agree at the mesh batches' bound."""
+    return float(((got - want).abs() - (MD_ATOL + MD_RTOL * want.abs()))
+                 .max())
+
+
+def md_steps(rank, world, out, sz):
+    """Phase 19 on this rank of an initialized world: K1 against its plain
+    version on the rank's first batch, then (counting K1) the sharded merger
+    draw against ``sample_merger_ic`` with the rank's generator, its Gadget
+    blocks, the sharded field (world 1 at full size and small, world 4
+    small, against the world-1 field), one pencil transpose's all-to-all by
+    events, the cfg5c and cfg6 mesh batches (world 1 against no mesh, bit
+    for bit; world 4 against world 1) and the dry run's steps.  Returns the
+    rank's numbers."""
+    import torch.distributed as dist
+
+    from cluster_generator_tpu_torch import particles as PA
+    from cluster_generator_tpu_torch import pipeline as P
+    from cluster_generator_tpu_torch import virial as V
+    from cluster_generator_tpu_torch.ops import cdf_inverse as K
+    from cluster_generator_tpu_torch.parallel import dryrun as DR
+    from cluster_generator_tpu_torch.parallel import ensemble as E
+    from cluster_generator_tpu_torch.parallel import export as EX
+    from cluster_generator_tpu_torch.parallel import mergers as MG
+    from cluster_generator_tpu_torch.parallel.fft import _all_to_all
+    from cluster_generator_tpu_torch.parallel.fields import (
+        sharded_gaussian_random_field)
+    from cluster_generator_tpu_torch.parallel.mesh import (
+        all_gather_rows, ens_rows, fold_in, make_mesh, mesh_device, sharded)
+
+    me = make_mesh(world, 1, device_type=sz["dev"])   # ens: batches, grid
+    mp = make_mesh(1, world, device_type=sz["dev"])   # part: the draw
+    dev = mesh_device(me)
+    cuda = dev.type == "cuda"
+    res = {"rank": rank, "world": world, "backend": dist.get_backend()}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    # the first DTensor of a process pays a one-time set-up; timed apart
+    _, res["dtensor_setup_s"] = _md_timed(lambda: sharded(
+        me, torch.zeros(1, device=dev), "ens", world), dev)
+
+    # K1 against its plain version on the rank's rows of the first batch
+    B = sz["datagen_batch"]
+    counts = sz["datagen_counts"]
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device=dev).manual_seed(DATAGEN_SEED), B, device=dev)
+    lo, hi = ens_rows(me, B)
+    prog = E._datagen_full_batch_fn(sz["datagen_points"], counts["dm"],
+                                    counts["gas"], counts["star"])
+    f = prog.models(M[lo:hi], c[lo:hi])
+    errs = []
+    for kw in prog.speed_table_inputs(f, prog.dfs(f)).values():
+        n_q = kw.pop("n_q")
+        cdf = V.speed_cdf_rows(**kw).to(torch.float32)
+        cdf = cdf.reshape(-1, cdf.shape[-1]).contiguous()
+        errs.append(float((K.invert_cdf_rows(cdf, n_q)
+                           - K.invert_cdf_rows_plain(cdf, n_q)).abs().max()))
+    res["k1_rows"] = int(cdf.shape[0])
+    res["k1_err"] = max(errs)
+    check(res["k1_err"] <= K1_TOL, f"rank {rank}: K1 vs plain {errs}")
+    del f, cdf
+    launches = 0
+
+    # the sharded merger draw over 'part' at bench2h-1e7's counts
+    fields = P.build_merger_models(M200, CONC, num_points=sz["merger_points"],
+                                   device=dev)
+    tables, n = _md_counted(K, lambda: P.build_speed_tables(fields))
+    launches += n
+    tables["radius"] = P.build_radius_tables(fields, [R_MAX] * 2)
+    i = mp.get_local_rank("part")
+    per = [tuple(n // world for n in cts) for cts in sz["counts"]]
+
+    def draw_sharded():
+        return P.sample_merger_ic_sharded(
+            mp, fields, tables, CENTERS, VELOCITIES, [R_MAX] * 2, MD_SEED,
+            *sz["counts"])
+
+    def draw_plain():
+        return P.sample_merger_ic(
+            fields, tables, CENTERS, VELOCITIES, [R_MAX] * 2, *per,
+            generator=fold_in(MD_SEED, i, dev))
+
+    parts, res["draw_first_s"] = _md_timed(draw_sharded, dev)
+    want = draw_plain()
+    for k, v in want.items():
+        check(torch.equal(parts[k].to_local(), v),
+              f"rank {rank}: sharded draw {k} differs from sample_merger_ic")
+    check(parts["gas", "particle_position"].shape[0] == sum(sz["counts"][0]),
+          f"rank {rank}: sharded draw's global shape")
+    del want
+    times = {"sharded": [], "plain": []}
+    for name in ("sharded", "plain", "plain", "sharded", "sharded", "plain"):
+        fn = draw_sharded if name == "sharded" else draw_plain
+        times[name].append(_md_timed(fn, dev)[1])
+    res["draw_warm_s"] = statistics.median(times["sharded"])
+    res["plain_warm_s"] = statistics.median(times["plain"])
+
+    # its Gadget blocks with the collective ID offsets
+    n_files, total, plan = EX._export_plan(parts, IC_BOX, [IC_BOX / 2] * 3)
+    check(n_files == world and len(plan) == 1, f"rank {rank}: {n_files}")
+    (shard, sp, id_offset, expect), = plan
+    blocks, n_in, table = PA._gadget_blocks(sp, IC_BOX, id_offset=id_offset)
+    check(n_in == expect, f"rank {rank}: blocks {n_in} vs {expect}")
+    res["npart_total"] = [int(x) for x in total]
+    if world > 1:
+        torch.save({"shard": shard, "blocks": blocks, "table": table,
+                    "parts": {k: v.to_local().cpu()
+                              for k, v in parts.items()}},
+                   os.path.join(out, f"gadget{rank}.pt"))
+    del parts, sp, blocks
+
+    # the sharded field; world 1 also at full size
+    box = FIELD_RE[0] - FIELD_LE[0]
+    peaks = [torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0]
+    grids = [sz["grid"], sz["grid_small"]] if world == 1 else [
+        sz["grid_small"]]
+    for n in grids:
+        d = box / n
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def field():
+            return sharded_gaussian_random_field(
+                FIELD_SEED, (n,) * 3, (d,) * 3, *FIELD_L, me,
+                g_rms=FIELD_B_RMS)
+
+        g, first = _md_timed(field, dev)
+        del g
+        g, warm = _md_timed(field, dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+        local = [x.to_local() for x in g]
+        whole = local if world == 1 else [all_gather_rows(me, x)
+                                          for x in local]
+        rms, div = DR.grf_checks(*whole, d)
+        check(abs(rms - FIELD_B_RMS) / FIELD_B_RMS < FIELD_RMS_RTOL,
+              f"rank {rank}: field {n}^3 rms {rms}")
+        check(div < FIELD_DIV_TOL, f"rank {rank}: field {n}^3 div {div}")
+        ref = os.path.join(out, f"grf{n}.pt")
+        if world == 1 and n == sz["grid_small"]:
+            torch.save(torch.stack(whole).cpu(), ref)
+        elif world > 1:
+            glo, ghi = ens_rows(me, n)
+            want = torch.load(ref).to(dev)[:, glo:ghi]
+            err = float((torch.stack(local) - want).abs().max()
+                        / want.abs().max())
+            check(err <= MD_GRF_TOL, f"rank {rank}: field vs world 1 {err}")
+            res[f"grf{n}_vs_world1"] = err
+        peaks.append(peak)
+        res[f"grf{n}"] = {"first_s": first, "warm_s": warm, "peak_gib": peak,
+                          "rms_rel_err": abs(rms - FIELD_B_RMS) / FIELD_B_RMS,
+                          "div_over_grad": div}
+        del g, local, whole
+
+    # one pencil transpose's all-to-all at the largest grid, by events
+    n = grids[0]
+    x = torch.zeros((world, n // world, n // world, n), dtype=torch.complex64,
+                    device=dev)
+    group = me.get_group("ens")
+    _all_to_all(x, group)
+    _md_sync(dev)
+    reps = 3
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        y = _all_to_all(x, group)
+    if cuda:
+        end.record()
+    _md_sync(dev)
+    res["a2a_host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    res["a2a_ms"] = (start.elapsed_time(end) / reps if cuda
+                     else res["a2a_host_ms"])
+    res["a2a_bytes"] = x.numel() * x.element_size()
+    del x, y
+
+    # the cfg5c batch through datagen_batches over 'ens', gathered
+    (_, out_d), n = _md_counted(K, lambda: next(E.datagen_batches(
+        M, c, counts, batch_size=B, num_points=sz["datagen_points"],
+        seed=DATAGEN_SEED, mesh=me)))
+    launches += n
+    whole = E._tree_map(lambda t: all_gather_rows(me, t.to_local()), out_d)
+    flat = E._flat_outputs(whole)[1]
+    ref = os.path.join(out, "datagen_ref.pt")
+    if world == 1:
+        (_, plain_d), = E.datagen_batches(M, c, counts, batch_size=B,
+                                          num_points=sz["datagen_points"],
+                                          seed=DATAGEN_SEED, device=dev)
+        want = E._flat_outputs(plain_d)[1]
+        check(all(torch.equal(a, b) for a, b in zip(flat, want)),
+              "world 1 mesh datagen batch differs from no mesh")
+        torch.save([t.cpu() for t in want], ref)
+    else:
+        want = [t.to(dev) for t in torch.load(ref)]
+        res["datagen_vs_world1"] = max(_md_close(a, b)
+                                       for a, b in zip(flat, want))
+        check(res["datagen_vs_world1"] <= 0.0,
+              f"rank {rank}: datagen batch vs world 1")
+    check(sum(E.nonfinite_counts(whole).values()) == 0,
+          f"rank {rank}: non-finite datagen draws")
+    del out_d, whole, flat, want
+
+    # the cfg6 scene batch over 'ens', gathered
+    S = sz["scenes"]
+    sc = MG.sample_merger_scene_params(
+        torch.Generator(device=dev).manual_seed(SCENE_SEED), S, device=dev)
+    ctr, vel = MG.binary_scene_geometry(sc["M200"], sc["d"], sc["b"],
+                                        sc["v_rel"])
+    ctr, vel = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                for a in (ctr, vel))
+    fn = MG._merger_batch_fn(sz["scene_points"], *sz["scene_counts"].values(),
+                             device=dev)
+    r_max = torch.full((2,), R_MAX, dtype=torch.float64, device=dev)
+    inputs = (sc["M200"], sc["conc"], ctr, vel)
+    (local, rows), n = _md_counted(K, lambda: E._mesh_call(
+        fn, me, inputs, (r_max,), E._batch_generator(SCENE_SEED, 0, dev)))
+    launches += n
+    whole = E._gathered(me, local, rows)
+    ref = os.path.join(out, "scenes_ref.pt")
+    if world == 1:
+        want = fn(*inputs, r_max, E._batch_generator(SCENE_SEED, 0, dev))
+        check(all(torch.equal(whole[k], v) for k, v in want.items()),
+              "world 1 mesh scene batch differs from no mesh")
+        torch.save({k: v.cpu() for k, v in want.items()}, ref)
+    else:
+        want = {k: v.to(dev) for k, v in torch.load(ref).items()}
+        res["scenes_vs_world1"] = max(_md_close(whole[k], v)
+                                      for k, v in want.items())
+        check(res["scenes_vs_world1"] <= 0.0,
+              f"rank {rank}: scene batch vs world 1")
+    check(all(bool(torch.isfinite(v).all()) for v in whole.values()),
+          f"rank {rank}: non-finite scene draws")
+    del local, whole, want
+
+    # the dry run's steps at its sizes
+    n_part = 2 if world % 2 == 0 else 1
+    mesh_dr = make_mesh(world // n_part, n_part, device_type=sz["dev"])
+    steps, n = _md_counted(K, lambda: DR.dryrun_step(mesh_dr, None))
+    launches += n
+    res["dryrun_s"] = steps
+    res["launches"] = launches
+    peaks.append(torch.cuda.max_memory_allocated(dev) / 2**30
+                 if cuda else 0.0)
+    res["peak_gib"] = max(peaks)
+    return res
+
+
+def md_rank(rank, world, backend, store, out, sz):
+    """One process of phase 19: its card (``cuda:0`` for every rank of a
+    gloo world on one card), its process group, :func:`md_steps`."""
+    import torch.distributed as dist
+
+    if sz["dev"] == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count()
+                              if backend == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        res = md_steps(rank, world, out, sz)
+        torch.save(res, os.path.join(out, f"{backend}{world}.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def md_world(world, backend, out, sz):
+    """Start ``world`` ranks of :func:`md_rank` with
+    ``torch.multiprocessing`` and wait for them; a rank that fails or
+    outlasts ``MD_TIMEOUT`` fails the phase.  Returns each rank's
+    numbers."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(out, f"store_{backend}{world}")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(md_rank, args=(world, backend, store, out, sz),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > MD_TIMEOUT:
+                raise SmokeFailure(f"{backend} world {world} outlasted "
+                                   f"{MD_TIMEOUT} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SmokeFailure(f"{backend} world {world}: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in ctx.processes]
+    check(codes == [0] * world, f"{backend} world {world}: exit codes {codes}")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"{backend}{world}.{r}.pt"))
+             for r in range(world)]
+    return ranks, wall
+
+
+def md_gadget_union(PA, EX, out, world, dev):
+    """The world's sharded Gadget blocks against the blocks of the same
+    particles written as one file: every dataset but the IDs equal, species
+    by species in shard order, and the IDs a permutation of 1..N."""
+    import numpy as np
+
+    shards = sorted((torch.load(os.path.join(out, f"gadget{r}.pt"),
+                                weights_only=False) for r in range(world)),
+                    key=lambda s: s["shard"])
+    keys = list(shards[0]["parts"])
+    fields = {(k[0], EX._PIPE_TO_CONTAINER.get(k[1], k[1])):
+              torch.cat([s["parts"][k] for s in shards]).to(dev)
+              for k in keys}
+    species = list(dict.fromkeys(k[0] for k in keys))
+    whole = PA.ClusterParticles(species, fields)
+    for sp in species:  # the shift _export_plan gives each shard
+        whole.fields[sp, "particle_position"] = (
+            whole.fields[sp, "particle_position"]
+            + whole._coerce((sp, "particle_position"), [IC_BOX / 2] * 3))
+    one, n_one, table = PA._gadget_blocks(whole, IC_BOX, id_offset=0)
+    ids = []
+    for sp in species:
+        for name, want in one[sp].items():
+            got = np.concatenate([s["blocks"][sp][name] for s in shards])
+            if name == "ParticleIDs":
+                ids.append(got)
+                continue
+            check(np.array_equal(got, want),
+                  f"sharded Gadget {sp}/{name} differs from one file's")
+    ids = np.concatenate(ids).astype(np.int64)
+    check(np.array_equal(np.sort(ids), np.arange(1, ids.size + 1)),
+          "sharded Gadget IDs are not 1..N")
+    check(all(np.array_equal(s["table"], table) for s in shards),
+          "sharded Gadget mass tables")
+    return n_one
+
+
+def run_multidevice(card, sz=MD):
+    """Phase 19: (a) world 1 on NCCL at full width, (b) world 4 on gloo
+    with every rank on ``cuda:0`` (the real decomposition with P = 4; the
+    transport goes through the host), (c) world 4 on NCCL where the
+    machine has four cards.  Returns K1's launches per world and rank."""
+    from cluster_generator_tpu_torch import particles as PA
+    from cluster_generator_tpu_torch.parallel import export as EX
+
+    import gc
+
+    dev = torch.device(sz["dev"])
+    launches = {}
+    worlds = [(1, "nccl" if dev.type == "cuda" else "gloo"), (4, "gloo")]
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards:
+        # the ranks share the card with this process: hand back its cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"before the ranks start, this process holds "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card")
+    if n_cards >= 4:
+        worlds.append((4, "nccl"))
+    with tempfile.TemporaryDirectory() as out:
+        for world, backend in worlds:
+            ranks, wall = md_world(world, backend, out, sz)
+            label = f"{backend} world {world}"
+            for r in ranks:
+                launches[f"multidevice_{backend}{world}_rank{r['rank']}"] = \
+                    r["launches"]
+                print(f"{label} rank {r['rank']}: " + json.dumps(
+                    {k: v for k, v in r.items()
+                     if k not in ("rank", "world", "backend")},
+                    default=float) + f" [{card}]")
+            print(f"{label}: {wall:.1f} s wall for {world} process(es), "
+                  "start-up included; K1 launches per rank "
+                  f"{[r['launches'] for r in ranks]} [{card}]")
+            if world > 1:
+                n = md_gadget_union(PA, EX, out, world, dev)
+                check(sum(n.values()) == sum(ranks[0]["npart_total"]),
+                      f"{label}: blocks {n} vs {ranks[0]['npart_total']}")
+                print(f"{label}: the union of the sharded Gadget blocks "
+                      f"equals one file's ({sum(n.values())} particles)")
+    if n_cards < 4:
+        print(f"multi-device (c) world 4 on NCCL: not run, the machine has "
+              f"{n_cards} card(s) and NCCL takes one card per rank")
+    check(all(n > 0 for n in launches.values()),
+          f"a rank never launched K1: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2521,6 +2956,8 @@ def main() -> int:
           "want 4 (merger IC 2, datagen batch 2)")
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
+
+    launches.update(run_multidevice(card))
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

@@ -12,7 +12,8 @@ import math
 
 import torch
 
-__all__ = ["uniform", "isotropic"]
+__all__ = ["uniform", "isotropic", "isotropic_uniforms",
+           "collisionless_uniforms", "gas_uniforms"]
 
 
 def uniform(gen, n, dtype, device, lo=0.0, hi=1.0):
@@ -26,12 +27,31 @@ def uniform(gen, n, dtype, device, lo=0.0, hi=1.0):
 def isotropic(n, dtype, device, gen=None, uniforms=None):
     """Unit vectors ``n + (3,)`` uniform on the sphere; ``uniforms`` is
     ``(cos_theta in [-1, 1), u_phi in [0, 1))``."""
-    if uniforms is None:
-        cos_t = uniform(gen, n, dtype, device, -1.0, 1.0)
-        u_phi = uniform(gen, n, dtype, device)
-    else:
-        cos_t, u_phi = uniforms
+    cos_t, u_phi = (isotropic_uniforms(gen, n, dtype, device)
+                    if uniforms is None else uniforms)
     phi = (2.0 * math.pi) * u_phi
     sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
                         cos_t], dim=-1)
+
+
+def isotropic_uniforms(gen, n, dtype, device):
+    """``(cos_theta, u_phi)`` for :func:`isotropic`, drawn from ``gen``."""
+    return (uniform(gen, n, dtype, device, -1.0, 1.0),
+            uniform(gen, n, dtype, device))
+
+
+def collisionless_uniforms(gen, n, dtype, device):
+    """Every uniform of a DM or star draw, in the order the draw takes them
+    from ``gen``: ``(u_radius, u_speed, u_row, pos_dir, vel_dir)``."""
+    return (uniform(gen, n, dtype, device), uniform(gen, n, dtype, device),
+            uniform(gen, n, dtype, device),
+            isotropic_uniforms(gen, n, dtype, device),
+            isotropic_uniforms(gen, n, dtype, device))
+
+
+def gas_uniforms(gen, n, dtype, device):
+    """Every uniform of a gas (or tracer) draw, in its order:
+    ``(u_radius, dir)``."""
+    return (uniform(gen, n, dtype, device),
+            isotropic_uniforms(gen, n, dtype, device))

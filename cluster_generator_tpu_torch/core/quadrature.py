@@ -2,11 +2,11 @@
 
 Every cumulative integral is one batched evaluation: each interval of the
 log grid gets a GL panel, the integrand is evaluated at all panel nodes at
-once, and panel sums plus ``torch.cumsum`` give the integral at every grid
-point.  Grids have shape ``(..., n)``; the leading axes (one per halo) are
-carried through, so one call serves every halo.  Integrands take radii of
-shape ``(..., n-1, K)`` (or ``(..., K)`` for the central panel and the
-tail) and must broadcast over the same leading axes.
+once, and panel sums plus a cumulative sum (:func:`cumsum`) give the
+integral at every grid point.  Grids have shape ``(..., n)``; the leading
+axes (one per halo) are carried through, so one call serves every halo.
+Integrands take radii of shape ``(..., n-1, K)`` (or ``(..., K)`` for the
+central panel and the tail) and must broadcast over the same leading axes.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ import torch
 
 from .device import host_to_device
 
-__all__ = ["gauss_legendre", "cumulative_integral", "integrate_mass",
-           "integrate_from", "integrate_tail_to_inf", "cumtrapz"]
+__all__ = ["gauss_legendre", "cumsum", "cumulative_integral",
+           "integrate_mass", "integrate_from", "integrate_tail_to_inf",
+           "cumtrapz"]
 
 _DEFAULT_ORDER = 16
 
@@ -37,6 +38,20 @@ def _gl_nodes(order, device):
     x, w = np.polynomial.legendre.leggauss(order)
     return (host_to_device(x, device, torch.float64),
             host_to_device(w, device, torch.float64))
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum along the last axis by a log-depth scan
+    (log2(n) shifted adds).  Each entry's additions come in the same order
+    whatever the leading shape: ``torch.cumsum`` on a card picks its
+    algorithm by the number of rows, so one row's sums would change with
+    the batch it is computed in (a mesh rank computes a slice of one)."""
+    n = x.shape[-1]
+    k = 1
+    while k < n:
+        x = torch.cat([x[..., :k], x[..., k:] + x[..., :-k]], dim=-1)
+        k *= 2
+    return x
 
 
 def _panel_nodes(rr: torch.Tensor, order: int):
@@ -61,7 +76,7 @@ def cumulative_integral(fn, rr, order: int = _DEFAULT_ORDER,
     nodes, weights = _panel_nodes(rr, order)
     panel = torch.sum(fn(nodes) * weights, dim=-1)
     csum = torch.cat([torch.zeros_like(panel[..., :1]),
-                      torch.cumsum(panel, dim=-1)], dim=-1)
+                      cumsum(panel)], dim=-1)
     if from_zero:
         x, w = gauss_legendre(max(order, 32), rr)
         u_max = torch.sqrt(rr[..., :1])
@@ -86,7 +101,7 @@ def integrate_from(fn, rr, order: int = _DEFAULT_ORDER):
     sums; I(r_max) = 0."""
     nodes, weights = _panel_nodes(rr, order)
     panel = torch.sum(fn(nodes) * weights, dim=-1)
-    rev = torch.flip(torch.cumsum(torch.flip(panel, (-1,)), dim=-1), (-1,))
+    rev = torch.flip(cumsum(torch.flip(panel, (-1,))), (-1,))
     return torch.cat([rev, torch.zeros_like(rev[..., :1])], dim=-1)
 
 
@@ -111,4 +126,4 @@ def cumtrapz(y, x):
     dx = x[..., 1:] - x[..., :-1]
     incr = 0.5 * (y[..., 1:] + y[..., :-1]) * dx
     return torch.cat([torch.zeros_like(incr[..., :1]),
-                      torch.cumsum(incr, dim=-1)], dim=-1)
+                      cumsum(incr)], dim=-1)

@@ -19,6 +19,11 @@ its HDF5 catalogs.
   the device; the per-cluster checks are :func:`_check_cluster`) and
   :func:`catalog_to_particles` read them back.  ``h5py`` is imported
   inside the functions that open files.
+* ``mesh=`` (an ``(ens, part)`` mesh, :func:`~.mesh.make_mesh`): each rank
+  computes its ``ens`` rows of every batch the ``ens`` size divides, from
+  the batch's uniforms drawn whole and sliced, so that the draws do not
+  depend on the world size; a short batch is computed whole.  The writers
+  gather each batch onto the writing rank.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from ..core.device import host_to_device, resolve_device
-from ..core.draws import isotropic, uniform
+from ..core.draws import (collisionless_uniforms, gas_uniforms, isotropic,
+                          uniform)
 from ..core.grid import linspace, log_radius_grid
 from ..core.interp import _gather, interp_monotone, loguniform_lerp
 from ..core.staging import stream_to_host, to_host
@@ -41,6 +47,8 @@ from ..profiles.solvers import (find_overdensity_radius, find_radius_mass,
 from ..virial import (build_joint_speed_pairs, compute_df, om_extended_df,
                       sample_speeds_joint, speed_inverse_cdf_table,
                       speed_table_defaults)
+from .mesh import (all_gather_rows, ens_rows, mesh_device, replicated,
+                   sharded)
 from .qa import QA_TOLERANCES as _QA
 
 __all__ = ["build_one_cluster", "build_ensemble", "sample_ensemble_params",
@@ -126,8 +134,11 @@ _OM_DRAWS_VERSION = 3
 # A catalog records its draws' version plus this offset: the port draws
 # from torch's generators, whose draws never equal the JAX package's
 # threefry draws for the same scheme, so a catalog of one package must
-# never be resumed by the other (a resume refuses another version).
-_PORT_DRAWS = 1000
+# never be resumed by the other (a resume refuses another version).  2000
+# since the cumulative sums of the model build are row-invariant
+# (``core.quadrature.cumsum``), which moved the tables by float32 rounding:
+# a catalog of the earlier port (1000) is not resumed either.
+_PORT_DRAWS = 2000
 
 
 class _DatagenProgram:
@@ -278,23 +289,21 @@ class _DatagenProgram:
         B = t["r_q"].shape[0]
         shape = (B, n)
         if uniforms is None:
-            u_r = uniform(gen, shape, f32, dev)
-            u_speed = pos_dir = vel_dir = None
-        else:
-            u_r, u_q, u_b, pos_dir, vel_dir = uniforms
-            u_speed = (u_q, u_b)
+            uniforms = collisionless_uniforms(gen, shape, f32, dev)
+        u_r, u_q, u_b, pos_dir, vel_dir = uniforms
+        u_speed = (u_q, u_b)
         kq, wq = self._draw_quantiles(u_r, t["r_q"].shape[-1])
         radius = ((1.0 - wq) * _gather(t["r_q"], kq)
                   + wq * _gather(t["r_q"], kq + 1))
         v_esc = ((1.0 - wq) * _gather(t["v_esc"], kq)
                  + wq * _gather(t["v_esc"], kq + 1))
-        speed = sample_speeds_joint(t["joint"], kq, wq, gen, u_speed)
+        speed = sample_speeds_joint(t["joint"], kq, wq, uniforms=u_speed)
         # the Bernoulli row pick can exceed the LOCAL escape speed by the
         # inter-node v_esc difference
         speed = torch.minimum(speed, v_esc.to(speed.dtype))
-        rhat = isotropic(shape, f32, dev, gen, pos_dir)
+        rhat = isotropic(shape, f32, dev, uniforms=pos_dir)
         pos = radius[..., None] * rhat
-        u = isotropic(shape, f32, dev, gen, vel_dir)
+        u = isotropic(shape, f32, dev, uniforms=vel_dir)
         speed = speed[..., None].to(f32)
         if self.r_a is None:
             vel = speed * u
@@ -312,10 +321,8 @@ class _DatagenProgram:
         f32 = torch.float32
         shape = (t["r_q"].shape[0], n)
         if uniforms is None:
-            u_r = uniform(gen, shape, f32, dev)
-            direction = None
-        else:
-            u_r, direction = uniforms
+            uniforms = gas_uniforms(gen, shape, f32, dev)
+        u_r, direction = uniforms
         kq, wq = self._draw_quantiles(u_r, t["r_q"].shape[-1])
         radius = ((1.0 - wq) * _gather(t["r_q"], kq)
                   + wq * _gather(t["r_q"], kq + 1))
@@ -324,7 +331,8 @@ class _DatagenProgram:
         # ~60% across the wide innermost mass bin
         e_grid = (1.5 * f["pressure"] / f["density"]).to(f32)
         energy = loguniform_lerp(radius, f["radius"], e_grid)
-        pos = radius[..., None] * isotropic(shape, f32, dev, gen, direction)
+        pos = radius[..., None] * isotropic(shape, f32, dev,
+                                            uniforms=direction)
         return pos, energy, (t["mtot"] / n).to(f32)
 
     def draws(self, f, dtabs, generator=None, uniforms=None):
@@ -342,6 +350,20 @@ class _DatagenProgram:
         if self.counts["gas"]:
             out["gas"] = self._gas(f, dtabs["gas"], self.counts["gas"],
                                    generator, uniforms.get("gas"))
+        return out
+
+    def uniforms(self, B, generator, device):
+        """Every uniform a batch of ``B`` takes from ``generator``, drawn
+        in the order :meth:`draws` draws them, each (B, n): ``draws`` with
+        these equals ``draws`` with the generator, bit for bit, and a slice
+        of rows gives those clusters' draws."""
+        f32 = torch.float32
+        out = {sp: collisionless_uniforms(generator, (B, self.counts[sp]),
+                                          f32, device)
+               for sp in self._active()}
+        if self.counts["gas"]:
+            out["gas"] = gas_uniforms(generator, (B, self.counts["gas"]), f32,
+                                      device)
         return out
 
     def __call__(self, M200, conc, generator=None, uniforms=None):
@@ -374,6 +396,7 @@ def _datagen_batch_fn(num_points, n_part, n_rows=128, rq=2048, r_a=None,
     def batch(M200, conc, generator=None, uniforms=None):
         return full(M200, conc, generator, uniforms)["dm"]
 
+    batch.uniforms = full.uniforms
     return batch
 
 
@@ -441,9 +464,53 @@ def _batch_generator(seed, b0, device):
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a batch output (a tensor, or tuples and
+    dicts of them)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _mesh_call(batch_fn, mesh, row_args, rest, generator):
+    """A batch program on this rank's ``ens`` rows of one batch:
+    ``(out, rows)``.  ``row_args`` are the per-row inputs, ``rest`` the
+    others.  The rank draws the whole batch's uniforms from ``generator``
+    (``batch_fn.uniforms``) and keeps its rows, so every rank's draws are
+    those of the whole batch.  ``rows`` is ``(lo, hi)``, or ``None`` when
+    the batch ran whole: no mesh, or a batch the ``ens`` size does not
+    divide."""
+    B = int(row_args[0].shape[0])
+    rows = None if mesh is None else ens_rows(mesh, B)
+    if rows is None:
+        return batch_fn(*row_args, *rest, generator), None
+    lo, hi = rows
+    u = _tree_map(lambda t: t[lo:hi],
+                  batch_fn.uniforms(B, generator, row_args[0].device))
+    return batch_fn(*(a[lo:hi] for a in row_args), *rest, None, u), rows
+
+
+def _as_dtensors(mesh, out, rows, B):
+    """A batch output as DTensors: sharded over ``ens`` when each rank ran
+    its rows, replicated when the batch ran whole."""
+    if rows is None:
+        return _tree_map(lambda t: replicated(mesh, t), out)
+    return _tree_map(lambda t: sharded(mesh, t, "ens", B), out)
+
+
+def _gathered(mesh, out, rows):
+    """A batch output whole on every rank of the ``ens`` group."""
+    if rows is None:
+        return out
+    return _tree_map(lambda t: all_gather_rows(mesh, t), out)
+
+
 def datagen_batches(M200, conc, n_particles_per_cluster, batch_size=256,
-                    num_points=512, seed=0, anisotropy_radius=None,
-                    gravity="newtonian", device="cuda"):
+                    num_points=512, seed=0, mesh=None,
+                    anisotropy_radius=None, gravity="newtonian",
+                    device="cuda"):
     """Yield ``(b0, batch_out)``: an ensemble's draws, batch by batch, as
     tensors on ``device``.
 
@@ -460,8 +527,15 @@ def datagen_batches(M200, conc, n_particles_per_cluster, batch_size=256,
     does not depend on which batches ran before it.  It does depend on
     ``batch_size`` (a cluster's draws change when it lands in another
     batch or at another position in it).
+
+    ``mesh``: an ``(ens, part)`` mesh; the tensors then live on the mesh's
+    device.  Each rank computes its ``ens`` rows of the batch, and the
+    outputs are DTensors sharded over ``ens`` (replicated for a batch the
+    ``ens`` size does not divide, which every rank computes whole).  The
+    draws are those without a mesh: the program's arithmetic on a row does
+    not depend on how many rows it runs on.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh)
     M200 = _f64(M200, dev)
     conc = _f64(conc, dev)
     _, _, batch_fn = _resolve_batch_fn(n_particles_per_cluster, num_points,
@@ -469,10 +543,18 @@ def datagen_batches(M200, conc, n_particles_per_cluster, batch_size=256,
                                        gravity=gravity)
     make_gen = seed if callable(seed) else (
         lambda b0: _batch_generator(seed, b0, dev))
+
+    def one(b0):
+        sl = slice(b0, b0 + batch_size)
+        out, rows = _mesh_call(batch_fn, mesh, (M200[sl], conc[sl]), (),
+                               make_gen(b0))
+        if mesh is None:
+            return out
+        return _as_dtensors(mesh, out, rows, int(M200[sl].shape[0]))
+
     pending = None
     for b0 in range(0, int(M200.shape[0]), batch_size):
-        nxt = (b0, batch_fn(M200[b0:b0 + batch_size],
-                            conc[b0:b0 + batch_size], make_gen(b0)))
+        nxt = (b0, one(b0))
         if pending is not None:
             yield pending
         pending = nxt
@@ -508,23 +590,32 @@ def _flat_outputs(out):
     return names, tensors
 
 
-def _catalog_batches(M200, conc, batch_fn, batch_size, seed, b0s):
+def _catalog_batches(M200, conc, batch_fn, batch_size, seed, b0s,
+                     mesh=None, stage=True):
     """The device stage of :func:`ensemble_datagen`: for each batch offset
     in ``b0s`` the batch program with the generator of ``(seed, b0)``, its
     draws staged to pinned host memory while the next batch computes
     (:func:`~..core.staging.stream_to_host`).  Yields ``(b0, host)`` with
     ``host`` shaped as the program's output (``{species: (pos, vel or
     energy, pmass)}``, numpy).  A batch's arrays are valid until the next
-    one is asked for."""
+    one is asked for.  ``mesh``: each rank computes its ``ens`` rows and
+    the batch is gathered whole (:func:`_mesh_call`); ``stage=False`` (a
+    rank that writes nothing) joins the collectives and yields
+    ``(b0, None)``."""
     dev = M200.device
 
     def programs():
         for b0 in b0s:
             sl = slice(b0, b0 + batch_size)
-            out = batch_fn(M200[sl], conc[sl], _batch_generator(seed, b0, dev))
-            names, tensors = _flat_outputs(out)
+            out, rows = _mesh_call(batch_fn, mesh, (M200[sl], conc[sl]), (),
+                                   _batch_generator(seed, b0, dev))
+            names, tensors = _flat_outputs(_gathered(mesh, out, rows))
             yield (b0, names), tensors
 
+    if not stage:
+        for (b0, _), _ in programs():
+            yield b0, None
+        return
     for (b0, names), arrays in stream_to_host(programs()):
         host = {}
         for (sp, j), a in zip(names, arrays):
@@ -602,9 +693,10 @@ def _check_path(filename, overwrite, resume):
 
 def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
                      batch_size=256, num_points=512, seed=0,
-                     overwrite=False, resume=False, anisotropy_radius=None,
-                     gravity="newtonian", device="cuda", _only_batches=None,
-                     _extra_attrs=None):
+                     overwrite=False, resume=False, mesh=None,
+                     anisotropy_radius=None, gravity="newtonian",
+                     device="cuda", _only_batches=None, _extra_attrs=None,
+                     _group=None):
     """Stream an ensemble's particle draws to ONE HDF5 file.
 
     ``n_particles_per_cluster`` selects the product:
@@ -634,12 +726,19 @@ def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
     shard identity, gravity, r_a and the draws' version), or the call
     raises: the port's draws come from torch's generators, so a catalog of
     the JAX package (another ``draws_version``) is never resumed here.
+
+    ``mesh``: an ``(ens, part)`` mesh (:func:`~.mesh.make_mesh`), whose
+    device the tensors then live on.  Each rank computes its ``ens`` rows
+    of every batch the ``ens`` size divides (a short batch whole), the
+    batch is gathered, and only rank 0 opens the file; every rank of the
+    world must call, and every rank returns the filename.  The ``ens``
+    size is part of the resume config (``mesh_ens``, 0 without a mesh), as
+    in the JAX package, whose partitioned programs round differently.
     Returns the filename.
     """
     from ..core.logging import mylog
 
-    path, resuming = _check_path(filename, overwrite, resume)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh)
     M200 = _f64(M200, dev)
     conc = _f64(conc, dev)
     n_cl = int(M200.shape[0])
@@ -650,7 +749,7 @@ def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
     mylog.info("Ensemble datagen: %d clusters x %s particles%s -> %s",
                n_cl, n_particles_per_cluster,
                "" if anisotropy_radius is None
-               else f" (OM r_a={anisotropy_radius:g} kpc)", path)
+               else f" (OM r_a={anisotropy_radius:g} kpc)", filename)
     if full:
         expected = []
         for sp in ("dm", "star"):
@@ -670,7 +769,7 @@ def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
               "num_points": int(num_points),
               "r_a": (0.0 if anisotropy_radius is None
                       else float(anisotropy_radius)),
-              "mesh_ens": 0,
+              "mesh_ens": _mesh_ens(mesh),
               "gravity": str(gravity),
               "shard_rank": int(extra.get("shard_rank", 0)),
               "shard_count": int(extra.get("shard_count", 1)),
@@ -683,92 +782,152 @@ def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
     M_host = M200.cpu().numpy()
     c_host = conc.cpu().numpy()
 
-    def produce(todo):
+    def produce(todo, write=True):
         for b0, out in _catalog_batches(M200, conc, batch_fn, batch_size,
-                                        seed, todo):
+                                        seed, todo, mesh=mesh, stage=write):
             sl = slice(b0, b0 + batch_size)
-            yield b0, _cluster_records(full, b0, M_host[sl], c_host[sl], out)
+            yield b0, (out if out is None else _cluster_records(
+                full, b0, M_host[sl], c_host[sl], out))
 
-    _stream_batched_catalog(path, resuming, config, _extra_attrs, expected,
-                            "cluster", n_cl, batch_size, _only_batches,
-                            produce)
-    return str(path)
+    _stream_batched_catalog(filename, overwrite, resume, config,
+                            _extra_attrs, expected, "cluster", n_cl,
+                            batch_size, _only_batches, produce, mesh, _group)
+    return str(filename)
 
 
-def _stream_batched_catalog(path, resuming, config, extra_attrs, expected,
-                            group_prefix, n_items, batch_size, only_batches,
-                            produce):
-    """The streaming loop of both catalog products: the config recorded
-    (or, on resume, validated key by key), the batches still to do found,
-    and each batch written, then marked done.
+def _mesh_ens(mesh):
+    """The resume config's ``mesh_ens``: the mesh's ``ens`` size, 0 without
+    a mesh."""
+    return 0 if mesh is None else int(mesh.size(
+        mesh.mesh_dim_names.index("ens")))
 
-    ``produce(todo)`` yields ``(b0, records)`` for the batch offsets
-    ``todo`` in order (:func:`_cluster_records`' layout); groups are named
-    ``{group_prefix}_{index:06d}``."""
+
+def _from_writer(obj, group):
+    """``obj`` of the group's first rank on every rank of ``group`` (None:
+    the world); an exception there is raised everywhere."""
+    import torch.distributed as dist
+
+    box = [obj]
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.broadcast_object_list(box, src=src, group=group)
+    if isinstance(box[0], Exception):
+        raise box[0]
+    return box[0]
+
+
+def _stream_batched_catalog(path, overwrite, resume, config, extra_attrs,
+                            expected, group_prefix, n_items, batch_size,
+                            only_batches, produce, mesh=None, group=None):
+    """The streaming loop of both catalog products: the path checked, the
+    config recorded (or, on resume, validated key by key), the batches
+    still to do found, and each batch written, then marked done.
+
+    ``produce(todo, write)`` yields ``(b0, records)`` for the batch offsets
+    ``todo`` in order (:func:`_cluster_records`' layout; ``None`` when not
+    ``write``); groups are named ``{group_prefix}_{index:06d}``.  With a
+    mesh only the first rank of ``group`` (None: the world) opens the file;
+    it sends the others the batches to do, or its error, and the others
+    join the batches' collectives without writing; all meet at a barrier
+    at the end."""
+    import torch.distributed as dist
+
+    if mesh is not None and dist.get_rank(group) != 0:
+        todo = _from_writer(None, group)
+        for _ in produce(todo or [], False):
+            pass
+        dist.barrier(group)
+        return
     import h5py
 
+    f = None
+    try:
+        path, resuming = _check_path(path, overwrite, resume)
+        f = h5py.File(path, "a" if resuming else "w")
+        todo, done = _catalog_todo(f, path, resuming, config, extra_attrs,
+                                   expected, group_prefix, n_items,
+                                   batch_size, only_batches)
+    except (OSError, ValueError) as e:
+        if f is not None:
+            f.close()
+        if mesh is not None:
+            _from_writer(e, group)
+        raise
+    if mesh is not None:
+        _from_writer(todo, group)
+    with f:
+        if todo is not None:
+            for b0, records in produce(todo):
+                _write_records(f, records)
+                # after the batch's bytes are in the file: the marker is
+                # what makes it count on resume
+                if done is not None:
+                    done.add(int(b0))
+                    f.attrs["_batches_done"] = np.asarray(sorted(done),
+                                                          np.int64)
+            f.attrs["complete"] = True
+    if mesh is not None:
+        dist.barrier(group)
+
+
+def _catalog_todo(f, path, resuming, config, extra_attrs, expected,
+                  group_prefix, n_items, batch_size, only_batches):
+    """``(todo, done)`` of an open catalog: the batch offsets still to
+    write (``None`` when the catalog is complete) and the set of batches
+    marked done (``None`` for a file that predates the marker).  A new file
+    gets the config; a resumed one must match it."""
     from ..core.logging import mylog
 
-    with h5py.File(path, "a" if resuming else "w") as f:
-        if resuming:
-            if bool(f.attrs.get("complete", False)):
-                mylog.info("Catalog %s is already complete.", path)
-                return
-            # the values of a plain run, for files that predate a key
-            defaults = {"shard_rank": 0, "shard_count": 1, "r_a": 0.0,
-                        "mesh_ens": 0, "gravity": "newtonian"}
-            for k, v in config.items():
-                have = f.attrs.get(k, defaults.get(k))
-                if have is None or not np.array_equal(have, v):
-                    raise ValueError(
-                        f"resume config mismatch on {k!r}: file has "
-                        f"{have!r}, this run asks {v!r}; resuming "
-                        "would splice incompatible draws")
-        else:
-            for k, v in config.items():
-                f.attrs[k] = v
-            for k, v in (extra_attrs or {}).items():
-                f.attrs[k] = v
-            f.attrs["units"] = "kpc, kpc/Myr, Msun (galactic)"
-            f.attrs["_batches_done"] = np.zeros((0,), np.int64)
-        if resuming and "_batches_done" in f.attrs:
-            done = set(np.asarray(f.attrs["_batches_done"]).tolist())
-        elif resuming:
-            mylog.warning(
-                "%s predates the _batches_done marker; falling back to "
-                "dataset-presence completion checks (cannot detect a "
-                "crash inside a batch's raw write window)", path)
-            done = None
-        else:
-            done = set()
+    if resuming:
+        if bool(f.attrs.get("complete", False)):
+            mylog.info("Catalog %s is already complete.", path)
+            return None, None
+        # the values of a plain run, for files that predate a key
+        defaults = {"shard_rank": 0, "shard_count": 1, "r_a": 0.0,
+                    "mesh_ens": 0, "gravity": "newtonian"}
+        for k, v in config.items():
+            have = f.attrs.get(k, defaults.get(k))
+            if have is None or not np.array_equal(have, v):
+                raise ValueError(
+                    f"resume config mismatch on {k!r}: file has "
+                    f"{have!r}, this run asks {v!r}; resuming "
+                    "would splice incompatible draws")
+    else:
+        for k, v in config.items():
+            f.attrs[k] = v
+        for k, v in (extra_attrs or {}).items():
+            f.attrs[k] = v
+        f.attrs["units"] = "kpc, kpc/Myr, Msun (galactic)"
+        f.attrs["_batches_done"] = np.zeros((0,), np.int64)
+    if resuming and "_batches_done" in f.attrs:
+        done = set(np.asarray(f.attrs["_batches_done"]).tolist())
+    elif resuming:
+        mylog.warning(
+            "%s predates the _batches_done marker; falling back to "
+            "dataset-presence completion checks (cannot detect a "
+            "crash inside a batch's raw write window)", path)
+        done = None
+    else:
+        done = set()
 
-        todo = []
-        mine = (range(0, n_items, batch_size) if only_batches is None
-                else sorted(only_batches))
-        for b0 in mine:
-            names = [f"{group_prefix}_{i:06d}"
-                     for i in range(b0, min(b0 + batch_size, n_items))]
-            have_all = all(nm in f and all(ds in f[nm] for ds in expected)
-                           for nm in names)
-            if resuming and have_all and (done is None or b0 in done):
-                continue
-            if resuming:
-                for nm in names:  # drop the partial batch, recompute it
-                    if nm in f:
-                        del f[nm]
-            todo.append(b0)
+    todo = []
+    mine = (range(0, n_items, batch_size) if only_batches is None
+            else sorted(only_batches))
+    for b0 in mine:
+        names = [f"{group_prefix}_{i:06d}"
+                 for i in range(b0, min(b0 + batch_size, n_items))]
+        have_all = all(nm in f and all(ds in f[nm] for ds in expected)
+                       for nm in names)
+        if resuming and have_all and (done is None or b0 in done):
+            continue
         if resuming:
-            mylog.info("Resuming %s: %d/%d batches already complete.",
-                       path, len(mine) - len(todo), len(mine))
-        for b0, records in produce(todo):
-            _write_records(f, records)
-            # after the batch's bytes are in the file: the marker is what
-            # makes it count on resume
-            if done is not None:
-                done.add(int(b0))
-                f.attrs["_batches_done"] = np.asarray(sorted(done),
-                                                      np.int64)
-        f.attrs["complete"] = True
+            for nm in names:  # drop the partial batch, recompute it
+                if nm in f:
+                    del f[nm]
+        todo.append(b0)
+    if resuming:
+        mylog.info("Resuming %s: %d/%d batches already complete.",
+                   path, len(mine) - len(todo), len(mine))
+    return todo, done
 
 
 def _rank_and_count(rank, nproc):
@@ -798,9 +957,23 @@ def _shard_plan(filename, n_items, batch_size, rank, nproc):
     return str(shard), mine
 
 
+def _mesh_shard(mesh, rank, nproc):
+    """``(rank, nproc, group)`` of a multi-process catalog: without a mesh
+    :func:`_rank_and_count`'s and no group; with one, the rank's ``part``
+    coordinate and the ``part`` size (unless given) and the ``ens`` group,
+    whose ranks compute the shard's batches together."""
+    if mesh is None:
+        return _rank_and_count(rank, nproc) + (None,)
+    if rank is None:
+        rank = mesh.get_local_rank("part")
+    if nproc is None:
+        nproc = mesh.size(mesh.mesh_dim_names.index("part"))
+    return _rank_and_count(rank, nproc) + (mesh.get_group("ens"),)
+
+
 def ensemble_datagen_multihost(M200, conc, filename, n_particles_per_cluster,
                                batch_size=256, num_points=512, seed=0,
-                               overwrite=False, resume=False,
+                               overwrite=False, resume=False, mesh=None,
                                anisotropy_radius=None, gravity="newtonian",
                                rank=None, nproc=None, device="cuda"):
     """Multi-process :func:`ensemble_datagen`: process ``rank`` of
@@ -813,16 +986,24 @@ def ensemble_datagen_multihost(M200, conc, filename, n_particles_per_cluster,
     ``torch.distributed``'s rank and world size when it is initialized,
     else 0 and 1.  Feed the shard list to :func:`read_catalog` or
     :func:`catalog_batches`.  ``resume=True`` resumes this shard alone.
+
+    ``mesh``: the mesh's ``part`` dim splits the batches and its ``ens``
+    dim each batch.  The ranks at ``part`` coordinate j form one ``ens``
+    group that writes shard j (``rank``/``nproc`` default to the ``part``
+    coordinate and size): each computes its ``ens`` rows of the shard's
+    batches, as in :func:`ensemble_datagen` with a mesh, and the group's
+    first rank writes the file.  Every rank of the world must call.
     Returns this process's shard filename."""
-    rank, nproc = _rank_and_count(rank, nproc)
+    rank, nproc, group = _mesh_shard(mesh, rank, nproc)
     n_cl = len(M200)
     shard, mine = _shard_plan(filename, n_cl, batch_size, rank, nproc)
     return ensemble_datagen(
         M200, conc, shard, n_particles_per_cluster, batch_size=batch_size,
         num_points=num_points, seed=seed, overwrite=overwrite, resume=resume,
-        anisotropy_radius=anisotropy_radius, gravity=gravity, device=device,
-        _only_batches=mine,
-        _extra_attrs={"shard_rank": rank, "shard_count": nproc})
+        mesh=mesh, anisotropy_radius=anisotropy_radius, gravity=gravity,
+        device=device, _only_batches=mine,
+        _extra_attrs={"shard_rank": rank, "shard_count": nproc},
+        _group=group)
 
 
 def _catalog_filenames(filename):

@@ -35,12 +35,14 @@ from ..core.interp import interp
 from ..core.staging import stream_to_host
 from ..model.gravity import get_gravity
 from ..pipeline import (build_merger_models, build_radius_tables,
-                        build_speed_tables, sample_merger_ic)
+                        build_speed_tables, merger_uniforms, sample_merger_ic)
 from .ensemble import (_PORT_DRAWS, _SPECIES_MASS, _batch_generator,
-                       _catalog_filenames, _check_path, _check_r_a, _f64,
-                       _open_catalog, _rank_and_count, _read_cluster,
-                       _rebuild_fields, _shard_plan, _stream_batched_catalog,
+                       _catalog_filenames, _check_r_a, _f64,
+                       _gathered, _mesh_call, _mesh_ens, _mesh_shard,
+                       _open_catalog, _read_cluster, _rebuild_fields,
+                       _shard_plan, _stream_batched_catalog,
                        build_one_cluster)
+from .mesh import mesh_device
 from .qa import QA_TOLERANCES as _QA
 
 __all__ = ["sample_merger_scene_params", "binary_scene_geometry",
@@ -355,6 +357,13 @@ class _SceneBatch:
                  for o in self.seg[sp]], dim=-1)
         return out
 
+    def uniforms(self, B, generator, device):
+        """Every uniform a batch of ``B`` scenes takes from ``generator``,
+        in the draws' order (:func:`~..pipeline.merger_uniforms`)."""
+        return merger_uniforms(generator, (B,), self.counts["gas"],
+                               self.counts["dm"], self.counts["star"],
+                               device=device)
+
     def __call__(self, M200, conc, centers, velocities, r_max,
                  generator=None, uniforms=None):
         dev = self.device
@@ -619,21 +628,29 @@ def _params_sha(M200, conc, centers, velocities):
 
 
 def _scene_batches(batch_fn, M200, conc, centers, velocities, r_max,
-                   batch_size, seed, b0s):
+                   batch_size, seed, b0s, mesh=None, stage=True):
     """The device stage of :func:`merger_datagen`: for each batch offset
     in ``b0s`` the scene-batch program with the generator of ``(seed,
     b0)``, its outputs staged to pinned host memory while the next batch
     computes.  Yields ``(b0, host)``, ``host`` a dict of numpy arrays with
-    the program's keys; valid until the next batch is asked for."""
+    the program's keys; valid until the next batch is asked for.
+    ``mesh`` and ``stage`` as in :func:`~.ensemble._catalog_batches`."""
     dev = M200.device
 
     def programs():
         for b0 in b0s:
             sl = slice(b0, b0 + batch_size)
-            out = batch_fn(M200[sl], conc[sl], centers[sl], velocities[sl],
-                           r_max, _batch_generator(seed, b0, dev))
+            out, rows = _mesh_call(
+                batch_fn, mesh, (M200[sl], conc[sl], centers[sl],
+                                 velocities[sl]), (r_max,),
+                _batch_generator(seed, b0, dev))
+            out = _gathered(mesh, out, rows)
             yield (b0, list(out)), list(out.values())
 
+    if not stage:
+        for (b0, _), _ in programs():
+            yield b0, None
+        return
     for (b0, names), arrays in stream_to_host(programs()):
         yield b0, dict(zip(names, arrays))
 
@@ -656,8 +673,9 @@ def _scene_records(b0, Mb, cb, ctr, vel, out):
 
 def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
                    r_max=5000.0, seed=0, overwrite=False, resume=False,
-                   anisotropy_radius=None, gravity="newtonian", prorate=True,
-                   device="cuda", _only_batches=None, _extra_attrs=None):
+                   mesh=None, anisotropy_radius=None, gravity="newtonian",
+                   prorate=True, device="cuda", _only_batches=None,
+                   _extra_attrs=None, _group=None):
     """Stream an ensemble of merger-scene ICs to ONE HDF5 catalog.
 
     ``params``: ``M200``/``conc`` (n_scenes, H) and either explicit
@@ -678,13 +696,15 @@ def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
     halo).  The scenes are what :func:`merger_scene_batches` yields for
     the same ``(seed, batch_size)``; the resume semantics are those of
     :func:`~.ensemble.ensemble_datagen` (shared loop), with the parameter
-    arrays' sha256 in the resume config.  Returns the filename.
+    arrays' sha256 in the resume config.  ``mesh``: each rank computes its
+    ``ens`` rows of every batch, as in :func:`~.ensemble.ensemble_datagen`
+    (a short batch whole; only rank 0 writes; the ``ens`` size joins the
+    resume config).  Returns the filename.
     """
     from ..core.logging import mylog
 
-    path, resuming = _check_path(filename, overwrite, resume)
     _check_r_a(anisotropy_radius)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh)
     M200, conc, centers, velocities = _scene_inputs(params, dev)
     n_sc, H = M200.shape
     counts = _normalize_counts(
@@ -695,15 +715,16 @@ def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
                                 gravity=gravity, device=dev)
     mylog.info("Merger datagen: %d scenes x %d halos x %s particles%s -> %s",
                n_sc, H, counts, "" if anisotropy_radius is None
-               else f" (OM r_a={anisotropy_radius:g} kpc)", path)
+               else f" (OM r_a={anisotropy_radius:g} kpc)", filename)
     host = [_host(a) for a in (M200, conc, centers, velocities)]
 
-    def produce(todo):
+    def produce(todo, write=True):
         for b0, out in _scene_batches(batch_fn, M200, conc, centers,
                                       velocities, r_max, batch_size, seed,
-                                      todo):
+                                      todo, mesh=mesh, stage=write):
             sl = slice(b0, b0 + batch_size)
-            yield b0, _scene_records(b0, *(a[sl] for a in host), out)
+            yield b0, (out if out is None else _scene_records(
+                b0, *(a[sl] for a in host), out))
 
     expected = [k for sp in ("gas", "dm", "star") if sum(counts[sp])
                 for k in ([f"{sp}_position", f"{sp}_velocity"]
@@ -718,7 +739,7 @@ def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
               "num_points": int(num_points),
               "r_a": (0.0 if anisotropy_radius is None
                       else float(anisotropy_radius)),
-              "mesh_ens": 0,
+              "mesh_ens": _mesh_ens(mesh),
               "gravity": str(gravity),
               "r_max": _host(r_max),
               "params_sha": _params_sha(*host),
@@ -727,32 +748,34 @@ def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
               "key_data": np.asarray([int(seed)], np.int64)}
     for sp in ("gas", "dm", "star"):
         config[f"n_{sp}_per_halo"] = np.asarray(counts[sp], np.int64)
-    _stream_batched_catalog(path, resuming, config, _extra_attrs, expected,
-                            "scene", n_sc, batch_size, _only_batches,
-                            produce)
-    return str(path)
+    _stream_batched_catalog(filename, overwrite, resume, config,
+                            _extra_attrs, expected, "scene", n_sc,
+                            batch_size, _only_batches, produce, mesh, _group)
+    return str(filename)
 
 
 def merger_datagen_multihost(params, filename, counts, batch_size=64,
                              num_points=512, r_max=5000.0, seed=0,
-                             overwrite=False, resume=False,
+                             overwrite=False, resume=False, mesh=None,
                              anisotropy_radius=None, gravity="newtonian",
                              prorate=True, rank=None, nproc=None,
                              device="cuda"):
     """Multi-process :func:`merger_datagen`: process ``rank`` of ``nproc``
     computes batches ``rank, rank+nproc, ...`` into
     ``<stem>.<rank>of<nproc><suffix>``, bit-identical to one process's
-    catalog (see :func:`~.ensemble.ensemble_datagen_multihost`).  Returns
-    this process's shard filename."""
-    rank, nproc = _rank_and_count(rank, nproc)
+    catalog (see :func:`~.ensemble.ensemble_datagen_multihost`, also for
+    ``mesh``: the ranks at ``part`` coordinate j write shard j together).
+    Returns this process's shard filename."""
+    rank, nproc, group = _mesh_shard(mesh, rank, nproc)
     shard, mine = _shard_plan(filename, len(params["M200"]), batch_size,
                               rank, nproc)
     return merger_datagen(
         params, shard, counts, batch_size=batch_size, num_points=num_points,
         r_max=r_max, seed=seed, overwrite=overwrite, resume=resume,
-        anisotropy_radius=anisotropy_radius, gravity=gravity,
+        mesh=mesh, anisotropy_radius=anisotropy_radius, gravity=gravity,
         prorate=prorate, device=device, _only_batches=mine,
-        _extra_attrs={"shard_rank": rank, "shard_count": nproc})
+        _extra_attrs={"shard_rank": rank, "shard_count": nproc},
+        _group=group)
 
 
 def read_merger_catalog(filename, indices=None, fields=None):

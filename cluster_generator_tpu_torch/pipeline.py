@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
-from .core.draws import isotropic, uniform
+from .core.draws import collisionless_uniforms, gas_uniforms, isotropic
 from .core.grid import linspace
 from .core.interp import _gather, interp, interp_monotone
 from .parallel.ensemble import build_one_cluster
@@ -34,7 +34,8 @@ from .virial import (_banded_row_lerp, compute_df, om_extended_df,
                      speed_inverse_cdf_table, speed_table_defaults)
 
 __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
-           "build_radius_tables", "sample_merger_ic", "merger_ic_fused",
+           "build_radius_tables", "merger_uniforms", "sample_merger_ic",
+           "sample_merger_ic_sharded", "merger_ic_fused",
            "binary_merger_ic", "attach_field_to_particles"]
 
 _RQ = 2048  # radius quantile-table resolution
@@ -222,12 +223,8 @@ def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
     dev = r_q.device
     shape = r_q.shape[:-1] + (n,)
     if uniforms is None:
-        u_r = uniform(gen, shape, dtype, dev)
-        u_q = uniform(gen, shape, dtype, dev)
-        u_b = uniform(gen, shape, dtype, dev)
-        pos_dir = vel_dir = None
-    else:
-        u_r, u_q, u_b, pos_dir, vel_dir = uniforms
+        uniforms = collisionless_uniforms(gen, shape, dtype, dev)
+    u_r, u_q, u_b, pos_dir, vel_dir = uniforms
     rq = r_q.to(dtype)
     RQ = rq.shape[-1]
     n_q = s_inv.shape[-1]
@@ -245,9 +242,9 @@ def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
     flat = k_row * n_q + m
     speed = (1.0 - wm) * _gather(joint, flat) + wm * _gather(joint, flat + 1)
 
-    rhat = isotropic(shape, dtype, dev, gen, pos_dir)
+    rhat = isotropic(shape, dtype, dev, uniforms=pos_dir)
     pos = radius[..., None] * rhat + center.to(dtype)[..., None, :]
-    vdir = isotropic(shape, dtype, dev, gen, vel_dir)
+    vdir = isotropic(shape, dtype, dev, uniforms=vel_dir)
     if r_a is not None:
         mu = torch.sum(vdir * rhat, dim=-1, keepdim=True)
         gamma = torch.sqrt(1.0 + (radius / r_a) ** 2)
@@ -264,12 +261,10 @@ def _sample_gas_halo(fields_h, r_q, m_rmax, n, center, dtype, gen=None,
     dev = r_q.device
     shape = r_q.shape[:-1] + (n,)
     if uniforms is None:
-        u = uniform(gen, shape, dtype, dev)
-        direction = None
-    else:
-        u, direction = uniforms
+        uniforms = gas_uniforms(gen, shape, dtype, dev)
+    u, direction = uniforms
     radius = _table_lerp(r_q.to(dtype), u)
-    pos = (radius[..., None] * isotropic(shape, dtype, dev, gen, direction)
+    pos = (radius[..., None] * isotropic(shape, dtype, dev, uniforms=direction)
            + center.to(dtype)[..., None, :])
     pmass = (m_rmax / n).to(dtype)[..., None].expand(shape).contiguous()
     return pos, pmass
@@ -315,6 +310,26 @@ def _potential_at(pos, fields, centers, dtype):
         p = (1.0 - w) * _gather(phi_i, j) + w * _gather(phi_i, j + 1)
         total = p if total is None else total + p
     return total
+
+
+def merger_uniforms(generator, batch_shape, n_gas, n_dm, n_star,
+                    n_tracer=None, dtype=torch.float32, device="cuda"):
+    """Every uniform :func:`sample_merger_ic` takes from ``generator``,
+    drawn in its order (halo by halo: gas, dm, star, tracer) and keyed as
+    its ``uniforms`` argument, each ``batch_shape + (n,)``: the draws with
+    these equal the draws with the generator, bit for bit."""
+    H = len(n_gas)
+    sites = (("gas", n_gas, gas_uniforms),
+             ("dm", n_dm, collisionless_uniforms),
+             ("star", n_star, collisionless_uniforms),
+             ("tracer", n_tracer or (0,) * H, gas_uniforms))
+    out = {}
+    for i in range(H):
+        for kind, n, draw in sites:
+            if n[i] > 0:
+                out[kind, i] = draw(generator, tuple(batch_shape) + (n[i],),
+                                    dtype, device)
+    return out
 
 
 def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
@@ -404,6 +419,45 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
                 out[sp, "particle_potential"] = _potential_at(
                     out[sp, "particle_position"], fields, centers, dtype)
     return out
+
+
+def sample_merger_ic_sharded(mesh, fields, tables, centers, velocities,
+                             r_max, seed, n_gas, n_dm, n_star, n_tracer=None,
+                             axis: str = "part", dtype=torch.float32,
+                             compute_potential=False, uniforms=None):
+    """Multi-device :func:`sample_merger_ic`: the particle draws shard
+    over the mesh dim ``axis``.
+
+    Fields and tables are replicated (every rank holds them whole).  The
+    rank at coordinate i of ``axis`` draws ``n / size`` particles of every
+    species from the generator seeded by ``(seed, i)``
+    (:func:`~.parallel.mesh.fold_in`); ranks that differ only in the other
+    mesh dim draw the same shard.  Every output is a DTensor sharded over
+    ``axis``.  ``uniforms`` (optional): this rank's pre-drawn uniforms, as
+    in :func:`sample_merger_ic`.  Counts must divide the axis size."""
+    from .parallel.mesh import fold_in, sharded
+
+    n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
+
+    def div(tup):
+        if tup is None:
+            return None
+        if any(n % n_dev for n in tup):
+            raise ValueError(f"counts {tuple(tup)} must divide mesh axis "
+                             f"{axis}={n_dev}")
+        return tuple(n // n_dev for n in tup)
+
+    gen = None
+    if uniforms is None:
+        gen = fold_in(seed, mesh.get_local_rank(axis),
+                      fields["radius"].device)
+    local = sample_merger_ic(fields, tables, centers, velocities, r_max,
+                             div(n_gas), div(n_dm), div(n_star),
+                             n_tracer=div(n_tracer), dtype=dtype,
+                             compute_potential=compute_potential,
+                             generator=gen, uniforms=uniforms)
+    return {k: sharded(mesh, v, axis, v.shape[0] * n_dev)
+            for k, v in local.items()}
 
 
 def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,

@@ -35,6 +35,7 @@ from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
 from .core.logging import mylog
+from .core.quadrature import cumsum
 from .ops.cdf_inverse import invert_cdf_rows
 
 __all__ = ["VirialEquilibrium", "sample_speeds", "compute_df", "om_extended_df", "compute_df_truncated",
@@ -246,8 +247,7 @@ def speed_cdf_rows(ee, f_vals, n_s: int = 1024, table_dtype=None,
     # ~1e-6 at the top of a row, which a flat CDF stretches to ~1e-4 in s
     inc = 0.5 * (pdf[..., 1:] + pdf[..., :-1]) * ds
     cdf = torch.cat([torch.zeros_like(pdf[..., :1]),
-                     torch.cumsum(inc.to(torch.float64),
-                                  dim=-1).to(pdf.dtype)], dim=-1)
+                     cumsum(inc.to(torch.float64)).to(pdf.dtype)], dim=-1)
     total = cdf[..., -1:]
     cdf = cdf / torch.where(total > 0.0, total, torch.ones_like(total))
     # a strictly increasing ramp keeps every bin invertible

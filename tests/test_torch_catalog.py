@@ -183,7 +183,7 @@ def test_ensemble_datagen_streams_to_hdf5(tmp_path, port_catalogs):
         TE.ensemble_datagen(M, c, fn, 10, **KW)
     with h5py.File(fn) as f:
         assert f.attrs["n_clusters"] == 5
-        assert f.attrs["draws_version"] == 1002
+        assert f.attrs["draws_version"] == 2002
         np.testing.assert_array_equal(f.attrs["key_data"], [11])
         names = sorted(k for k in f.keys())
         assert names == [f"cluster_{i:06d}" for i in range(5)]

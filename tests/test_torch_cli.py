@@ -192,7 +192,7 @@ def test_datagen_verify_roundtrip(tmp_path, capsys):
     assert want["n_clusters_checked"] == 4
     assert report["max_speed_frac"] == pytest.approx(want["max_speed_frac"],
                                                      rel=1e-6)
-    with h5py.File(cat) as f:  # torch draws: the JAX version + 1000
+    with h5py.File(cat) as f:  # torch draws: the JAX version + 2000
         assert f.attrs["draws_version"] > 1000
 
     # corrupt one dataset -> verify exits 1 and names the violation

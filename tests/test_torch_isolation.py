@@ -3,8 +3,10 @@ modules refuse, naming yt, when yt is absent) and running a small merger IC
 (with every switch), a small datagen batch, the single-cluster class path,
 every random-field class with its particle sampling, a merger-scene stream
 with its QA, the command line's ``info`` and a refused flag, the native
-painter and the tooling (stage timer, trace, NaN guard, field validation)
-on the CPU loads neither JAX nor the JAX package, nor h5py.  Under the yt
+painter, the tooling (stage timer, trace, NaN guard, field validation) and
+the multi-device layer in a world of one gloo process on the CPU loads
+neither JAX nor the JAX package, nor h5py.  The package never chooses a
+process-group backend: only the dry run's own CPU ranks start one.  Under the yt
 stand-in of tests/ytshim the frontend's modules import and read grids of
 both painting engines, again without JAX.  With h5py and PyYAML blocked,
 as on a machine that has neither, the package still imports and a two-halo
@@ -125,6 +127,30 @@ with debug.nan_guard(), tempfile.TemporaryDirectory() as d:
     with profiling.stage("tables", holder, log=False), profiling.trace(d):
         holder.append(cgt.core.interp.spline_eval(sp, m["radius"]))
 profiling.device_memory_stats()
+# the multi-device layer in a world of one gloo process: a mesh, the
+# sharded field through the pencil FFT, the sharded draw, the export plan,
+# a mesh datagen batch
+import torch.distributed as dist
+from cluster_generator_tpu_torch.parallel import export, fields as PF, mesh
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=0,
+                            world_size=1)
+    mh = mesh.make_mesh(device_type="cpu")
+    gx, gy, gz = PF.sharded_gaussian_random_field(1, (8, 8, 8), (10.0,) * 3,
+                                                  20.0, 80.0, mh)
+    assert gx.shape == (8, 8, 8) and bool(torch.isfinite(gx.to_local()).all())
+    sharded = cgt.pipeline.sample_merger_ic_sharded(
+        mh, fields, cgt.build_speed_tables(fields) | {
+            "radius": cgt.build_radius_tables(fields, [5000.0] * 2)},
+        [[-1500.0, 0, 0], [1500.0, 0, 0]], [[0.3, 0, 0], [-0.45, 0, 0]],
+        [5000.0] * 2, 0, (30, 20), (24, 16), (6, 4))
+    n_files, total, plan = export._export_plan(sharded, 14000.0,
+                                               [7000.0] * 3)
+    assert n_files == 1 and int(total.sum()) == 100
+    (b0, out), = datagen_batches([1.5e15, 4e14], [4.0, 6.0], 100,
+                                 batch_size=2, num_points=128, mesh=mh)
+    assert out[0].to_local().shape == (2, 100, 3)
+    dist.destroy_process_group()
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "cluster_generator_tpu", "h5py"))
@@ -140,7 +166,8 @@ data_structures fields fields.grf frontend frontend.api
 frontend.data_structures frontend.fields frontend.io ics model
 model.builders model.cluster_model
 model.gravity ops ops.build ops.cdf_inverse ops.native parallel
-parallel.ensemble parallel.mergers parallel.qa particles pipeline
+parallel.dryrun parallel.ensemble parallel.export parallel.fft
+parallel.fields parallel.mergers parallel.mesh parallel.qa particles pipeline
 profiles profiles.algebra profiles.library profiles.relations
 profiles.solvers sampling utils virial
 """.split()
@@ -354,3 +381,39 @@ def test_no_source_of_the_port_names_a_foreign_import():
                 (path, roots)
             if node in tree.body:
                 assert "h5py" not in roots, path
+
+
+def test_the_port_never_chooses_a_process_group_backend():
+    """No call of ``init_process_group`` and no backend name in the port,
+    but for the dry run's CPU self-provisioning (``dryrun._cpu_rank``):
+    the caller's process group decides the backend."""
+    import ast
+    import glob
+
+    found = []
+
+    class Finder(ast.NodeVisitor):
+        def __init__(self, path):
+            self.path, self.scope = path, ["<module>"]
+
+        def visit_FunctionDef(self, node):
+            self.scope.append(node.name)
+            self.generic_visit(node)
+            self.scope.pop()
+
+        def visit_Call(self, node):
+            if getattr(node.func, "attr", getattr(node.func, "id", None)) \
+                    == "init_process_group":
+                found.append((self.path, self.scope[-1]))
+            self.generic_visit(node)
+
+        def visit_Constant(self, node):
+            if node.value in ("gloo", "nccl"):
+                found.append((self.path, self.scope[-1]))
+
+    for path in glob.glob(os.path.join(ROOT, "cluster_generator_tpu_torch",
+                                       "**", "*.py"), recursive=True):
+        with open(path) as fh:
+            Finder(os.path.relpath(path, ROOT)).visit(ast.parse(fh.read()))
+    assert sorted(set(found)) == [
+        ("cluster_generator_tpu_torch/parallel/dryrun.py", "_cpu_rank")], found

@@ -90,7 +90,7 @@ def test_merger_datagen_end_to_end(port_catalog):
         assert bool(f.attrs["complete"])
         assert f.attrs["product"] == "merger_scenes"
         assert int(f.attrs["n_clusters"]) == 4 and int(f.attrs["n_halos"]) == 2
-        assert f.attrs["draws_version"] == 1002
+        assert f.attrs["draws_version"] == 2002
         np.testing.assert_array_equal(f.attrs["n_gas_per_halo"], [24, 24])
         np.testing.assert_array_equal(f.attrs["n_dm_per_halo"], [32, 32])
         np.testing.assert_array_equal(f.attrs["n_star_per_halo"], [8, 8])
@@ -324,7 +324,7 @@ def test_merger_om_anisotropy(tmp_path):
     TM.merger_datagen(p, fn, anisotropy_radius=r_a, **kw)
     with h5py.File(fn, "r") as f:
         assert float(f.attrs["r_a"]) == r_a
-        assert f.attrs["draws_version"] == 1002
+        assert f.attrs["draws_version"] == 2002
     assert TM.verify_merger_catalog(fn, device="cpu")["violations"] == []
     iso = str(tmp_path / "iso.h5")
     TM.merger_datagen(p, iso, **kw)
