@@ -107,8 +107,14 @@ Phases, in order; any failure exits non-zero before the last line:
     the dry run's steps; (c) a world of four on NCCL where the machine has
     four cards, else a line saying why not.  K1 against its plain version
     on each rank's first batch; its launches per rank;
-20. print one JSON line of kernel numbers;
-21. print the card's name and power limit, then the last line
+20. the entry scripts over the port: ``bench_torch.py`` at full size in a
+    process of its own (its one JSON line printed; on the card, a finite
+    warm median under 5 s, K1 8 launches, its peak memory), then where
+    ``h5py`` imports the five ``examples_torch/`` scripts at
+    ``CG_EXAMPLE_SCALE=1`` (``multichip_export`` as a world of one on
+    NCCL) with the checks of the CPU tests, else one line saying why not;
+21. print one JSON line of kernel numbers;
+22. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -2850,6 +2856,97 @@ def run_multidevice(card, sz=MD):
     return launches
 
 
+# ----------------------------------------------------------------- phase 20
+BENCH_LIMIT_S = 5.0         # BASELINE.md's wall-time limit of the workload
+BENCH_K1 = 8                # 2 per IC, one first run and three warm runs
+BENCH_TIMEOUT = 600.0
+EXAMPLE_TIMEOUT = 900.0     # seconds for one example
+EXAMPLE_RESIDUAL = 1e-4     # single_cluster's HSE and virial residuals
+
+
+def run_bench(card, root, dev="cuda"):
+    """Phase 20 (a): ``bench_torch.py`` in a process of its own on ``dev``
+    (the kernel is built by then, so ``first_run_s`` holds no build); its
+    one JSON line, checked.  Returns its K1 launches."""
+    res = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py"),
+                          "--device", dev], cwd=root, capture_output=True,
+                         text=True, timeout=BENCH_TIMEOUT)
+    check(res.returncode == 0,
+          f"bench_torch.py exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines")
+    print(f"bench_torch.py [{card}]:")
+    print(lines[0])
+    rec = json.loads(lines[0])
+    check(rec["backend"] == torch.device(dev).type,
+          f"bench_torch.py ran on {rec['backend']}")
+    check(math.isfinite(rec["value"]) and 0 < rec["value"] < BENCH_LIMIT_S,
+          f"bench_torch.py warm {rec['value']} s, limit {BENCH_LIMIT_S} s")
+    want = BENCH_K1 if rec["backend"] == "cuda" else 0
+    check(rec["k1_launches"] == want,
+          f"bench_torch.py launched K1 {rec['k1_launches']} times, want "
+          f"{want}")
+    check(rec["backend"] != "cuda" or math.isfinite(rec["peak_mem_gib"]),
+          f"bench_torch.py peak memory {rec['peak_mem_gib']}")
+    return rec["k1_launches"]
+
+
+def run_example(root, cwd, name, dev, scale, ranks=None):
+    """One script of ``examples_torch/`` in ``cwd``; its standard output.
+    ``ranks``: start it under ``torchrun`` as a world of that size."""
+    cmd = [os.path.join(root, "examples_torch", name), "--device", dev]
+    if ranks:
+        cmd = ["-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(ranks)] + cmd
+    env = dict(os.environ, CG_EXAMPLE_SCALE=str(scale), PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable] + cmd, cwd=cwd, env=env,
+                         capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT)
+    check(res.returncode == 0,
+          f"examples_torch/{name} exited {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    print(f"examples_torch/{name} ({time.perf_counter() - t0:.1f} s, start-up "
+          f"included): " + " | ".join(res.stdout.strip().splitlines()[-3:]))
+    return res.stdout
+
+
+def run_examples(card, root, dev="cuda", scale=1):
+    """Phase 20 (b): the five examples at ``CG_EXAMPLE_SCALE=scale`` on
+    ``dev`` in a temporary directory, with the checks of the CPU tests
+    (tests/test_torch_examples.py); ``multichip_export`` as a world of one
+    (NCCL on the card).  They write and read HDF5, so without ``h5py``
+    one line says why they were not run."""
+    import importlib.util
+    import re
+
+    if importlib.util.find_spec("h5py") is None:
+        print("examples_torch: not run, this machine has no h5py and each of "
+              "the five examples writes or reads HDF5 (the CPU tests run them)")
+        return
+    with tempfile.TemporaryDirectory() as cwd:
+        out = run_example(root, cwd, "single_cluster.py", dev, scale)
+        for what in ("HSE residual", "virial residual"):
+            got = float(re.search(what + r": (\S+)", out).group(1))
+            check(got < EXAMPLE_RESIDUAL, f"single_cluster {what} {got}")
+        out = run_example(root, cwd, "binary_merger.py", dev, scale)
+        check(all(os.path.exists(os.path.join(cwd, fn))
+                  for fn in ("merger_ic.h5", "merger_B.h5")),
+              "binary_merger wrote no merger_ic.h5 / merger_B.h5")
+        out = run_example(root, cwd, "ensemble.py", dev, scale)
+        check("every f(E) >= 0: True" in out and "violations: 0" in out,
+              "ensemble: a negative f(E) or a QA violation")
+        out = run_example(root, cwd, "train_on_catalog.py", dev, scale)
+        check("improved" in out and "NOT improved" not in out,
+              "train_on_catalog: the loss did not improve")
+        out = run_example(root, cwd, "multichip_export.py", dev, scale,
+                          ranks=1)
+        check("wrote 1 Gadget shard files" in out and "reassembled" in out
+              and os.path.exists(os.path.join(cwd, "merger_ic.0.h5")),
+              "multichip_export: no shard file or no reassembly")
+    print(f"examples_torch: the five examples passed on {dev} [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2958,6 +3055,10 @@ def main() -> int:
           f"a path never launched K1: {launches}")
 
     launches.update(run_multidevice(card))
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches["bench"] = run_bench(card, root)
+    run_examples(card, root)
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

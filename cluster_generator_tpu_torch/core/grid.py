@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from .device import resolve_device
+
 __all__ = ["linspace", "log_radius_grid"]
 
 
@@ -34,8 +36,9 @@ def linspace(start, stop, num: int, dtype=torch.float64, device=None):
 
 
 def log_radius_grid(rmin: float, rmax: float, num_points: int = 1000,
-                    device=None):
-    """Log-spaced radius grid in kpc, endpoint inclusive (float64)."""
+                    device="cuda"):
+    """Log-spaced radius grid in kpc, endpoint inclusive (float64), on
+    ``device`` (the card unless ``"cpu"`` is asked for)."""
     lin = linspace(math.log10(rmin), math.log10(rmax), num_points,
-                   device=device)
+                   device=resolve_device(device))
     return torch.pow(10.0, lin)

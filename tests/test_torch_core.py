@@ -68,7 +68,7 @@ def test_critical_density_and_units():
 
 
 def test_log_radius_grid_and_linspace():
-    _close(t_grid(0.1, 1.0e4, 1000).numpy(),
+    _close(t_grid(0.1, 1.0e4, 1000, device="cpu").numpy(),
            np.asarray(j_grid(0.1, 1.0e4, 1000)), rtol=1e-14)
     # batched linspace: one row per (start, stop), jnp.linspace's arithmetic
     lo, hi = np.array([-2.0, 0.5]), np.array([3.0, 7.25])
@@ -77,6 +77,65 @@ def test_log_radius_grid_and_linspace():
         _close(got[i], np.asarray(jnp.linspace(lo[i], hi[i], 257)),
                rtol=1e-15, atol=1e-15)
     assert got[0, -1] == hi[0] and got[1, 0] == lo[1]
+
+
+def test_log_radius_grid_runs_on_the_card_unless_asked(monkeypatch):
+    """The public grid resolves its device like every entry point: the
+    card by default (an error without one), the CPU when asked.  At
+    (1, 1e4, 5) the points are the exact powers of ten, so the two
+    packages agree to rtol 1e-15; at 1000 points XLA's CPU compiler fuses
+    jnp.linspace into multiply-adds, which moves some exponents by one
+    ulp (1.1e-15 in the grid), hence 1e-14 above."""
+    import cluster_generator_tpu_torch as cg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cg.log_radius_grid(1, 1e4, 5)
+    got = cg.log_radius_grid(1, 1e4, 5, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float64
+    _close(got.numpy(), np.asarray(j_grid(1, 1e4, 5)), rtol=1e-15)
+
+
+# the public callables whose ``device=None`` means "the device of the
+# tensors they are given" (their fields), not the CPU
+DEVICE_FROM_TENSORS = {"ClusterModel", "HydrostaticEquilibrium",
+                       "ClusterParticles", "ClusterParticles.from_fields"}
+
+
+def _public_callables():
+    import inspect
+
+    import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch import parallel, pipeline
+
+    for mod in (cg, parallel, pipeline):
+        for name in mod.__all__:
+            obj = getattr(mod, name)
+            if inspect.isclass(obj):
+                yield name, obj
+                for member in vars(obj):
+                    if not member.startswith("_"):
+                        yield f"{name}.{member}", getattr(obj, member)
+            elif callable(obj):
+                yield name, obj
+
+
+def test_every_public_device_parameter_defaults_to_the_card():
+    import inspect
+
+    seen, odd = 0, {}
+    for name, fn in _public_callables():
+        try:
+            param = inspect.signature(fn).parameters.get("device")
+        except (TypeError, ValueError):
+            continue
+        if param is None:
+            continue
+        seen += 1
+        if param.default != "cuda":
+            odd[name] = param.default
+    assert seen > 50
+    assert odd == dict.fromkeys(DEVICE_FROM_TENSORS), odd
 
 
 # ----------------------------------------------------------------- quadrature

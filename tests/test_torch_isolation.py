@@ -354,19 +354,23 @@ def test_port_runs_a_scene_without_h5py_and_yaml():
 
 
 def test_no_source_of_the_port_names_a_foreign_import():
-    """Every ``.py`` file of the port, the smoke run and the port's
-    scripts: no import of JAX or the JAX package anywhere, and none of
-    h5py at module level."""
+    """Every ``.py`` file of the port, the smoke run, the port's bench
+    script, its examples and its scripts: no import of JAX or the JAX
+    package anywhere, and none of h5py at module level."""
     import ast
     import glob
 
+    examples = glob.glob(os.path.join(ROOT, "examples_torch", "*.py"))
+    assert len(examples) == 5
     files = (glob.glob(os.path.join(ROOT, "cluster_generator_tpu_torch",
                                     "**", "*.py"), recursive=True)
+             + examples
              + [os.path.join(ROOT, "chip_smoke.py"),
+                os.path.join(ROOT, "bench_torch.py"),
                 os.path.join(ROOT, "scripts", "bench_k1.py"),
                 os.path.join(ROOT, "scripts", "profile_torch_merger.py"),
                 os.path.join(ROOT, "scripts", "probe_overlap.py")])
-    assert len(files) >= len(MODULES) + 3
+    assert len(files) >= len(MODULES) + 9
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read())
