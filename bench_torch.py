@@ -13,8 +13,11 @@ and radius tables and every draw with the merger's gas mixing.
     BENCH_SMOKE=1 python bench_torch.py    # counts divided by 100
 
 One first run, then three warm runs; run k draws from a ``torch.Generator``
-on the device seeded with k.  A run ends when a small checksum of its
-output reaches the host, which waits for the device.  The first run builds
+on the device seeded with k.  On the card ``merger_ic_fused`` is a CUDA
+graph: the first run runs eagerly and captures it, the warm runs replay it
+(``"program": "cuda_graph"``; on the CPU ``"eager"``).  A run ends when a
+small checksum of its output reaches the host, which waits for the
+device.  The first run builds
 the CUDA kernel into ``build/kernels/`` when that cache is empty, so
 ``first_run_s`` then includes the ``nvcc`` build.  Without a card and
 without ``--device cpu`` the script raises the device error: it never
@@ -23,7 +26,8 @@ falls back to the CPU.
 Prints ONE JSON line on stdout (progress goes to stderr):
   {"metric", "value" (median warm seconds), "unit": "s",
    "vs_baseline" (5 s / value; > 1 is faster than the limit), "aot": false,
-   "first_run_s", "backend", "device", "peak_mem_gib", "k1_launches"}
+   "first_run_s", "backend", "device", "program", "peak_mem_gib",
+   "k1_launches"}
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ def main(argv=None) -> int:
         "first_run_s": first_s,
         "backend": dev.type,
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "program": "cuda_graph" if cuda else "eager",
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if cuda else None),
         "k1_launches": K.invert_cdf_rows.launches - launches,

@@ -113,9 +113,24 @@ Phases, in order; any failure exits non-zero before the last line:
     ``h5py`` imports the five ``examples_torch/`` scripts at
     ``CG_EXAMPLE_SCALE=1`` (``multichip_export`` as a world of one on
     NCCL) with the checks of the CPU tests, else one line saying why not;
-21. print one JSON line of kernel numbers;
-22. print the card's name and power limit, then the last line
+21. the three batch programs as captured CUDA graphs at full width
+    (bench2h-1e7, the cfg5c batch of 256, the cfg6 batch of 64): for each
+    the first call (eager warm-up, then the capture) and three replays
+    with parameters and seeds of their own against the eager body, bit
+    for bit, K1 twice per call; the merger again at a second ``z``; every
+    batch of a stream with a remainder batch (``datagen_batches``,
+    ``merger_scene_batches``) and of the catalogs' ``stream_to_host``
+    stage against its eager body after the later batches replayed; no
+    sync in a warm call; eager and graph warm wall, first call and
+    capture, host launches per warm call, peak memory and pool size;
+22. print one JSON line of kernel numbers;
+23. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
+
+Phases 4-6, 12, 15, 16, 18 and 20 run the batch programs as a user does:
+on the card each is a CUDA graph, captured at its first call and replayed
+after (``cluster_generator_tpu_torch/core/compiled.py``).  The memoized
+programs are dropped before phase 19, whose ranks need the card's memory.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -2283,11 +2298,12 @@ def run_cli(card):
         rc = cli.main(["datagen", "-n", "2", "--dm", "10", "--aot-dir", d,
                        "-o", os.path.join(d, "never.h5")])
         made = os.listdir(d)
-    check(rc == 2 and "eager" in err.getvalue() and not made,
+    check(rc == 2 and "captures" in err.getvalue() and not made,
           f"cli datagen --aot-dir: rc {rc}, {err.getvalue()!r}, {made}")
     print("cli info on the card:", " | ".join(text.strip().splitlines()),
           f"[{card}]")
-    print("cli datagen --aot-dir: exit 2 (refused: the port is eager)")
+    print("cli datagen --aot-dir: exit 2 (refused: the programs are "
+          "captured in the process)")
 
 
 def run_native_grid(cg, DS, card, dims=GRID_DIMS, chunk=GRID_CHUNK,
@@ -2490,6 +2506,7 @@ def md_steps(rank, world, out, sz):
     from cluster_generator_tpu_torch import particles as PA
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
+    from cluster_generator_tpu_torch.core import compiled as C
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
     from cluster_generator_tpu_torch.parallel import dryrun as DR
     from cluster_generator_tpu_torch.parallel import ensemble as E
@@ -2653,7 +2670,7 @@ def md_steps(rank, world, out, sz):
         M, c, counts, batch_size=B, num_points=sz["datagen_points"],
         seed=DATAGEN_SEED, mesh=me)))
     launches += n
-    whole = E._tree_map(lambda t: all_gather_rows(me, t.to_local()), out_d)
+    whole = C.tree_map(lambda t: all_gather_rows(me, t.to_local()), out_d)
     flat = E._flat_outputs(whole)[1]
     ref = os.path.join(out, "datagen_ref.pt")
     if world == 1:
@@ -2947,6 +2964,345 @@ def run_examples(card, root, dev="cuda", scale=1):
     print(f"examples_torch: the five examples passed on {dev} [{card}]")
 
 
+# ----------------------------------------------------------------- phase 21
+# the captured programs at full width: bench2h-1e7, datagen-cfg5c batch 256,
+# scenes-cfg6 batch 64; each replay has parameters and a seed of its own
+COMPILED = {
+    "merger": {"n": (N_GAS, N_DM, N_STAR), "points": 1000},
+    "datagen": {"batch": DATAGEN_BATCH, "points": DATAGEN_POINTS,
+                "counts": DATAGEN_COUNTS, "remainder": 64},
+    "scenes": {"batch": SCENE_BATCH, "points": SCENE_POINTS,
+               "counts": SCENE_COUNTS, "remainder": 16},
+    "replays": 3,
+}
+COMPILED_Z = 0.3            # the merger's second redshift
+COMPILED_SEED = 100         # replay k draws from seed COMPILED_SEED + k
+# the CUDA runtime calls that put work on a stream, as the profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def tree_diff(a, b, where="out"):
+    """max |a - b| over two output trees of one structure; 0 only where
+    every tensor is equal bit for bit (shapes and types too)."""
+    if isinstance(a, dict):
+        check(set(a) == set(b), f"{where}: keys {set(a) ^ set(b)}")
+        return max((tree_diff(a[k], b[k], f"{where}/{k}") for k in a),
+                   default=0.0)
+    if isinstance(a, (tuple, list)):
+        return max((tree_diff(x, y, f"{where}/{i}")
+                    for i, (x, y) in enumerate(zip(a, b))), default=0.0)
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{where}: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
+          f"{b.dtype}")
+    if torch.equal(a, b):
+        return 0.0
+    d = float((a.double() - b.double()).abs().nan_to_num(math.inf).max())
+    return d if d > 0 else math.inf   # NaN at the same place, or -0 vs 0
+
+
+def host_diff(host, want):
+    """max |host - want| of a staged numpy array and a tensor; 0 only
+    where they are equal bit for bit."""
+    w = want.cpu().numpy()
+    if host.shape == w.shape and host.dtype == w.dtype and (
+            host.tobytes() == w.tobytes()):
+        return 0.0
+    if host.shape != w.shape:
+        return math.inf
+    return float(abs(host.astype("f8") - w.astype("f8")).max()) or math.inf
+
+
+def host_launches(fn):
+    """The calls that put work on a stream (kernels, graphs, copies) the
+    host makes in ``fn()``, from the profiler's CUDA runtime events (0:
+    the profiler recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCHES)
+
+
+def program_of(C, name, before):
+    """The memoized program called ``name`` that ``before`` (a list of
+    programs) did not hold."""
+    new = [p for p in C.programs() if p.key[0][0] == name
+           and all(p is not q for q in before)]
+    check(len(new) == 1, f"{name}: {len(new)} new programs, want 1")
+    return new[0]
+
+
+def compare_program(C, K, label, name, graph, eager, n_cases, card):
+    """The common checks of phase 21 on one program: the first call (the
+    eager warm-up, then the capture) and ``n_cases - 1`` replays, each
+    against the eager body on the same inputs and seed, bit for bit, with
+    K1's launches counted per call; an earlier replay's outputs unchanged
+    after the later ones; the syncs of a warm call; eager and graph warm
+    wall, host launches, device busy and the peak memory a warm call adds.  ``graph(k)`` / ``eager(k)`` run
+    case k.  Returns the report."""
+    before = C.programs()
+    K.invert_cdf_rows.launches = 0
+    first, first_s = timed(lambda: graph(0))
+    first_k1 = K.invert_cdf_rows.launches
+    prog = program_of(C, name, before)
+    check(first_k1 == 2, f"{label}: first call launched K1 {first_k1} times")
+    rep = {"first_s": first_s, "capture_s": prog.capture_s, "k1": first_k1,
+           "pool_bytes": prog.pool_bytes, "static_bytes": prog.static_bytes,
+           "k1_nodes": sum(prog.nodes.values()),
+           "max_abs_diff": [tree_diff(first, eager(0), label)]}
+    check(prog.graph is not None and rep["k1_nodes"] == 2,
+          f"{label}: graph {prog.graph}, K1 nodes {prog.nodes}")
+    del first
+    held, snap = None, None
+    for k in range(1, n_cases):
+        K.invert_cdf_rows.launches = 0
+        out = graph(k)
+        sync()
+        check(K.invert_cdf_rows.launches == 2,
+              f"{label}: replay {k} launched K1 "
+              f"{K.invert_cdf_rows.launches} times")
+        rep["k1"] += K.invert_cdf_rows.launches
+        rep["max_abs_diff"].append(tree_diff(out, eager(k), label))
+        if held is None:
+            held, snap = out, C.tree_map(torch.clone, out)
+        del out
+    rep["held_after_replays"] = tree_diff(held, snap, label)
+    del held, snap
+    check(max(rep["max_abs_diff"]) == 0.0 and rep["held_after_replays"] == 0,
+          f"{label}: graph vs eager {rep['max_abs_diff']}, held "
+          f"{rep['held_after_replays']}")
+    rep["syncs_warm_call"] = count_syncs(lambda: graph(1))
+    check(rep["syncs_warm_call"] == {},
+          f"{label}: a warm call synchronized: {rep['syncs_warm_call']}")
+    for side, fn in (("eager", eager), ("graph", graph)):
+        walls = [timed(lambda: fn(1))[1] for _ in range(3)]
+        rep[f"{side}_warm_s"] = statistics.median(walls)
+        rep[f"{side}_host_launches"] = host_launches(lambda: fn(1))
+        _, kern, rep[f"{side}_busy_ms"] = kernel_profile(lambda: fn(1))
+        rep[f"{side}_kernels"] = len(kern)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        timed(lambda: fn(1))
+        rep[f"{side}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                   - base) / 2**30
+    print(f"{label}: first call {first_s:.3f} s (capture "
+          f"{prog.capture_s:.3f} s), warm eager {rep['eager_warm_s']:.4f} s "
+          f"/ graph {rep['graph_warm_s']:.4f} s, host launches per warm call "
+          f"{rep['eager_host_launches']} / {rep['graph_host_launches']}, "
+          f"device busy (profiled) {rep['eager_busy_ms']:.2f} / "
+          f"{rep['graph_busy_ms']:.2f} ms in {rep['eager_kernels']} / "
+          f"{rep['graph_kernels']} kernels, "
+          f"peak added by a warm call {rep['eager_peak_gib']:.2f} / "
+          f"{rep['graph_peak_gib']:.2f} GiB, pool growth at capture "
+          f"{prog.pool_bytes / 2**30:.2f} GiB, "
+          f"static buffers {prog.static_bytes / 2**30:.3f} GiB; "
+          f"max |graph - eager| over {n_cases} calls "
+          f"{max(rep['max_abs_diff'])}; K1 nodes {rep['k1_nodes']} [{card}]")
+    return rep
+
+
+def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
+    """Phase 21: the three batch programs of the main paths as captured
+    CUDA graphs at full width (bench2h-1e7, datagen-cfg5c batch 256,
+    scenes-cfg6 batch 64).  For each: the first call and ``replays``
+    replays with parameters and seeds of their own against the eager body,
+    bit for bit; the merger again at another ``z`` (a program of its own);
+    the batch streams (``datagen_batches``, ``merger_scene_batches``, with
+    a remainder batch, and the catalogs' ``stream_to_host`` stage), every
+    batch held or staged against its eager body after the later ones ran;
+    no sync in a warm call; K1's launches per call.  Returns K1's launches
+    by path."""
+    import numpy as np
+
+    from cluster_generator_tpu_torch.core import compiled as C
+
+    C.clear()
+    n_cases = sz["replays"] + 1
+    f64 = dict(dtype=torch.float64, device=dev)
+    reports, launches = {}, {}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # the merger IC: case k moves the masses, concentrations, centers,
+    # bulk velocities and r_max
+    n_gas, n_dm, n_star = sz["merger"]["n"]
+    statics = dict(n_gas=n_gas, n_dm=n_dm, n_star=n_star, n_tracer=None,
+                   num_points=sz["merger"]["points"], dtype=torch.float32,
+                   compute_potential=False, r_a=None, gravity="newtonian")
+
+    cases = [(torch.tensor([M200[0] * (1 + 0.2 * k),
+                            M200[1] * (1 - 0.1 * k)], **f64),
+              torch.tensor([CONC[0] + 0.5 * k, CONC[1] - 0.3 * k], **f64),
+              torch.tensor(CENTERS, **f64) * (1 + 0.1 * k),
+              torch.tensor(VELOCITIES, **f64) * (1 - 0.2 * k),
+              torch.tensor([R_MAX - 200.0 * k, R_MAX + 100.0 * k], **f64))
+             for k in range(n_cases)]
+
+    def merger_case(k):
+        return cases[k]
+
+    def merger_graph(k, z=0.1):
+        return P.merger_ic_fused(*merger_case(k), n_gas, n_dm, n_star,
+                                 num_points=statics["num_points"], z=z,
+                                 generator=gen(COMPILED_SEED + k),
+                                 device=dev)
+
+    def merger_eager(k, z=0.1):
+        u = P.merger_uniforms(gen(COMPILED_SEED + k), (), n_gas, n_dm, n_star,
+                              device=dev)
+        return P._merger_ic(*merger_case(k), u, z=z, **statics)
+
+    reports["merger"] = compare_program(
+        C, K, f"compiled merger IC ({sum(map(sum, sz['merger']['n']))} "
+        "particles)", "merger_ic_fused", merger_graph, merger_eager, n_cases,
+        card)
+    launches["compiled_merger"] = reports["merger"]["k1"]
+    # z is baked into the program: another z is another program, compared
+    # on its first call and on a replay
+    before = C.programs()
+    K.invert_cdf_rows.launches = 0
+    z_first = merger_graph(1, COMPILED_Z)
+    z_replay = merger_graph(2, COMPILED_Z)
+    launches["compiled_merger"] += K.invert_cdf_rows.launches
+    program_of(C, "merger_ic_fused", before)
+    z_diffs = [tree_diff(z_first, merger_eager(1, COMPILED_Z), "z first")]
+    z_diffs.append(tree_diff(z_replay, merger_eager(2, COMPILED_Z),
+                             "z replay"))
+    z_moved = tree_diff(z_first, merger_graph(1), "z moved")
+    print(f"compiled merger IC at z = {COMPILED_Z}: a program of its own; "
+          f"max |graph - eager| {z_diffs} (first, replay); max |z={COMPILED_Z}"
+          f" - z=0.1| {z_moved:.3g} [{card}]")
+    check(max(z_diffs) == 0.0 and z_moved > 0, f"z: {z_diffs}, {z_moved}")
+    reports["merger"]["z_max_abs_diff"] = z_diffs
+    del z_first, z_replay
+
+    # the datagen batch: case k is batch k of an ensemble
+    d = sz["datagen"]
+    B = d["batch"]
+    prog = E._datagen_full_batch_fn(d["points"], d["counts"]["dm"],
+                                    d["counts"]["gas"], d["counts"]["star"])
+    M, c = E.sample_ensemble_params(gen(DATAGEN_SEED), n_cases * B,
+                                    device=dev)
+
+    def datagen_graph(k):
+        sl = slice(k * B, (k + 1) * B)
+        return prog(M[sl], c[sl], gen(COMPILED_SEED + k))
+
+    def datagen_eager(k, rows=None, g=None):
+        sl = rows or slice(k * B, (k + 1) * B)
+        n = M[sl].shape[0]
+        g = g or gen(COMPILED_SEED + k)
+        return prog.run(M[sl], c[sl], None, prog.uniforms(n, g, M.device))
+
+    reports["datagen"] = compare_program(
+        C, K, f"compiled datagen batch ({B} x {sum(d['counts'].values())})",
+        "datagen", datagen_graph, datagen_eager, n_cases, card)
+    launches["compiled_datagen"] = reports["datagen"]["k1"]
+
+    # the stream: batch k held while batches k+1... replay, a remainder
+    n_stream = 2 * B + d["remainder"]
+    before = C.programs()
+    K.invert_cdf_rows.launches = 0
+    outs = list(E.datagen_batches(M[:n_stream], c[:n_stream], d["counts"],
+                                  batch_size=B, num_points=d["points"],
+                                  seed=DATAGEN_SEED, device=dev))
+    launches["compiled_datagen"] += K.invert_cdf_rows.launches
+    program_of(C, "datagen", before)   # the remainder's
+    def stream_want(b0):
+        return datagen_eager(None, slice(b0, min(b0 + B, n_stream)),
+                             E._batch_generator(DATAGEN_SEED, b0, M.device))
+
+    diffs = [tree_diff(out, stream_want(b0)) for b0, out in outs]
+    del outs
+    K.invert_cdf_rows.launches = 0
+    hosts = [(b0, C.tree_map(np.copy, host)) for b0, host in
+             E._catalog_batches(M[:n_stream], c[:n_stream], prog, B,
+                                DATAGEN_SEED, list(range(0, n_stream, B)))]
+    launches["compiled_datagen"] += K.invert_cdf_rows.launches
+    staged = []
+    for b0, host in hosts:
+        want = stream_want(b0)
+        staged.append(max(host_diff(h, w) for sp in want
+                          for h, w in zip(host[sp], want[sp])))
+    del hosts
+    print(f"compiled datagen stream ({n_stream} clusters, batches of {B}, "
+          f"a remainder of {d['remainder']} with a program of its own): max "
+          f"|held - eager| per batch {diffs}; through stream_to_host "
+          f"{staged} [{card}]")
+    check(max(diffs) == 0.0 and max(staged) == 0.0,
+          f"datagen stream: {diffs} {staged}")
+    reports["datagen"]["stream_max_abs_diff"] = diffs
+    reports["datagen"]["staged_max_abs_diff"] = staged
+    del prog
+
+    # the scene batch: case k is batch k of an ensemble of scenes
+    s = sz["scenes"]
+    B = s["batch"]
+    params = MG.sample_merger_scene_params(gen(SCENE_SEED), n_cases * B,
+                                           device=dev)
+    Ms, cs, ctr, vel = MG._scene_inputs(params, torch.device(dev))
+    counts = MG._normalize_counts(s["counts"], Ms.shape[1])
+    bf = MG._merger_batch_fn(s["points"], counts["gas"], counts["dm"],
+                             counts["star"], device=dev)
+    r_max = torch.full((Ms.shape[1],), R_MAX, **f64)
+
+    def rows(sl):
+        return Ms[sl], cs[sl], ctr[sl], vel[sl], r_max
+
+    def scenes_graph(k):
+        return bf(*rows(slice(k * B, (k + 1) * B)), gen(COMPILED_SEED + k))
+
+    def scenes_eager(k, sl=None, g=None):
+        sl = sl or slice(k * B, (k + 1) * B)
+        g = g or gen(COMPILED_SEED + k)
+        return bf.run(*rows(sl), None,
+                      bf.uniforms(Ms[sl].shape[0], g, Ms.device))
+
+    reports["scenes"] = compare_program(
+        C, K, f"compiled scene batch ({B} x "
+        f"{sum(sum(v) for v in s['counts'].values())})", "scene_batch",
+        scenes_graph, scenes_eager, n_cases, card)
+    launches["compiled_scenes"] = reports["scenes"]["k1"]
+    n_stream = 2 * B + s["remainder"]
+    K.invert_cdf_rows.launches = 0
+    outs = list(MG.merger_scene_batches(
+        {k: v[:n_stream] for k, v in params.items()}, s["counts"],
+        batch_size=B, num_points=s["points"], r_max=R_MAX, seed=SCENE_SEED,
+        device=dev))
+    launches["compiled_scenes"] += K.invert_cdf_rows.launches
+
+    def scene_want(b0):
+        return scenes_eager(None, slice(b0, min(b0 + B, n_stream)),
+                            E._batch_generator(SCENE_SEED, b0, Ms.device))
+
+    diffs = [tree_diff(out, scene_want(b0)) for b0, out in outs]
+    del outs
+    K.invert_cdf_rows.launches = 0
+    hosts = [(b0, C.tree_map(np.copy, host)) for b0, host in
+             MG._scene_batches(bf, *rows(slice(0, n_stream)), B,
+                               SCENE_SEED, list(range(0, n_stream, B)))]
+    launches["compiled_scenes"] += K.invert_cdf_rows.launches
+    staged = [max(host_diff(host[k], w) for k, w in scene_want(b0).items())
+              for b0, host in hosts]
+    del hosts
+    print(f"compiled scene stream ({n_stream} scenes, batches of {B}, a "
+          f"remainder of {s['remainder']}): max |held - eager| per batch "
+          f"{diffs}; through stream_to_host {staged} [{card}]")
+    check(max(diffs) == 0.0 and max(staged) == 0.0,
+          f"scene stream: {diffs} {staged}")
+    reports["scenes"]["stream_max_abs_diff"] = diffs
+    reports["scenes"]["staged_max_abs_diff"] = staged
+    print("compiled programs:", json.dumps(reports, default=str))
+    C.clear()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2956,6 +3312,7 @@ def main() -> int:
     from cluster_generator_tpu_torch import fields as F
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
+    from cluster_generator_tpu_torch.core import compiled as C
     from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
     from cluster_generator_tpu_torch.parallel import ensemble as E
@@ -3054,11 +3411,13 @@ def main() -> int:
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 
+    C.clear()   # the ranks need the card's memory
     launches.update(run_multidevice(card))
 
     root = os.path.dirname(os.path.abspath(__file__))
     launches["bench"] = run_bench(card, root)
     run_examples(card, root)
+    launches.update(run_compiled(P, E, MG, K, card))
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

@@ -48,20 +48,23 @@ def _add_device(p):
 
 def _refuse_aot(args):
     """The JAX CLI's ahead-of-time program cache has no counterpart here:
-    the port's batch programs are eager PyTorch, with nothing to compile
-    ahead.  Usage error (2) rather than a silently ignored flag."""
+    the port captures its batch programs as CUDA graphs in the process
+    (eager on the CPU), and a CUDA graph cannot be saved for another
+    process.  Usage error (2) rather than a silently ignored flag."""
     if args.aot_dir is None and not args.prime_aot:
         return False
-    print("--aot-dir/--prime-aot: the PyTorch port runs its batch programs "
-          "eagerly and has no ahead-of-time compiled programs to load or "
-          "prime; drop the flag", file=sys.stderr)
+    print("--aot-dir/--prime-aot: the PyTorch port captures its batch "
+          "programs as CUDA graphs in the process at their first call "
+          "(on the CPU they run eagerly); a CUDA graph cannot be saved for "
+          "another process, so there is nothing to load or prime; drop the "
+          "flag", file=sys.stderr)
     return True
 
 
 def _add_aot(p):
     p.add_argument("--aot-dir", default=None,
                    help="not supported by the PyTorch port (its programs "
-                   "are eager): exits 2")
+                   "are captured in the process): exits 2")
     p.add_argument("--prime-aot", action="store_true",
                    help="not supported by the PyTorch port: exits 2")
 

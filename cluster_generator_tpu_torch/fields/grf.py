@@ -16,7 +16,8 @@ standard-normal tensor in the field's dtype, or takes it pre-drawn
   scale sqrt(sum_h g_h(r)^2), then the projection and the vector potential
   as staged transforms.
 
-Field components are tensors on the field's device.
+Field components are tensors on the field's device.  The fields run
+eagerly on the card (no captured program).
 """
 
 from __future__ import annotations

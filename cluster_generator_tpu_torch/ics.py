@@ -128,7 +128,8 @@ def draw_halo_particles(model, counts, r_max, r_max_tracer=None,
 class ClusterICs:
     """A scene of one to three halos, each a model HDF5 file with a center
     and a bulk velocity.  ``device``: where models and particles live (the
-    card unless ``"cpu"`` is asked for)."""
+    card unless ``"cpu"`` is asked for).  It runs eagerly on the card (no
+    captured program)."""
 
     def __init__(self, basename, num_halos, profiles, center, velocity,
                  num_particles=None, mag_file=None, particle_files=None,

@@ -41,7 +41,9 @@ class ClusterModel:
     """A single galaxy-cluster equilibrium model on a log-radius grid.
 
     ``device``: where the fields live.  ``None`` takes the device of the
-    first tensor among ``fields``, and the card when there is none."""
+    first tensor among ``fields``, and the card when there is none.  Its
+    methods run eagerly on the card, op by op (no captured program, unlike
+    the batch programs of :mod:`..core.compiled`)."""
 
     default_fields = [
         "density", "temperature", "pressure", "total_density",

@@ -6,6 +6,13 @@ hand-written kernel ``csrc/invert_cdf_rows.cu`` (one launch for all rows
 given); on a CPU tensor it runs :func:`invert_cdf_rows_plain`, the same
 masked-sum formula written literally in torch.  The source note in the
 ``.cu`` file gives the kernel's design and bound.
+
+The launch goes on PyTorch's current stream, so inside a captured batch
+program (:mod:`..core.compiled`) it is recorded into the graph; the
+launcher's one-time set-up (device attributes, the shared-memory opt-in,
+the occupancy per shared-memory size) is done by the program's eager
+warm-up before the capture.  ``invert_cdf_rows.launches`` counts the
+launches the card runs: a replay adds the K1 nodes of its graph.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..core.compiled import count_launch
 
 __all__ = ["invert_cdf_rows", "invert_cdf_rows_plain", "MAX_N_S"]
 
@@ -118,7 +127,7 @@ def _launch(cdf: torch.Tensor, n_q: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"invert_cdf_rows kernel launch failed: "
                            f"cudaError_t {err}")
-    invert_cdf_rows.launches += 1
+    count_launch(invert_cdf_rows)
     return out
 
 
@@ -128,7 +137,8 @@ def invert_cdf_rows(cdf: torch.Tensor, n_q: int = 512) -> torch.Tensor:
     ``m / (n_q - 1)``.
 
     A CUDA tensor goes through the CUDA kernel (``invert_cdf_rows.launches``
-    counts its launches); a CPU tensor through :func:`invert_cdf_rows_plain`.
+    counts its launches on the card, a graph's on each replay); a CPU
+    tensor through :func:`invert_cdf_rows_plain`.
     Any other device raises.
     """
     _check(cdf, n_q)

@@ -8,7 +8,9 @@ its HDF5 catalogs.
   batch, as tensors on the device.  One batch is one call of the program
   :func:`_datagen_full_batch_fn` returns: models, DFs, speed tables (kernel
   K1, one launch per species and batch), joint tables and draws, each a
-  function of whole-batch tensors.
+  function of whole-batch tensors.  The factories are memoized by
+  configuration, and on the card each batch size is one CUDA graph,
+  captured at its first call and replayed (:mod:`..core.compiled`).
 * The catalogs: :func:`ensemble_datagen` (and its multi-process form)
   streams the same batches to one HDF5 file, crash-resumable; its device
   stage (:func:`_catalog_batches`: the batch program, then the copy to
@@ -23,14 +25,18 @@ its HDF5 catalogs.
   computes its ``ens`` rows of every batch the ``ens`` size divides, from
   the batch's uniforms drawn whole and sliced, so that the draws do not
   depend on the world size; a short batch is computed whole.  The writers
-  gather each batch onto the writing rank.
+  gather each batch onto the writing rank.  The mesh forms run the batch
+  program's eager body (no graph).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..core import compiled
 from ..core.device import host_to_device, resolve_device
 from ..core.draws import (collisionless_uniforms, gas_uniforms, isotropic,
                           uniform)
@@ -46,7 +52,7 @@ from ..profiles.solvers import (find_overdensity_radius, find_radius_mass,
                                 mass_within)
 from ..virial import (build_joint_speed_pairs, compute_df, om_extended_df,
                       sample_speeds_joint, speed_inverse_cdf_table,
-                      speed_table_defaults)
+                      speed_table_defaults, speed_table_key)
 from .mesh import (all_gather_rows, ens_rows, mesh_device, replicated,
                    sharded)
 from .qa import QA_TOLERANCES as _QA
@@ -58,9 +64,11 @@ __all__ = ["build_one_cluster", "build_ensemble", "sample_ensemble_params",
 
 
 def _f64(x, device):
+    """``x`` as float64 on ``device``; a host value through pinned memory
+    (:func:`~..core.device.host_to_device`), so the copy makes no sync."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float64)
-    return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
+    return host_to_device(np.asarray(x, dtype=np.float64), device)
 
 
 def build_one_cluster(M200, conc, z=0.1, f_g=None, rmin=0.1, rmax=10000.0,
@@ -159,10 +167,13 @@ class _DatagenProgram:
       evaluated at the DRAWN radius on the model's log grid.  Gas is at
       rest in hydrostatic equilibrium; no velocity is made.
 
-    The stages are methods so that each can be timed alone; calling the
-    object runs them all.  The ``star_*`` resolutions are coarser than the
-    DM ones: the tables are per-cluster work and stars draw ~10x fewer
-    particles.
+    The stages are methods so that each can be timed alone; :meth:`run`
+    runs them all eagerly.  Calling the object runs the batch as the
+    memoized program of this configuration and the batch's size
+    (:mod:`..core.compiled`: a CUDA graph on the card, :meth:`run` on the
+    CPU), its uniforms drawn from the generator before the graph replays.
+    The ``star_*`` resolutions are coarser than the DM ones: the tables
+    are per-cluster work and stars draw ~10x fewer particles.
     """
 
     def __init__(self, num_points, n_dm, n_gas, n_star, n_rows=128, rq=2048,
@@ -173,6 +184,11 @@ class _DatagenProgram:
                        "gas": int(n_gas)}
         self.r_a = None if r_a is None else float(r_a)
         self.gravity = str(gravity)
+        # every value the program bakes in: its memo key
+        self.key = ("datagen", self.num_points, int(n_dm), int(n_gas),
+                    int(n_star), int(n_rows), int(rq), int(star_n_rows),
+                    int(star_rq), int(star_n_s), int(star_n_q), self.r_a,
+                    self.gravity, speed_table_key())
         kw = speed_table_defaults()
         # per collisionless species: density and mass fields, table rows,
         # radius-quantile nodes, speed-table arguments
@@ -352,26 +368,38 @@ class _DatagenProgram:
                                    generator, uniforms.get("gas"))
         return out
 
-    def uniforms(self, B, generator, device):
+    def uniforms(self, B, generator, device, out=None):
         """Every uniform a batch of ``B`` takes from ``generator``, drawn
         in the order :meth:`draws` draws them, each (B, n): ``draws`` with
         these equals ``draws`` with the generator, bit for bit, and a slice
-        of rows gives those clusters' draws."""
+        of rows gives those clusters' draws.  ``out``: the same dict, filled
+        in place and returned."""
         f32 = torch.float32
-        out = {sp: collisionless_uniforms(generator, (B, self.counts[sp]),
-                                          f32, device)
+        out = out or {}
+        res = {sp: collisionless_uniforms(generator, (B, self.counts[sp]),
+                                          f32, device, out=out.get(sp))
                for sp in self._active()}
         if self.counts["gas"]:
-            out["gas"] = gas_uniforms(generator, (B, self.counts["gas"]), f32,
-                                      device)
-        return out
+            res["gas"] = gas_uniforms(generator, (B, self.counts["gas"]),
+                                      f32, device, out=out.get("gas"))
+        return res
 
-    def __call__(self, M200, conc, generator=None, uniforms=None):
+    def run(self, M200, conc, generator=None, uniforms=None):
+        """The batch, eagerly: the program's body."""
         if generator is None and uniforms is None:
             generator = torch.Generator(device=M200.device).manual_seed(0)
         f = self.models(M200, conc)
         tabs = self.speed_tables(f, self.dfs(f))
         return self.draws(f, self.draw_tables(f, tabs), generator, uniforms)
+
+    def _body(self, M200, conc, uniforms):
+        return self.run(M200, conc, None, uniforms)
+
+    def __call__(self, M200, conc, generator=None, uniforms=None):
+        dev, B = M200.device, int(M200.shape[0])
+        draw = compiled.drawer(uniforms, generator, dev, lambda gen, out: (
+            self.uniforms(B, gen, dev, out=out)))
+        return compiled.run(self.key, self._body, (M200, conc), draw)
 
 
 def _datagen_full_batch_fn(num_points, n_dm, n_gas, n_star, n_rows=128,
@@ -380,7 +408,21 @@ def _datagen_full_batch_fn(num_points, n_dm, n_gas, n_star, n_rows=128,
                            gravity="newtonian"):
     """The full-species datagen program, the ONE datagen core:
     ``batch(M200, conc, generator=None, uniforms=None)`` on float64 (B,)
-    tensors (see :class:`_DatagenProgram`)."""
+    tensors (see :class:`_DatagenProgram`).  Memoized on every value it
+    bakes in, the ``cgparams['numerical']`` table knobs included, as the
+    JAX package's factory is."""
+    return _datagen_full_batch_cached(
+        int(num_points), int(n_dm), int(n_gas), int(n_star), int(n_rows),
+        int(rq), int(star_n_rows), int(star_rq), int(star_n_s),
+        int(star_n_q), None if r_a is None else float(r_a), str(gravity),
+        speed_table_key())
+
+
+@functools.lru_cache(maxsize=32)
+def _datagen_full_batch_cached(num_points, n_dm, n_gas, n_star, n_rows, rq,
+                               star_n_rows, star_rq, star_n_s, star_n_q, r_a,
+                               gravity, table_key):
+    del table_key  # in the memo key only: __init__ reads the knobs
     return _DatagenProgram(num_points, n_dm, n_gas, n_star, n_rows, rq,
                            star_n_rows, star_rq, star_n_s, star_n_q, r_a,
                            gravity)
@@ -389,13 +431,27 @@ def _datagen_full_batch_fn(num_points, n_dm, n_gas, n_star, n_rows=128,
 def _datagen_batch_fn(num_points, n_part, n_rows=128, rq=2048, r_a=None,
                       gravity="newtonian"):
     """The DM-only program: the full-species core with gas = star = 0,
-    returning the bare ``(pos, vel, pmass)``."""
+    returning the bare ``(pos, vel, pmass)``; memoized like
+    :func:`_datagen_full_batch_fn`."""
+    return _datagen_batch_cached(int(num_points), int(n_part), int(n_rows),
+                                 int(rq), None if r_a is None else float(r_a),
+                                 str(gravity), speed_table_key())
+
+
+@functools.lru_cache(maxsize=32)
+def _datagen_batch_cached(num_points, n_part, n_rows, rq, r_a, gravity,
+                          table_key):
+    del table_key  # in the memo key only
     full = _datagen_full_batch_fn(num_points, n_part, 0, 0, n_rows, rq,
                                   r_a=r_a, gravity=gravity)
 
     def batch(M200, conc, generator=None, uniforms=None):
         return full(M200, conc, generator, uniforms)["dm"]
 
+    def run(M200, conc, generator=None, uniforms=None):
+        return full.run(M200, conc, generator, uniforms)["dm"]
+
+    batch.run = run
     batch.uniforms = full.uniforms
     return batch
 
@@ -464,16 +520,6 @@ def _batch_generator(seed, b0, device):
     return torch.Generator(device=device).manual_seed(mixed)
 
 
-def _tree_map(fn, tree):
-    """``fn`` on every tensor of a batch output (a tensor, or tuples and
-    dicts of them)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _mesh_call(batch_fn, mesh, row_args, rest, generator):
     """A batch program on this rank's ``ens`` rows of one batch:
     ``(out, rows)``.  ``row_args`` are the per-row inputs, ``rest`` the
@@ -481,30 +527,33 @@ def _mesh_call(batch_fn, mesh, row_args, rest, generator):
     (``batch_fn.uniforms``) and keeps its rows, so every rank's draws are
     those of the whole batch.  ``rows`` is ``(lo, hi)``, or ``None`` when
     the batch ran whole: no mesh, or a batch the ``ens`` size does not
-    divide."""
-    B = int(row_args[0].shape[0])
-    rows = None if mesh is None else ens_rows(mesh, B)
-    if rows is None:
+    divide.  Without a mesh the batch runs as the memoized program; with
+    one, eagerly (``batch_fn.run``)."""
+    if mesh is None:
         return batch_fn(*row_args, *rest, generator), None
+    B = int(row_args[0].shape[0])
+    rows = ens_rows(mesh, B)
+    if rows is None:
+        return batch_fn.run(*row_args, *rest, generator), None
     lo, hi = rows
-    u = _tree_map(lambda t: t[lo:hi],
+    u = compiled.tree_map(lambda t: t[lo:hi],
                   batch_fn.uniforms(B, generator, row_args[0].device))
-    return batch_fn(*(a[lo:hi] for a in row_args), *rest, None, u), rows
+    return batch_fn.run(*(a[lo:hi] for a in row_args), *rest, None, u), rows
 
 
 def _as_dtensors(mesh, out, rows, B):
     """A batch output as DTensors: sharded over ``ens`` when each rank ran
     its rows, replicated when the batch ran whole."""
     if rows is None:
-        return _tree_map(lambda t: replicated(mesh, t), out)
-    return _tree_map(lambda t: sharded(mesh, t, "ens", B), out)
+        return compiled.tree_map(lambda t: replicated(mesh, t), out)
+    return compiled.tree_map(lambda t: sharded(mesh, t, "ens", B), out)
 
 
 def _gathered(mesh, out, rows):
     """A batch output whole on every rank of the ``ens`` group."""
     if rows is None:
         return out
-    return _tree_map(lambda t: all_gather_rows(mesh, t), out)
+    return compiled.tree_map(lambda t: all_gather_rows(mesh, t), out)
 
 
 def datagen_batches(M200, conc, n_particles_per_cluster, batch_size=256,

@@ -9,9 +9,12 @@ for every halo of the batch at once; the draws of
 scene's gas mixes its own halos only.  The batch axis takes the place of
 the JAX package's ``vmap``: each scene's result is what
 :func:`~..pipeline.merger_ic_fused` gives for that scene with the same
-uniforms.  :func:`merger_scene_batches` streams an ensemble batch by batch
-as tensors on the device; :func:`verify_scene_batch` holds a batch to the
-physics QA of the merger catalog.
+uniforms.  The factory is memoized by configuration, and on the card each
+batch size is one CUDA graph, captured at its first call and replayed
+(:mod:`..core.compiled`); the mesh forms run the eager body.
+:func:`merger_scene_batches` streams an ensemble batch by batch as tensors
+on the device; :func:`verify_scene_batch` holds a batch to the physics QA
+of the merger catalog.
 
 The catalogs: :func:`merger_datagen` (and its multi-process form) streams
 the scene batches to one HDF5 file on the loop of
@@ -24,16 +27,19 @@ read them back.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 
 import numpy as np
 import torch
 
+from ..core import compiled
 from ..core.device import resolve_device
 from ..core.draws import uniform
 from ..core.interp import interp
 from ..core.staging import stream_to_host
 from ..model.gravity import get_gravity
+from ..virial import speed_table_key
 from ..pipeline import (build_merger_models, build_radius_tables,
                         build_speed_tables, merger_uniforms, sample_merger_ic)
 from .ensemble import (_PORT_DRAWS, _SPECIES_MASS, _batch_generator,
@@ -295,7 +301,11 @@ class _SceneBatch:
 
     (a species with no particles is absent).  ``uniforms`` as in
     :func:`~..pipeline.sample_merger_ic`, each (B, n).  The stages are
-    methods so that each can be timed alone."""
+    methods so that each can be timed alone; :meth:`run` runs them all
+    eagerly.  Calling the object runs the batch as the memoized program of
+    this configuration and the batch's size (:mod:`..core.compiled`: a
+    CUDA graph on the card, :meth:`run` on the CPU), its uniforms drawn
+    from the generator before the graph replays."""
 
     def __init__(self, num_points, n_gas, n_dm, n_star, r_a=None,
                  gravity="newtonian", device="cuda"):
@@ -308,6 +318,10 @@ class _SceneBatch:
         self.gravity = str(gravity)
         self.device = resolve_device(device)
         self.seg = {sp: _segment_offsets(ns) for sp, ns in self.counts.items()}
+        # every value the program bakes in: its memo key
+        self.key = ("scene_batch", self.num_points, self.counts["gas"],
+                    self.counts["dm"], self.counts["star"], self.r_a,
+                    self.gravity, speed_table_key())
 
     def models(self, M200, conc):
         """Fields and DFs of all B*H halos, flattened to (B*H, ...)."""
@@ -357,31 +371,62 @@ class _SceneBatch:
                  for o in self.seg[sp]], dim=-1)
         return out
 
-    def uniforms(self, B, generator, device):
+    def uniforms(self, B, generator, device, out=None):
         """Every uniform a batch of ``B`` scenes takes from ``generator``,
-        in the draws' order (:func:`~..pipeline.merger_uniforms`)."""
+        in the draws' order (:func:`~..pipeline.merger_uniforms`; ``out``
+        filled in place)."""
         return merger_uniforms(generator, (B,), self.counts["gas"],
                                self.counts["dm"], self.counts["star"],
-                               device=device)
+                               device=device, out=out)
 
-    def __call__(self, M200, conc, centers, velocities, r_max,
-                 generator=None, uniforms=None):
+    def _inputs(self, M200, conc, centers, velocities, r_max):
         dev = self.device
-        M200, conc = _f64(M200, dev), _f64(conc, dev)
-        centers, velocities = _f64(centers, dev), _f64(velocities, dev)
-        r_max = _f64(r_max, dev).reshape(-1)
+        return (_f64(M200, dev), _f64(conc, dev), _f64(centers, dev),
+                _f64(velocities, dev), _f64(r_max, dev).reshape(-1))
+
+    def run(self, M200, conc, centers, velocities, r_max, generator=None,
+            uniforms=None):
+        """The batch, eagerly: the program's body."""
+        M200, conc, centers, velocities, r_max = self._inputs(
+            M200, conc, centers, velocities, r_max)
         if generator is None and uniforms is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = torch.Generator(device=self.device).manual_seed(0)
         fields = self.models(M200, conc)
         tables = self.tables(fields, r_max)
         return self.draws(fields, tables, M200, centers, velocities, r_max,
                           generator, uniforms)
 
+    def _body(self, M200, conc, centers, velocities, r_max, uniforms):
+        return self.run(M200, conc, centers, velocities, r_max, None,
+                        uniforms)
+
+    def __call__(self, M200, conc, centers, velocities, r_max,
+                 generator=None, uniforms=None):
+        inputs = self._inputs(M200, conc, centers, velocities, r_max)
+        B = int(inputs[0].shape[0])
+        draw = compiled.drawer(uniforms, generator, self.device,
+                               lambda gen, out: self.uniforms(
+                                   B, gen, self.device, out=out))
+        return compiled.run(self.key, self._body, inputs, draw)
+
 
 def _merger_batch_fn(num_points, n_gas, n_dm, n_star, r_a=None,
                      gravity="newtonian", device="cuda"):
     """The scene-batch program for one configuration (see
-    :class:`_SceneBatch`); ``n_*`` are per-halo counts."""
+    :class:`_SceneBatch`); ``n_*`` are per-halo counts.  Memoized on every
+    value it bakes in, the ``cgparams['numerical']`` table knobs included,
+    as the JAX package's factory is."""
+    _check_r_a(r_a)
+    return _merger_batch_cached(
+        int(num_points), tuple(map(int, n_gas)), tuple(map(int, n_dm)),
+        tuple(map(int, n_star)), None if r_a is None else float(r_a),
+        str(gravity), resolve_device(device), speed_table_key())
+
+
+@functools.lru_cache(maxsize=16)
+def _merger_batch_cached(num_points, n_gas, n_dm, n_star, r_a, gravity,
+                         device, table_key):
+    del table_key  # in the memo key only: the draws read the knobs
     return _SceneBatch(num_points, n_gas, n_dm, n_star, r_a=r_a,
                        gravity=gravity, device=device)
 

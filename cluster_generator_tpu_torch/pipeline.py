@@ -10,9 +10,12 @@ Four stages, each a function of tensors on one device:
 4. :func:`sample_merger_ic` — the particle draws (float32) and the
    density-weighted gas mixing.
 
-:func:`merger_ic_fused` runs all four; :func:`binary_merger_ic` adds the
-mass-prorated particle counts.  Entry points run on the card unless called
-with ``device="cpu"``.  Draws take a ``torch.Generator``; each draw
+:func:`merger_ic_fused` runs all four as one program: on the card a CUDA
+graph, captured once per configuration and memoized
+(:mod:`.core.compiled`), on the CPU its eager body.
+:func:`binary_merger_ic` adds the mass-prorated particle counts (eager:
+its counts come from the models).  Entry points run on the card unless
+called with ``device="cpu"``.  Draws take a ``torch.Generator``; each draw
 function also accepts pre-drawn uniforms (``uniforms``), the values a
 caller wants at each random site, so that draws can be compared with
 another generator's.
@@ -25,13 +28,15 @@ import math
 import numpy as np
 import torch
 
-from .core.device import resolve_device
+from .core import compiled
+from .core.device import host_to_device, resolve_device
 from .core.draws import collisionless_uniforms, gas_uniforms, isotropic
 from .core.grid import linspace
 from .core.interp import _gather, interp, interp_monotone
 from .parallel.ensemble import build_one_cluster
 from .virial import (_banded_row_lerp, compute_df, om_extended_df,
-                     speed_inverse_cdf_table, speed_table_defaults)
+                     speed_inverse_cdf_table, speed_table_defaults,
+                     speed_table_key)
 
 __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
            "build_radius_tables", "merger_uniforms", "sample_merger_ic",
@@ -42,9 +47,11 @@ _RQ = 2048  # radius quantile-table resolution
 
 
 def _f64(x, device):
-    return torch.as_tensor(np.asarray(x, dtype=np.float64)
-                           if not isinstance(x, torch.Tensor) else x,
-                           dtype=torch.float64, device=device)
+    """``x`` as float64 on ``device``; a host value through pinned memory
+    (:func:`~.core.device.host_to_device`), so the copy makes no sync."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float64)
+    return host_to_device(np.asarray(x, dtype=np.float64), device)
 
 
 def build_merger_models(M200, conc, z=0.1, num_points=1000,
@@ -312,24 +319,30 @@ def _potential_at(pos, fields, centers, dtype):
     return total
 
 
-def merger_uniforms(generator, batch_shape, n_gas, n_dm, n_star,
-                    n_tracer=None, dtype=torch.float32, device="cuda"):
-    """Every uniform :func:`sample_merger_ic` takes from ``generator``,
-    drawn in its order (halo by halo: gas, dm, star, tracer) and keyed as
-    its ``uniforms`` argument, each ``batch_shape + (n,)``: the draws with
-    these equal the draws with the generator, bit for bit."""
+def _merger_sites(n_gas, n_dm, n_star, n_tracer=None):
+    """The random sites of :func:`sample_merger_ic` in its order (halo by
+    halo: gas, dm, star, tracer): ``[((kind, halo), n, draw function)]``."""
     H = len(n_gas)
     sites = (("gas", n_gas, gas_uniforms),
              ("dm", n_dm, collisionless_uniforms),
              ("star", n_star, collisionless_uniforms),
              ("tracer", n_tracer or (0,) * H, gas_uniforms))
-    out = {}
-    for i in range(H):
-        for kind, n, draw in sites:
-            if n[i] > 0:
-                out[kind, i] = draw(generator, tuple(batch_shape) + (n[i],),
-                                    dtype, device)
-    return out
+    return [((kind, i), n[i], draw) for i in range(H)
+            for kind, n, draw in sites if n[i] > 0]
+
+
+def merger_uniforms(generator, batch_shape, n_gas, n_dm, n_star,
+                    n_tracer=None, dtype=torch.float32, device="cuda",
+                    out=None):
+    """Every uniform :func:`sample_merger_ic` takes from ``generator``,
+    drawn in its order (halo by halo: gas, dm, star, tracer) and keyed as
+    its ``uniforms`` argument, each ``batch_shape + (n,)``: the draws with
+    these equal the draws with the generator, bit for bit.  ``out``: a
+    dict of the same keys, filled in place and returned."""
+    return {site: draw(generator, tuple(batch_shape) + (n,), dtype, device,
+                       out=None if out is None else out[site])
+            for site, n, draw in _merger_sites(n_gas, n_dm, n_star,
+                                               n_tracer)}
 
 
 def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
@@ -434,7 +447,8 @@ def sample_merger_ic_sharded(mesh, fields, tables, centers, velocities,
     (:func:`~.parallel.mesh.fold_in`); ranks that differ only in the other
     mesh dim draw the same shard.  Every output is a DTensor sharded over
     ``axis``.  ``uniforms`` (optional): this rank's pre-drawn uniforms, as
-    in :func:`sample_merger_ic`.  Counts must divide the axis size."""
+    in :func:`sample_merger_ic`.  Counts must divide the axis size.  It
+    runs eagerly (no captured program)."""
     from .parallel.mesh import fold_in, sharded
 
     n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
@@ -460,6 +474,24 @@ def sample_merger_ic_sharded(mesh, fields, tables, centers, velocities,
             for k, v in local.items()}
 
 
+def _merger_ic(M200, conc, centers, velocities, r_max, uniforms, *, n_gas,
+               n_dm, n_star, n_tracer, z, num_points, dtype,
+               compute_potential, r_a, gravity):
+    """The body of :func:`merger_ic_fused`'s program: the four stages on
+    float64 tensors of one device (``M200``/``conc``/``r_max`` (H,),
+    ``centers``/``velocities`` (H, 3)) with every uniform given."""
+    fields = build_merger_models(M200, conc, z=z, num_points=num_points,
+                                 r_a=r_a, gravity=gravity,
+                                 device=M200.device)
+    tables = build_speed_tables(fields)
+    tables["radius"] = build_radius_tables(fields, r_max)
+    parts = sample_merger_ic(fields, tables, centers, velocities, r_max,
+                             n_gas, n_dm, n_star, n_tracer=n_tracer,
+                             dtype=dtype, compute_potential=compute_potential,
+                             r_a=r_a, uniforms=uniforms)
+    return parts, fields
+
+
 def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
                     n_star, n_tracer=None, z=0.1, num_points=1000,
                     dtype=torch.float32, compute_potential=False, r_a=None,
@@ -470,17 +502,45 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
     Returns ``(particles, fields)``.  ``n_tracer``, ``compute_potential``
     and ``r_a`` as in :func:`sample_merger_ic` and
     :func:`build_merger_models`.  ``generator``: a ``torch.Generator`` on
-    ``device`` (default: one seeded with 0).
+    ``device`` (default: one seeded with 0); ``uniforms``: every site's
+    uniforms instead (see :func:`merger_uniforms`).
+
+    One program, as the JAX package's jitted ``merger_ic_fused``: its key
+    holds the counts, ``z``, ``num_points``, ``dtype``,
+    ``compute_potential``, ``r_a``, ``gravity`` and the speed-table knobs
+    of ``cgparams['numerical']``; masses, concentrations, centers,
+    velocities, ``r_max`` and the uniforms are its inputs.  On the card the
+    first call of a key runs eagerly and captures a CUDA graph, later calls
+    replay it (:mod:`.core.compiled`); the uniforms are drawn from
+    ``generator`` before the replay, with the draws of the eager body.
     """
-    fields = build_merger_models(M200, conc, z=z, num_points=num_points,
-                                 r_a=r_a, gravity=gravity, device=device)
-    tables = build_speed_tables(fields)
-    tables["radius"] = build_radius_tables(fields, r_max)
-    parts = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                             n_gas, n_dm, n_star, n_tracer=n_tracer,
-                             dtype=dtype, compute_potential=compute_potential,
-                             r_a=r_a, generator=generator, uniforms=uniforms)
-    return parts, fields
+    dev = resolve_device(device)
+    H = len(n_gas)
+    statics = dict(
+        n_gas=tuple(map(int, n_gas)), n_dm=tuple(map(int, n_dm)),
+        n_star=tuple(map(int, n_star)),
+        n_tracer=None if n_tracer is None else tuple(map(int, n_tracer)),
+        z=float(z), num_points=int(num_points), dtype=dtype,
+        compute_potential=bool(compute_potential),
+        r_a=None if r_a is None else float(r_a), gravity=str(gravity))
+    inputs = (_f64(M200, dev).reshape(H), _f64(conc, dev).reshape(H),
+              _f64(centers, dev).reshape(H, 3),
+              _f64(velocities, dev).reshape(H, 3),
+              _f64(r_max, dev).reshape(-1).expand(H))
+    sites = _merger_sites(statics["n_gas"], statics["n_dm"],
+                          statics["n_star"], statics["n_tracer"])
+    if uniforms is not None:
+        missing = {s for s, _, _ in sites} - set(uniforms)
+        if missing:
+            raise ValueError(f"uniforms lack the sites {sorted(missing)}")
+        uniforms = {s: uniforms[s] for s, _, _ in sites}
+    draw = compiled.drawer(uniforms, generator, dev, lambda gen, out: (
+        merger_uniforms(gen, (), statics["n_gas"], statics["n_dm"],
+                        statics["n_star"], statics["n_tracer"], dtype, dev,
+                        out=out)))
+    key = ("merger_ic_fused", tuple(statics.items()), speed_table_key())
+    return compiled.run(key, lambda *a: _merger_ic(*a, **statics), inputs,
+                        draw)
 
 
 def attach_field_to_particles(parts: dict, field, ptype: str = "gas"):

@@ -41,6 +41,7 @@ from .ops.cdf_inverse import invert_cdf_rows
 __all__ = ["VirialEquilibrium", "sample_speeds", "compute_df", "om_extended_df", "compute_df_truncated",
            "check_virial_density", "speed_cdf_rows",
            "speed_inverse_cdf_table", "speed_table_defaults",
+           "speed_table_key",
            "build_joint_speed_pairs", "sample_speeds_joint"]
 
 
@@ -56,6 +57,13 @@ def speed_table_defaults():
         "nf1": int(num.get("df_node_grid_body", 4096)),
         "nf2": int(num.get("df_node_grid_top", 4096)),
     }
+
+
+def speed_table_key():
+    """:func:`speed_table_defaults` as a hashable memo key: a batch program
+    captured under one table configuration is never replayed under
+    another."""
+    return tuple(sorted(speed_table_defaults().items()))
 
 
 def _safe_sqrt(x):
@@ -379,7 +387,8 @@ def sample_speeds(radius, psi_p, ee, s_inv, generator=None, uniforms=None):
 
 class VirialEquilibrium:
     """Virial equilibrium model of one collisionless component
-    (``"dark_matter"`` or ``"stellar"``) of a model.
+    (``"dark_matter"`` or ``"stellar"``) of a model.  It runs eagerly on
+    the card (no captured program).
 
     ``df``: a DF on the model's radial grid to resume from (as read from
     a model file), else it is computed.  ``r_a``: Osipkov-Merritt

@@ -10,7 +10,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "bench_torch.py")
 KEYS = {"metric", "value", "unit", "vs_baseline", "aot", "first_run_s",
-        "backend", "device", "peak_mem_gib", "k1_launches"}
+        "backend", "device", "program", "peak_mem_gib", "k1_launches"}
 
 
 def _bench(tmp_path, *args, **env):
@@ -32,6 +32,7 @@ def test_bench_smoke_on_the_cpu(tmp_path):
     assert rec["vs_baseline"] == 5.0 / rec["value"]
     assert rec["aot"] is False and rec["first_run_s"] > 0
     assert rec["backend"] == "cpu" and rec["device"] == "cpu"
+    assert rec["program"] == "eager"
     assert rec["peak_mem_gib"] is None
     # the CPU runs the kernel's plain version: no launch
     assert rec["k1_launches"] == 0

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card (marker ``cuda``).
+"""The port's CUDA kernels and captured programs on the card (marker
+``cuda``).
 
 Without a card every test here skips.  On a machine with one, run
 
@@ -17,11 +18,13 @@ import torch
 
 from cluster_generator_tpu_torch import pipeline as P
 from cluster_generator_tpu_torch import virial as V
+from cluster_generator_tpu_torch.core import compiled as C
 from cluster_generator_tpu_torch.ops.cdf_inverse import (
     invert_cdf_rows,
     invert_cdf_rows_plain,
 )
 from cluster_generator_tpu_torch.parallel import ensemble as E
+from cluster_generator_tpu_torch.parallel import mergers as MG
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the case builders of the card's smoke run)
@@ -286,3 +289,97 @@ def test_ic_scene_on_the_card_against_the_cpu():
                            "tracer": 500})
     assert len(errs) >= 20
     assert all(v < chip_smoke.IC_CPU_RTOL for v in errs.values()), errs
+
+
+# ------------------------------------------------- the captured programs
+def _equal(a, b):
+    la, lb = C._leaves(a), C._leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["merger", "datagen", "scenes"])
+def test_capture_and_replays_equal_the_eager_body(program):
+    """First call (eager warm-up, capture) and two replays with new inputs
+    and seeds, each equal to the eager body bit for bit; K1 counted twice
+    per call, from the graph's two nodes on a replay."""
+    _card()
+    dev = "cuda"
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    if program == "merger":
+        def graph(k):
+            return P.merger_ic_fused(
+                [1.5e15 * (1 + 0.2 * k), 1.0e15], [4.0, 5.0 - 0.3 * k],
+                [[-1500.0, 0, 0], [1500.0, 0, 0]],
+                [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0 - 100 * k,
+                (30_000, 20_000), (24_000, 16_000), (6_000, 4_000),
+                generator=gen(k))
+
+        def eager(k):
+            t = lambda v: torch.tensor(v, dtype=torch.float64,  # noqa: E731
+                                       device=dev)
+            u = P.merger_uniforms(gen(k), (), (30_000, 20_000),
+                                   (24_000, 16_000), (6_000, 4_000))
+            return P._merger_ic(
+                t([1.5e15 * (1 + 0.2 * k), 1.0e15]), t([4.0, 5.0 - 0.3 * k]),
+                t([[-1500.0, 0, 0], [1500.0, 0, 0]]),
+                t([[0.3, 0, 0], [-0.45, 0, 0]]),
+                t([5000.0 - 100 * k] * 2), u, n_gas=(30_000, 20_000),
+                n_dm=(24_000, 16_000), n_star=(6_000, 4_000), n_tracer=None,
+                z=0.1, num_points=1000, dtype=torch.float32,
+                compute_potential=False, r_a=None, gravity="newtonian")
+    elif program == "datagen":
+        M, c = E.sample_ensemble_params(gen(5), 96)
+        prog = E._datagen_full_batch_fn(512, 5000, 4000, 1000)
+
+        def graph(k):
+            return prog(M[32 * k:32 * k + 32], c[32 * k:32 * k + 32], gen(k))
+
+        def eager(k):
+            return prog.run(M[32 * k:32 * k + 32], c[32 * k:32 * k + 32],
+                            None, prog.uniforms(32, gen(k), dev))
+    else:
+        p = MG.sample_merger_scene_params(gen(6), 24)
+        M, c, ctr, vel = MG._scene_inputs(p, torch.device(dev))
+        fn = MG._merger_batch_fn(512, (2000, 2000), (2500, 2500), (500, 500))
+        r_max = torch.full((2,), 5000.0, dtype=torch.float64, device=dev)
+
+        def graph(k):
+            sl = slice(8 * k, 8 * k + 8)
+            return fn(M[sl], c[sl], ctr[sl], vel[sl], r_max, gen(k))
+
+        def eager(k):
+            sl = slice(8 * k, 8 * k + 8)
+            return fn.run(M[sl], c[sl], ctr[sl], vel[sl], r_max, None,
+                          fn.uniforms(8, gen(k), dev))
+    held = None
+    for k in range(3):
+        before = invert_cdf_rows.launches
+        out = graph(k)
+        torch.cuda.synchronize()
+        assert invert_cdf_rows.launches == before + 2
+        if k == 1:
+            held, snap = out, C.tree_map(torch.clone, out)
+        assert _equal(out, eager(k)), k
+    prog_ = C.programs()[-1]
+    assert prog_.graph is not None and sum(prog_.nodes.values()) == 2
+    assert _equal(held, snap)
+
+
+@pytest.mark.cuda
+def test_batches_held_while_the_next_replays():
+    """``datagen_batches`` enqueues batch k+1 before it yields batch k:
+    every batch held equals its eager body after the later ones ran."""
+    _card()
+    dev = "cuda"
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device=dev).manual_seed(3), 80)
+    prog = E._datagen_full_batch_fn(512, 5000, 4000, 1000)
+    outs = list(E.datagen_batches(M, c, {"dm": 5000, "gas": 4000,
+                                          "star": 1000}, batch_size=32,
+                                   seed=3))
+    for b0, out in outs:
+        sl = slice(b0, b0 + 32)
+        want = prog.run(M[sl], c[sl], E._batch_generator(3, b0, M.device))
+        assert _equal(out, want), b0

@@ -159,8 +159,9 @@ print("FOREIGN", bad)
 
 # every module of the port; a new file must be listed here
 MODULES = """
-__main__ cli codes convert core core.config core.constants core.cosmology
-core.debug core.device core.draws core.grid core.h5raw core.interp
+__main__ cli codes convert core core.compiled core.config core.constants
+core.cosmology core.debug core.device core.draws core.grid core.h5raw
+core.interp
 core.logging core.profiling core.quadrature core.staging core.units
 data_structures fields fields.grf frontend frontend.api
 frontend.data_structures frontend.fields frontend.io ics model
