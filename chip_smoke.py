@@ -33,7 +33,9 @@ Phases, in order; any failure exits non-zero before the last line:
    particles, ``VirialEquilibrium(r_a=...)``, the other constructors and
    the MOND laws), with its physics QA on the card, K1's launches (one
    per species and model, none for a second draw) and card against CPU
-   for the fields, the DFs and the speed table;
+   for the fields, the DFs (end to end, and the DF step on the card's
+   fields; the DM DF also with the profiles' floats inline) and the speed
+   table;
 8. build the merger's models, tables and a small draw with the same
    uniforms on the card and on the CPU and compare them;
 9. the gradient of the central pressure with respect to M200 through the
@@ -117,19 +119,34 @@ Phases, in order; any failure exits non-zero before the last line:
     (bench2h-1e7, the cfg5c batch of 256, the cfg6 batch of 64): for each
     the first call (eager warm-up, then the capture) and three replays
     with parameters and seeds of their own against the eager body, bit
-    for bit, K1 twice per call; the merger again at a second ``z``; every
+    for bit, K1 twice per call; the merger again at a second ``z`` (an
+    input: the same program replays); every
     batch of a stream with a remainder batch (``datagen_batches``,
     ``merger_scene_batches``) and of the catalogs' ``stream_to_host``
     stage against its eager body after the later batches replayed; no
     sync in a warm call; eager and graph warm wall, first call and
     capture, host launches per warm call, peak memory and pool size;
-22. print one JSON line of kernel numbers;
-23. print the card's name and power limit, then the last line
+22. the class path and the staged merger path as captured programs (the
+    bisection, the builders, the DFs, the speed tables with K1 inside,
+    the four merger stages): the class set-up (profiles, the model at
+    4096 points, both DFs, both speed tables), the Osipkov-Merritt DF and
+    table, the QUMOND and EMOND models and bench2h-1e7's four stages, each
+    first (captures) and three warm calls with parameters of their own
+    against the eager bodies (``compiled.eager()``) bit for bit, K1
+    counted from inside the programs, no sync in a warm program call,
+    eager and graph warm wall, capture seconds, host launches, pool
+    growth; a changed MOND ``a0`` after a QUMOND capture (a new program,
+    a moved result equal to the eager body); a ``z`` sweep of four values
+    of ``merger_ic_fused`` (one program); phase 9's gradient again, with
+    the eager calls it made;
+23. print one JSON line of kernel numbers;
+24. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
-Phases 4-6, 12, 15, 16, 18 and 20 run the batch programs as a user does:
-on the card each is a CUDA graph, captured at its first call and replayed
-after (``cluster_generator_tpu_torch/core/compiled.py``).  The memoized
+Phases 4-7, 12, 13-18 and 20 run the programs as a user does: on the card
+each batch program and each function of the class path and the merger
+stages is a CUDA graph, captured at its first call and replayed after
+(``cluster_generator_tpu_torch/core/compiled.py``).  The memoized
 programs are dropped before phase 19, whose ranks need the card's memory.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
@@ -190,10 +207,14 @@ CLASS_SPEED_TOL = 5e-5      # speed over the local escape speed, less 1
 CLASS_MASS_RTOL = 1e-6
 CLASS_KS_MAX = 0.005
 CLASS_FIELD_RTOL = 1e-12    # float64 fields of the class model, card vs CPU
-# DFs, card vs CPU: f(E) is the derivative of a spline of an Abel sum, which
-# turns the fields' ~5e-15 into ~5e-9 on a 1000-point grid and, the knots
-# being 4x closer, ~1.5e-8 on this one
-CLASS_DF_RTOL = 5e-8
+# DFs, card vs CPU.  The DF step on the same fields (the CPU's DF of the
+# card's fields) reads 1.3e-12 (DM) and 1.7e-12 (stars).  End to end, f(E)
+# at the innermost knot is the end-knot derivative of a spline of an Abel
+# sum, which turns the fields' ulps (~5e-15) into 1.6e-8 with the profiles'
+# floats on the host and 7.2e-8 (both DFs) with them lifted to 0-d tensor
+# inputs of the programs; the bound is about twice that reading
+CLASS_DF_RTOL = 1.5e-7
+CLASS_DF_STEP_RTOL = 1e-11
 
 # the gradient check: tests/test_autodiff.py's case
 GRAD_M200, GRAD_CONC, GRAD_EPS, GRAD_RTOL = 1.5e15, 4.0, 1.0e10, 1e-3
@@ -261,6 +282,7 @@ NATIVE_TOL = 1e-12                      # max |native - card| / max |card|
 STAGE_TOL = (0.05, 0.002)               # |stage - events| <= 5% + 2 ms
 K1_KERNEL = "invert_cdf_rows_kernel"    # K1's name in a profiler trace
 
+IN_PROGRAM = " (in a program call)"   # see count_syncs
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
 DF_RTOL = 1e-6      # DFs: the spline derivative amplifies roundoff
@@ -524,7 +546,9 @@ def run_main_path(P, **switches):
 
 
 def stage_times(P):
-    """Warm seconds of each of the four stages, synchronised."""
+    """Warm seconds of each of the four stages, synchronised: each stage is
+    a program of its own, so the second of two runs is timed (the first
+    captures)."""
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -536,14 +560,15 @@ def stage_times(P):
         out[name] = time.perf_counter() - t0
         return res
 
-    fields = clock("models", lambda: P.build_merger_models(M200, CONC,
-                                                           device="cuda"))
-    tables = clock("speed_tables", lambda: P.build_speed_tables(fields))
-    tables["radius"] = clock("radius_tables",
-                             lambda: P.build_radius_tables(fields, R_MAX))
-    clock("draws", lambda: P.sample_merger_ic(
-        fields, tables, CENTERS, VELOCITIES, R_MAX, N_GAS, N_DM, N_STAR,
-        generator=gen))
+    for _ in range(2):
+        fields = clock("models", lambda: P.build_merger_models(
+            M200, CONC, device="cuda"))
+        tables = clock("speed_tables", lambda: P.build_speed_tables(fields))
+        tables["radius"] = clock("radius_tables",
+                                 lambda: P.build_radius_tables(fields, R_MAX))
+        clock("draws", lambda: P.sample_merger_ic(
+            fields, tables, CENTERS, VELOCITIES, R_MAX, N_GAS, N_DM, N_STAR,
+            generator=gen))
     return out
 
 
@@ -915,14 +940,40 @@ def class_device_agreement(cg, m_gpu):
               f"class field {k}: card vs CPU {err} >= {CLASS_FIELD_RTOL}")
     print("class fields card vs CPU, max rel:",
           json.dumps({k: f"{v:.1e}" for k, v in worst.items()}))
+    from cluster_generator_tpu_torch.virial import compute_df
+
+    def rel(a, b):
+        return float(((a - b).abs() / (a.abs() + 1e-9 * a.abs().max())).max())
+
     for name, v_cpu, v_gpu in (("dm", m_cpu.dm_virial, m_gpu.dm_virial),
                                ("star", m_cpu.star_virial,
                                 m_gpu.star_virial)):
-        a, b = v_cpu.df, v_gpu.df.cpu()
-        err = float(((a - b).abs() / (a.abs() + 1e-9 * a.abs().max())).max())
-        print(f"class {name} DF card vs CPU: max rel {err:.2e}")
-        check(err < CLASS_DF_RTOL,
-              f"class {name} DF: card vs CPU {err} >= {CLASS_DF_RTOL}")
+        b = v_gpu.df.cpu()
+        err = rel(v_cpu.df, b)
+        # the DF step alone: the CPU's DF of the card's own fields
+        step = torch.flip(compute_df(
+            v_gpu.ee.cpu(), torch.flip(v_gpu._augmented_density(),
+                                       (0,)).cpu()), (0,))
+        err_step = rel(step, b)
+        print(f"class {name} DF card vs CPU: max rel {err:.2e} end to end "
+              f"(limit {CLASS_DF_RTOL}), {err_step:.2e} from the same "
+              f"fields (limit {CLASS_DF_STEP_RTOL})")
+        check(err_step < CLASS_DF_STEP_RTOL and err < CLASS_DF_RTOL,
+              f"class {name} DF: card vs CPU {err} (end to end), "
+              f"{err_step} (same fields)")
+    # the same builds with the profiles' floats kept on the host (every
+    # function inline, as before the programs): how far lifting the floats
+    # to 0-d tensor inputs moves the innermost DF on each device
+    from cluster_generator_tpu_torch.core import compiled
+
+    with compiled.inline():
+        inline_df = {d: build_class_model(cg, device=d).dm_virial.df.cpu()
+                     for d in ("cuda", "cpu")}
+    lifted = {"cuda": m_gpu.dm_virial.df.cpu(), "cpu": m_cpu.dm_virial.df}
+    print(f"class dm DF with the floats inline: card vs CPU "
+          f"{rel(inline_df['cpu'], inline_df['cuda']):.2e}; lifted vs "
+          f"inline: card {rel(inline_df['cuda'], lifted['cuda']):.2e}, "
+          f"CPU {rel(inline_df['cpu'], lifted['cpu']):.2e}")
     diff = (m_gpu.dm_virial._speed_table()[1].cpu()
             - m_cpu.dm_virial._speed_table()[1]).abs()
     err, n_over = float(diff.max()), int((diff > TABLE_TOL).sum())
@@ -1198,7 +1249,10 @@ def device_agreement(P):
 # ------------------------------------------------------------------ phase 9
 def run_gradient(E):
     """d(central pressure)/dM200 through ``build_one_cluster`` on the card
-    (256 points, no DF): autograd against a central difference."""
+    (256 points, no DF): autograd against a central difference.  The
+    builder's program runs its eager body where M200 needs grad (a graph
+    has no autograd tape); the differences replay it.  Returns the
+    gradient."""
     dev = torch.device("cuda")
     conc = torch.tensor([GRAD_CONC], dtype=torch.float64, device=dev)
 
@@ -1220,6 +1274,7 @@ def run_gradient(E):
           f"(limit {GRAD_RTOL})")
     check(math.isfinite(grad) and rel < GRAD_RTOL,
           f"gradient {grad} vs central difference {fd}: rel {rel}")
+    return grad
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1837,12 +1892,15 @@ def copy_alone(tensors):
 def count_syncs(fn):
     """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
     synchronizing calls it made, as ``{file:line: count}`` of the innermost
-    frame in the port (else in this script) that made each."""
+    frame in the port (else in this script) that made each; a sync made
+    anywhere under a program call (a ``__call__`` of ``core/compiled.py``)
+    has IN_PROGRAM appended to its key."""
     import traceback
     import warnings
 
     root = os.path.dirname(os.path.abspath(__file__))
     port = os.path.join(root, "cluster_generator_tpu_torch")
+    compiled = os.path.join(port, "core", "compiled.py")
     where = {}
 
     def hook(message, category, filename, lineno, file=None, line=None):
@@ -1856,6 +1914,9 @@ def count_syncs(fn):
                   or stack)
         key = f"{os.path.relpath(frames[-1].filename, root)}:" \
               f"{frames[-1].lineno}"
+        if any(f.name == "__call__" and f.filename == compiled
+               for f in stack):
+            key += IN_PROGRAM
         where[key] = where.get(key, 0) + 1
 
     with warnings.catch_warnings():
@@ -3031,10 +3092,18 @@ def host_launches(fn):
 def program_of(C, name, before):
     """The memoized program called ``name`` that ``before`` (a list of
     programs) did not hold."""
-    new = [p for p in C.programs() if p.key[0][0] == name
-           and all(p is not q for q in before)]
+    new = new_programs(C, before).get(name, [])
     check(len(new) == 1, f"{name}: {len(new)} new programs, want 1")
     return new[0]
+
+
+def new_programs(C, before):
+    """The memoized programs that ``before`` did not hold, by name."""
+    out = {}
+    for p in C.programs():
+        if all(p is not q for q in before):
+            out.setdefault(p.key[0][0], []).append(p)
+    return out
 
 
 def compare_program(C, K, label, name, graph, eager, n_cases, card):
@@ -3111,7 +3180,7 @@ def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
     CUDA graphs at full width (bench2h-1e7, datagen-cfg5c batch 256,
     scenes-cfg6 batch 64).  For each: the first call and ``replays``
     replays with parameters and seeds of their own against the eager body,
-    bit for bit; the merger again at another ``z`` (a program of its own);
+    bit for bit; the merger again at another ``z`` (the same program);
     the batch streams (``datagen_batches``, ``merger_scene_batches``, with
     a remainder batch, and the catalogs' ``stream_to_host`` stage), every
     batch held or staged against its eager body after the later ones ran;
@@ -3156,27 +3225,29 @@ def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
     def merger_eager(k, z=0.1):
         u = P.merger_uniforms(gen(COMPILED_SEED + k), (), n_gas, n_dm, n_star,
                               device=dev)
-        return P._merger_ic(*merger_case(k), u, z=z, **statics)
+        return P._merger_ic(*merger_case(k), torch.tensor(z, **f64), u,
+                            **statics)
 
     reports["merger"] = compare_program(
         C, K, f"compiled merger IC ({sum(map(sum, sz['merger']['n']))} "
         "particles)", "merger_ic_fused", merger_graph, merger_eager, n_cases,
         card)
     launches["compiled_merger"] = reports["merger"]["k1"]
-    # z is baked into the program: another z is another program, compared
-    # on its first call and on a replay
+    # z is an input, as the JAX package traces it: another z replays the
+    # same program (phase 22 sweeps four)
     before = C.programs()
     K.invert_cdf_rows.launches = 0
     z_first = merger_graph(1, COMPILED_Z)
     z_replay = merger_graph(2, COMPILED_Z)
     launches["compiled_merger"] += K.invert_cdf_rows.launches
-    program_of(C, "merger_ic_fused", before)
+    check(len(C.programs()) == len(before),
+          f"z = {COMPILED_Z} made a program of its own")
     z_diffs = [tree_diff(z_first, merger_eager(1, COMPILED_Z), "z first")]
     z_diffs.append(tree_diff(z_replay, merger_eager(2, COMPILED_Z),
                              "z replay"))
     z_moved = tree_diff(z_first, merger_graph(1), "z moved")
-    print(f"compiled merger IC at z = {COMPILED_Z}: a program of its own; "
-          f"max |graph - eager| {z_diffs} (first, replay); max |z={COMPILED_Z}"
+    print(f"compiled merger IC at z = {COMPILED_Z}: the same program "
+          f"replayed; max |graph - eager| {z_diffs}; max |z={COMPILED_Z}"
           f" - z=0.1| {z_moved:.3g} [{card}]")
     check(max(z_diffs) == 0.0 and z_moved > 0, f"z: {z_diffs}, {z_moved}")
     reports["merger"]["z_max_abs_diff"] = z_diffs
@@ -3303,6 +3374,242 @@ def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
     return launches
 
 
+# ----------------------------------------------------------------- phase 22
+# the class path and the staged merger path as programs: the class set-up
+# at CLASS_POINTS, the OM, QUMOND and EMOND models, bench2h-1e7's four stages
+PROGRAMS = {"points": CLASS_POINTS, "merger": {"n": (N_GAS, N_DM, N_STAR),
+                                               "points": 1000},
+            "replays": 3, "z": (0.05, 0.1, 0.2, 0.3)}
+PROGRAMS_SEED = 200         # case k of the staged draws uses seed + k
+
+
+def class_case(cg, V, k, gravity="newtonian", part="setup", dev="cuda",
+               points=CLASS_POINTS):
+    """Case k of the class path, with masses and concentrations of its own:
+    the profiles (``class_profiles``) and ``from_dens_and_tden``; for
+    ``part="setup"`` both DFs and both speed tables too, for ``"om"`` the
+    Osipkov-Merritt DF and speed table."""
+    rhog, rhot = class_profiles(cg, CLASS_M200 * (1.0 + 0.15 * k),
+                                CLASS_CONC + 0.4 * k, device=dev)
+    m = cg.ClusterModel.from_dens_and_tden(
+        0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot,
+        num_points=points, gravity=gravity, device=dev)
+    out = {"fields": dict(m.fields)}
+    if part == "setup":
+        for sp, v in (("dm", m.dm_virial), ("star", m.star_virial)):
+            out[f"{sp}_df"] = v.df
+            out[f"{sp}_table"] = v._speed_table()[1]
+    elif part == "om":
+        v = V.VirialEquilibrium(m, r_a=CLASS_R_A)
+        out["om_df"] = v.df
+        out["om_table"] = v._speed_table()[1]
+    return out
+
+
+def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
+                     syncs_outside=False):
+    """Phase 22's checks on one path of programs: the first call (each
+    program's eager warm-up and capture) and ``n_cases - 1`` warm calls
+    with parameters of their own, each against ``eager`` (the same calls
+    under ``compiled.eager()``) bit for bit; ``k1`` K1 launches per call;
+    no sync in a warm call (with ``syncs_outside``: none under a program
+    call, for a path whose host checks and logs sit between its
+    programs); eager and graph warm wall, host launches, device busy; the
+    programs made, their capture seconds and pool growth.  Returns the
+    report."""
+    before = C.programs()
+    K.invert_cdf_rows.launches = 0
+    first, first_s = timed(lambda: graph(0))
+    made = new_programs(C, before)
+    progs = [p for ps in made.values() for p in ps]
+    rep = {"programs": {k: len(v) for k, v in made.items()},
+           "first_s": first_s, "k1": K.invert_cdf_rows.launches,
+           "capture_s": sum(p.capture_s or 0.0 for p in progs),
+           "pool_bytes": sum(p.pool_bytes or 0 for p in progs),
+           "static_bytes": sum(p.static_bytes or 0 for p in progs),
+           "k1_nodes": sum(sum(p.nodes.values()) for p in progs),
+           "max_abs_diff": [tree_diff(first, eager(0), label)]}
+    # (programs of one key serve both species: the DM and stellar tables
+    # of one model are one program, replayed for the second)
+    check(rep["k1"] == k1 and (rep["k1_nodes"] > 0) == (k1 > 0)
+          and all(p.graph is not None for p in progs),
+          f"{label}: first call K1 {rep['k1']}, nodes {rep['k1_nodes']}, "
+          f"programs {rep['programs']}")
+    del first
+    for k in range(1, n_cases):
+        K.invert_cdf_rows.launches = 0
+        before = C.programs()
+        out = graph(k)
+        sync()
+        check(K.invert_cdf_rows.launches == k1
+              and not new_programs(C, before),
+              f"{label}: warm call {k} launched K1 "
+              f"{K.invert_cdf_rows.launches} times, made "
+              f"{list(new_programs(C, before))}")
+        rep["k1"] += K.invert_cdf_rows.launches
+        rep["max_abs_diff"].append(tree_diff(out, eager(k), label))
+        del out
+    check(max(rep["max_abs_diff"]) == 0.0,
+          f"{label}: graph vs eager {rep['max_abs_diff']}")
+    syncs = count_syncs(lambda: graph(1))
+    rep["syncs_warm_call"] = syncs
+    inside = {k: v for k, v in syncs.items()
+              if not syncs_outside or k.endswith(IN_PROGRAM)}
+    check(not inside, f"{label}: a warm call synchronized: {inside}")
+    for side, fn in (("eager", eager), ("graph", graph)):
+        walls = [timed(lambda: fn(1))[1] for _ in range(3)]
+        rep[f"{side}_warm_s"] = statistics.median(walls)
+        rep[f"{side}_host_launches"] = host_launches(lambda: fn(1))
+        wall_ms, kern, busy = kernel_profile(lambda: fn(1))
+        rep[f"{side}_busy_ms"], rep[f"{side}_kernels"] = busy, len(kern)
+        rep[f"{side}_busy_share"] = busy / wall_ms
+    print(f"{label}: first call {first_s:.3f} s (captures "
+          f"{rep['capture_s']:.3f} s, programs {rep['programs']}), warm "
+          f"eager {rep['eager_warm_s']:.4f} s / graph "
+          f"{rep['graph_warm_s']:.4f} s, host launches per warm call "
+          f"{rep['eager_host_launches']} / {rep['graph_host_launches']}, "
+          f"device busy (profiled) {rep['eager_busy_ms']:.2f} / "
+          f"{rep['graph_busy_ms']:.2f} ms in {rep['eager_kernels']} / "
+          f"{rep['graph_kernels']} kernels, pool growth at capture "
+          f"{rep['pool_bytes'] / 2**30:.3f} GiB, static buffers "
+          f"{rep['static_bytes'] / 2**30:.3f} GiB; syncs {syncs}; max "
+          f"|graph - eager| over {n_cases} calls "
+          f"{max(rep['max_abs_diff'])}; K1 per call {k1} [{card}]")
+    return rep
+
+
+def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
+    """Phase 22: the class path and the staged merger path as captured
+    programs.  For each of the class set-up (profiles, model, both DFs,
+    both speed tables), the Osipkov-Merritt DF and table, the QUMOND and
+    EMOND models and bench2h-1e7's four merger stages: the first call and
+    ``replays`` warm calls with parameters of their own against the eager
+    bodies, bit for bit (:func:`compare_programs`).  Then F3 (a changed
+    MOND ``a0`` after a QUMOND capture: a new program, a moved result equal
+    to the eager body), F4 (a ``z`` sweep of ``merger_ic_fused``: one
+    program) and phase 9's gradient again (equal to ``grad``, the eager
+    calls it made counted).  Returns K1's launches by path."""
+    from cluster_generator_tpu_torch.core import compiled as C
+    from cluster_generator_tpu_torch.core.config import cgparams
+
+    C.clear()
+    n_cases = sz["replays"] + 1
+    f64 = dict(dtype=torch.float64, device=dev)
+    reports, launches = {}, {}
+
+    def eager(fn):
+        def run(k):
+            with C.eager():
+                return fn(k)
+        return run
+
+    for label, kw, k1 in (("setup", {}, 2),
+                          ("om", dict(part="om"), 1),
+                          ("qumond", dict(gravity="qumond", part="model"), 0),
+                          ("emond", dict(gravity="emond", part="model"), 0)):
+        def graph(k, kw=kw):
+            return class_case(cg, V, k, dev=dev, points=sz["points"], **kw)
+        reports[label] = compare_programs(
+            C, K, f"class {label} programs ({sz['points']} points)", graph,
+            eager(graph), n_cases, k1, card, syncs_outside=True)
+        launches[f"class_programs_{label}"] = reports[label]["k1"]
+    launches = {k: v for k, v in launches.items() if v}
+
+    # F3: a changed a0 after the QUMOND capture is a new program
+    old = cgparams["gravity"]["mond"]["a0_m_s2"]
+    before = C.programs()
+    base = class_case(cg, V, 1, "qumond", "model", dev, sz["points"])
+    cgparams["gravity"]["mond"]["a0_m_s2"] = 2.0 * old
+    try:
+        moved = class_case(cg, V, 1, "qumond", "model", dev, sz["points"])
+        made = new_programs(C, before)
+        with C.eager():
+            want = class_case(cg, V, 1, "qumond", "model", dev, sz["points"])
+    finally:
+        cgparams["gravity"]["mond"]["a0_m_s2"] = old
+    f3 = {"programs": {k: len(v) for k, v in made.items()},
+          "moved": tree_diff(base, moved, "a0 moved"),
+          "max_abs_diff": tree_diff(moved, want, "a0")}
+    print(f"F3 on the card: QUMOND at a0 = {2 * old:g} m/s^2 after the "
+          f"capture at {old:g}: new programs {f3['programs']}, result moved "
+          f"{f3['moved']:.3g}, max |graph - eager| {f3['max_abs_diff']} "
+          f"[{card}]")
+    check(f3["programs"].get("build_from_dens_and_tden") == 1
+          and f3["moved"] > 0 and f3["max_abs_diff"] == 0.0, f"F3: {f3}")
+    reports["f3"] = f3
+    del base, moved, want
+
+    # the staged merger path: the four stages at bench2h-1e7
+    n_gas, n_dm, n_star = sz["merger"]["n"]
+    cases = [(torch.tensor([M200[0] * (1 + 0.2 * k),
+                            M200[1] * (1 - 0.1 * k)], **f64),
+              torch.tensor([CONC[0] + 0.5 * k, CONC[1] - 0.3 * k], **f64),
+              torch.tensor(CENTERS, **f64) * (1 + 0.1 * k),
+              torch.tensor(VELOCITIES, **f64) * (1 - 0.2 * k),
+              torch.tensor([R_MAX - 200.0 * k, R_MAX + 100.0 * k], **f64))
+             for k in range(n_cases)]
+
+    def staged(k):
+        M, c, ctr, vel, r_max = cases[k]
+        fields = P.build_merger_models(M, c, num_points=sz["merger"]["points"],
+                                       device=dev)
+        tables = P.build_speed_tables(fields)
+        tables["radius"] = P.build_radius_tables(fields, r_max)
+        gen = torch.Generator(device=dev).manual_seed(PROGRAMS_SEED + k)
+        return P.sample_merger_ic(fields, tables, ctr, vel, r_max, n_gas,
+                                  n_dm, n_star, generator=gen), fields
+
+    reports["staged"] = compare_programs(
+        C, K, f"staged merger programs ({sum(map(sum, sz['merger']['n']))} "
+        "particles)", staged, eager(staged), n_cases, 2, card)
+    launches["staged_merger"] = reports["staged"]["k1"]
+
+    # F4: a z sweep of merger_ic_fused replays one program
+    before = C.programs()
+    K.invert_cdf_rows.launches = 0
+    outs, diffs = {}, []
+    statics = dict(n_gas=n_gas, n_dm=n_dm, n_star=n_star, n_tracer=None,
+                   num_points=sz["merger"]["points"], dtype=torch.float32,
+                   compute_potential=False, r_a=None, gravity="newtonian")
+    for z in sz["z"]:
+        gen = torch.Generator(device=dev).manual_seed(PROGRAMS_SEED)
+        outs[z] = P.merger_ic_fused(*cases[1], n_gas, n_dm, n_star, z=z,
+                                    num_points=statics["num_points"],
+                                    generator=gen, device=dev)
+        u = P.merger_uniforms(
+            torch.Generator(device=dev).manual_seed(PROGRAMS_SEED), (),
+            n_gas, n_dm, n_star, device=dev)
+        diffs.append(tree_diff(outs[z], P._merger_ic(
+            *cases[1], torch.tensor(z, **f64), u, **statics), f"z={z}"))
+    launches["z_sweep"] = K.invert_cdf_rows.launches
+    made = new_programs(C, before)
+    zs = list(sz["z"])
+    moved = [tree_diff(outs[a], outs[b], "z moved")
+             for a, b in zip(zs[:-1], zs[1:])]
+    f4 = {"programs": {k: len(v) for k, v in made.items()},
+          "max_abs_diff": diffs, "moved": moved}
+    print(f"F4 on the card: merger_ic_fused at z = {zs}: programs made "
+          f"{f4['programs']}, max |graph - eager| {diffs}, neighbouring z "
+          f"apart by {[f'{m:.3g}' for m in moved]} [{card}]")
+    check(f4["programs"] == {"merger_ic_fused": 1} and max(diffs) == 0.0
+          and min(moved) > 0, f"F4: {f4}")
+    reports["f4"] = f4
+    del outs
+
+    # phase 9's gradient: the builders run eagerly where M200 needs grad
+    calls = C.eager_calls
+    again = run_gradient(E)
+    print(f"phase 9's gradient again: {again!r} (phase 9: {grad!r}); eager "
+          f"program calls for grad {C.eager_calls - calls} [{card}]")
+    check(again == grad and C.eager_calls > calls,
+          f"gradient {again} vs {grad}, eager calls {C.eager_calls - calls}")
+    reports["gradient"] = {"grad": again, "eager_calls":
+                           C.eager_calls - calls}
+    print("class and staged programs:", json.dumps(reports, default=str))
+    C.clear()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3375,7 +3682,7 @@ def main() -> int:
           f"a path never launched K1: {launches}")
 
     device_agreement(P)
-    run_gradient(E)
+    grad = run_gradient(E)
     run_fields(F, card)
     run_radial_field(cg, F, P, card)
 
@@ -3418,6 +3725,7 @@ def main() -> int:
     launches["bench"] = run_bench(card, root)
     run_examples(card, root)
     launches.update(run_compiled(P, E, MG, K, card))
+    launches.update(run_class_programs(cg, P, V, E, K, card, grad))
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

@@ -1,11 +1,14 @@
-"""Captured batch programs: CUDA graphs memoized by configuration and shape.
+"""Captured programs: CUDA graphs memoized by configuration and shape.
 
 The counterpart of the JAX package's compiled programs: there each batch
-program is ``jax.jit``-ed behind a factory's ``lru_cache``, compiled once
-per configuration and shape, and run again with new inputs.  Here a
-:class:`Program` is one batch program at one configuration and shape,
-looked up by :func:`program` under a key that holds every value its body
-takes as a Python number or a shape.  On a CUDA device the program
+program is ``jax.jit``-ed behind a factory's ``lru_cache`` and each builder
+of the class path is a jitted function, compiled once per configuration
+and shape and run again with new inputs.  Here a :class:`Program` is one
+program at one configuration and shape, looked up by :func:`program` under
+a key that holds every value its body takes as a Python number or a shape;
+:func:`function` turns a function into such programs, as
+``partial(jax.jit, static_argnames=...)`` does.  On a CUDA device the
+program
 
 * on its first call copies the inputs into static buffers of its own, runs
   the body once eagerly on a side stream, returns that run's outputs, and
@@ -16,13 +19,17 @@ takes as a Python number or a shape.  On a CUDA device the program
 * on every later call copies the inputs into the static buffers (the
   uniforms are drawn straight into theirs), replays the graph on the
   current stream and returns copies of the static outputs, so a caller may
-  hold one batch's outputs while the next batch replays.
+  hold one call's outputs while the next call replays.
 
-A value that the capture bakes in (a count, ``z``, a table knob) is in the
-key and never an input; every input is a tensor whose shape and type join
-the key.  A failed capture raises: nothing falls back to the eager body on
-the card.  A CPU tensor runs the eager body, the graph's plain version;
-any other device raises.
+A value that the capture bakes in (a count, a table knob, a gravity
+constant of the configuration) is in the key and never an input: the
+sections of ``cgparams`` that bodies read (:func:`config_key`) join every
+program's key in :func:`program`, the rest is the caller's key.  Every
+input is a tensor whose shape and type join the key.  A failed capture
+raises: nothing falls back to the eager body on the card.  A CPU tensor
+runs the eager body, the graph's plain version; any other device raises.
+A decorated function called inside a program's body (or inside
+:func:`inline`) is part of that program: it runs its body there.
 
 Random numbers: a caller's generator stays outside the graph.  Before each
 replay the uniforms are drawn eagerly from it into the static buffers, by
@@ -35,9 +42,11 @@ its own.
 Memory: the programs of a device capture into one shared pool, which is
 safe because their replays never overlap (each call waits for the
 device's previous program call, on whatever stream it ran) and a program
-reads its static outputs only right after its own replay.  The memo holds
-at most :data:`MAX_PROGRAMS` programs, the least recently used goes first;
-:func:`clear` drops them all and returns their memory to the card.
+reads its static outputs only right after its own replay.  Each program's
+name (the first entry of its key: one decorated function, one batch
+program) has a memo of at most :data:`MAX_PROGRAMS` programs, the least
+recently used goes first, as each jitted JAX function has a cache of its
+own; :func:`clear` drops them all and returns their memory to the card.
 
 Kernel launches: a wrapper counts each launch with :func:`count_launch`.
 A launch recorded into a graph is counted on each replay instead, once
@@ -46,28 +55,51 @@ per node, so a wrapper's ``launches`` counts the launches the card runs.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import inspect
+import itertools
 import time
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
+from .config import cgparams
+from .device import host_to_device
+
 __all__ = ["MAX_PROGRAMS", "Program", "run", "program", "programs",
-           "clear", "count_launch", "drawer", "tree_map"]
+           "clear", "config_key", "count_launch", "drawer", "tree_map",
+           "function",
+           "register_node", "flatten", "unflatten", "signature", "inline",
+           "is_inline", "eager", "eager_calls"]
 
 MAX_PROGRAMS = 8
 
-_PROGRAMS: OrderedDict = OrderedDict()
+# program name -> its memo (key -> Program), least recently used first
+_MEMOS: dict = {}
 _DEVICES: dict = {}
+_STAMP = itertools.count()
 # kernel wrapper -> launches recorded by the capture in progress
 _TALLY: dict | None = None
+# a program body runs: decorated calls run their body in it
+_INLINE = False
+# every program call runs its eager body (see :func:`eager`)
+_EAGER = False
+#: calls of decorated functions that ran their eager body because an input
+#: requires grad (see :func:`function`)
+eager_calls = 0
 
 
 def tree_map(fn, tree):
-    """``fn`` on every tensor of a tree of dicts, tuples and lists."""
+    """``fn`` on every tensor of a tree of dicts, tuples and lists (a
+    ``None`` is an empty tree)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
+    if tree is None:
+        return None
     return fn(tree)
 
 
@@ -123,6 +155,37 @@ def count_launch(kernel) -> None:
     kernel.launches += 1
 
 
+@contextlib.contextmanager
+def inline():
+    """Decorated functions called inside run their plain body: no program
+    and no lifted floats.  Every program body runs inside it, and so does
+    each batch program's eager body, so that both make the same calls."""
+    global _INLINE
+    old, _INLINE = _INLINE, True
+    try:
+        yield
+    finally:
+        _INLINE = old
+
+
+def is_inline() -> bool:
+    """Whether a program body (or :func:`inline`) is running."""
+    return _INLINE
+
+
+@contextlib.contextmanager
+def eager():
+    """Every decorated function called inside runs its eager body on its
+    device, as a CPU call does (its floats lifted, so with the graph's
+    arithmetic): the reference a replay is held against."""
+    global _EAGER
+    old, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = old
+
+
 class _Device:
     """What the programs of one card share: the memory pool, the side
     stream of warm-ups and captures, and the event after the last program
@@ -142,14 +205,18 @@ class _Device:
         self.done.record(stream)
 
 
+def _storages(tree) -> set:
+    return {t.untyped_storage().data_ptr() for t in _leaves(tree)}
+
+
 class Program:
-    """One batch program at one configuration and shape.
+    """One program at one configuration and shape.
 
     ``body(*inputs, uniforms)`` is the eager program: tensors in, a tree of
     tensors out.  Call the program as ``prog(inputs, draw)``: ``inputs`` a
     tuple of tensors, ``draw(out)`` the uniforms: drawn into the tree
     ``out`` in place and returned, or, with ``out=None``, returned as new
-    tensors.
+    tensors (``None`` for a program that draws nothing).
 
     After the capture: ``capture_s`` (host seconds of the capture),
     ``pool_bytes`` (what the capture added to the device's shared pool),
@@ -166,13 +233,15 @@ class Program:
         self.capture_s = None
         self.pool_bytes = None
         self.static_bytes = None
+        self.stamp = next(_STAMP)
 
     def __call__(self, inputs, draw):
         dev = inputs[0].device
         if dev.type == "cpu":
-            return self.body(*inputs, draw(None))
+            with inline():
+                return self.body(*inputs, draw(None))
         if dev.type != "cuda":
-            raise ValueError(f"batch programs run on cuda or cpu, not {dev}")
+            raise ValueError(f"programs run on cuda or cpu, not {dev}")
         with torch.cuda.device(dev):
             state = _DEVICES.get(dev)
             if state is None:
@@ -193,8 +262,13 @@ class Program:
         self.uniforms = draw(None)
         side = state.stream
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), inline():
             out = self.body(*self.inputs, self.uniforms)
+        # an output that is a static buffer (a field that is the input
+        # grid) is the caller's: the next call overwrites the buffer
+        static = _storages((self.inputs, self.uniforms))
+        out = tree_map(lambda t: t.clone() if t.untyped_storage().data_ptr()
+                       in static else t, out)
         # the warm-up's outputs are the caller's, used on its stream
         tree_map(lambda t: t.record_stream(cur), out)
         cur.wait_stream(side)
@@ -206,7 +280,8 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         _TALLY = {}
         try:
-            with torch.cuda.graph(graph, pool=state.pool, stream=side):
+            with torch.cuda.graph(graph, pool=state.pool, stream=side), \
+                    inline():
                 outputs = self.body(*self.inputs, self.uniforms)
             self.nodes = _TALLY
         finally:
@@ -232,6 +307,30 @@ class Program:
         return out
 
 
+def _frozen(section):
+    if isinstance(section, dict):
+        return tuple(sorted((k, _frozen(v)) for k, v in section.items()))
+    if isinstance(section, list):
+        return tuple(map(_frozen, section))
+    return section
+
+
+def config_key():
+    """The sections of ``cgparams`` that a program body reads at capture,
+    as a hashable key: the table knobs of ``numerical`` and the MOND
+    constants of ``gravity``.  Every program's key holds it, and so does
+    every factory memo of a program object, so that nothing captured under
+    one configuration is replayed under another."""
+    return _frozen({k: cgparams[k] for k in ("numerical", "gravity")})
+
+
+def _memo_key(key, inputs):
+    """The memo key of a program: the caller's ``key``, the configuration
+    (:func:`config_key`) and the inputs' device, shapes and types."""
+    return (key, config_key(), inputs[0].device,
+            tuple((tuple(a.shape), a.dtype) for a in inputs))
+
+
 def run(key, body, inputs, draw):
     """``body(*inputs, draw(None))``, as the memoized program of ``key``
     and the inputs' device, shapes and types (see :class:`Program`)."""
@@ -239,31 +338,232 @@ def run(key, body, inputs, draw):
 
 
 def program(key, body, inputs) -> Program:
-    """The memoized program of ``key`` at the device, shapes and types of
-    ``inputs``; made with ``body`` when the memo has none (past
-    :data:`MAX_PROGRAMS` the least recently used program goes)."""
-    key = (key, inputs[0].device,
-           tuple((tuple(a.shape), a.dtype) for a in inputs))
-    prog = _PROGRAMS.get(key)
+    """The memoized program of ``key`` under the configuration and at the
+    device, shapes and types of ``inputs`` (:func:`_memo_key`); made with
+    ``body`` when the memo of the key's name (``key[0]``) has none (past
+    :data:`MAX_PROGRAMS` that memo's least recently used program goes)."""
+    memo = _MEMOS.setdefault(key[0], OrderedDict())
+    key = _memo_key(key, inputs)
+    prog = memo.get(key)
     if prog is None:
-        prog = _PROGRAMS[key] = Program(key, body)
-        while len(_PROGRAMS) > MAX_PROGRAMS:
-            _PROGRAMS.popitem(last=False)
+        prog = memo[key] = Program(key, body)
+        while len(memo) > MAX_PROGRAMS:
+            memo.popitem(last=False)
     else:
-        _PROGRAMS.move_to_end(key)
+        memo.move_to_end(key)
+        prog.stamp = next(_STAMP)
     return prog
 
 
 def programs() -> list:
-    """The memoized programs, least recently used first."""
-    return list(_PROGRAMS.values())
+    """The memoized programs of every memo, least recently used first."""
+    return sorted((p for memo in _MEMOS.values() for p in memo.values()),
+                  key=lambda p: p.stamp)
 
 
 def clear() -> None:
     """Drop every memoized program and return their memory to the card
     (a program a caller still holds keeps its graph)."""
-    _PROGRAMS.clear()
+    _MEMOS.clear()
     _DEVICES.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- trees
+# type -> (to_children, from_children): obj -> (children, aux) and back
+_NODES: dict = {}
+
+
+def register_node(cls, to_children, from_children) -> None:
+    """Let :func:`flatten` see through ``cls`` (JAX's pytree registration):
+    ``to_children(obj) -> (children, aux)`` with ``children`` a tuple of
+    trees, ``from_children(aux, children) -> obj``.  ``aux`` is structure:
+    it joins a program's key through :func:`signature` when callable."""
+    _NODES[cls] = (to_children, from_children)
+
+
+def _node(tree):
+    for cls, fns in _NODES.items():
+        if isinstance(tree, cls):
+            return fns
+    return None
+
+
+def flatten(tree, leaves: list, lift: bool = False):
+    """Replace every tensor of ``tree`` (tuples, lists, named tuples, dicts
+    and registered nodes such as a profile) by its index in ``leaves``,
+    appending it there; with ``lift`` a Python float becomes a leaf too.
+    Anything else is a constant of the structure.  Returns the structure
+    (see :func:`unflatten`)."""
+    if isinstance(tree, torch.Tensor) or (
+            lift and isinstance(tree, float)):
+        leaves.append(tree)
+        return len(leaves) - 1
+    node = _node(tree)
+    if node is not None:
+        children, aux = node[0](tree)
+        return ("node", node[1], aux,
+                [flatten(c, leaves, lift) for c in children])
+    if isinstance(tree, dict):
+        return ("dict", tuple(tree),
+                [flatten(v, leaves, lift) for v in tree.values()])
+    if isinstance(tree, (tuple, list)):
+        return ("seq", type(tree), [flatten(p, leaves, lift) for p in tree])
+    return ("const", tree)
+
+
+def unflatten(struct, leaves):
+    """The tree of :func:`flatten`'s ``struct`` with ``leaves`` in place."""
+    if isinstance(struct, int):
+        return leaves[struct]
+    kind = struct[0]
+    if kind == "const":
+        return struct[1]
+    items = [unflatten(p, leaves) for p in struct[-1]]
+    if kind == "node":
+        return struct[1](struct[2], tuple(items))
+    if kind == "dict":
+        return dict(zip(struct[1], items))
+    cls = struct[1]
+    return cls(*items) if hasattr(cls, "_fields") else cls(items)
+
+
+def signature(value):
+    """What a program's key holds for a value of its structure: a callable
+    by its ``signature`` attribute (a composed profile's) or, for a
+    function defined at a module's top level, by its module and name; any
+    other callable by identity; a constant by value."""
+    sig = getattr(value, "signature", None)
+    if sig is not None:
+        return sig
+    if inspect.isfunction(value) and "<" not in value.__qualname__:
+        return ("fn", value.__module__, value.__qualname__)
+    hash(value)   # an unhashable constant cannot key a program: TypeError
+    return value
+
+
+def _struct_key(struct):
+    if isinstance(struct, int):
+        return struct
+    kind = struct[0]
+    if kind == "const":
+        return ("const", signature(struct[1]))
+    children = tuple(_struct_key(s) for s in struct[-1])
+    if kind == "node":
+        return ("node", struct[1], signature(struct[2]), children)
+    return (kind, struct[1], children)
+
+
+class _Function:
+    """A function run as memoized programs (see :func:`function`)."""
+
+    def __init__(self, fn, static, random, name):
+        self.fn = fn
+        self.static = frozenset(static)
+        self.random = random
+        self.name = name or fn.__name__
+        self.sig = inspect.signature(fn)
+        if any(p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
+               for p in self.sig.parameters.values()):
+            raise TypeError(f"{self.name}: no *args or **kwargs")
+        functools.update_wrapper(self, fn)
+
+    def _call(self, args, kwargs):
+        """``(key, inputs, body, draw)`` of one call: statics and the
+        structure in the key, tensors and lifted floats as inputs."""
+        bound = self.sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        arguments = dict(bound.arguments)
+        draw = arguments.pop(self.random, None) if self.random else None
+        statics = {k: arguments.pop(k) for k in list(arguments)
+                   if k in self.static}
+        leaves: list = []
+        struct = flatten(arguments, leaves, lift=True)
+        tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+        floats = [t for t in leaves if not isinstance(t, torch.Tensor)]
+        if tensors:
+            dev = tensors[0].device
+        elif "device" in statics:
+            dev = torch.device(statics["device"])
+        else:
+            raise ValueError(f"{self.name}: no tensor and no device to "
+                             "run on")
+        # the floats go to the device as one vector, each a 0-d view
+        packed = host_to_device(np.asarray(floats, dtype=np.float64), dev)
+        slots, nt, nf = [], 0, 0
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor):
+                slots.append((0, nt))
+                nt += 1
+            else:
+                slots.append((1, nf))
+                nf += 1
+        key = (self.name, tuple(sorted((k, signature(v))
+                                       for k, v in statics.items())),
+               _struct_key(struct), tuple(s for s, _ in slots))
+
+        def body(*inputs):
+            *ts, vec, uniforms = inputs
+            vals = [ts[i] if kind == 0 else vec[i] for kind, i in slots]
+            call = dict(unflatten(struct, vals), **statics)
+            if self.random is not None:
+                call[self.random] = uniforms
+            return self.fn(**call)
+
+        if draw is None:
+            draw = _no_draw
+        return key, (*tensors, packed), body, draw
+
+    def __call__(self, *args, **kwargs):
+        global eager_calls
+        if _INLINE:
+            return self.fn(*args, **kwargs)
+        key, inputs, body, draw = self._call(args, kwargs)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            eager_calls += 1
+        elif not (_EAGER or inputs[0].device.type == "cpu"
+                  or any(t.device != inputs[0].device for t in inputs)):
+            return program(key, body, inputs)(inputs, draw)
+        # the eager body: on the CPU (the plain version, no program), for
+        # grad, as the reference of a replay (:func:`eager`), or with
+        # inputs on two devices, where the body raises with its own
+        # message (a profile whose parameters live on another device than
+        # its radii)
+        with inline():
+            return body(*inputs, draw(None))
+
+
+def _no_draw(out):
+    return None
+
+
+def function(static=(), random=None, name=None):
+    """Decorator: the counterpart of ``partial(jax.jit,
+    static_argnames=static)``.  On the card each call of the function runs
+    as the memoized :class:`Program` of its key, a CUDA graph; on the CPU
+    it runs its eager body and makes no program:
+
+    * the arguments named in ``static``, every ``None``, int, bool and
+      string, the structure of the others (a profile's ``eval_fn`` by its
+      :func:`signature`, a dict's keys) and, as for every program, the
+      configuration (:func:`config_key`) are the key;
+    * every tensor is an input, and every Python float among the others
+      (a profile's parameter, a dict's value, a scalar argument) is lifted
+      to a 0-d float64 input, as JAX traces float leaves: a new ``M200``
+      or rescale factor replays the program;
+    * ``random`` names the argument that takes the uniforms: the caller
+      passes a :func:`drawer` there, drawn before each replay into the
+      static buffers (inside a program, the uniforms themselves).
+
+    A call whose tensor input requires grad, with grad enabled, runs the
+    eager body on its own device instead (a CUDA graph carries no autograd
+    tape): the same kernels on the same card, not a fallback, counted in
+    :data:`eager_calls`.  Inside a program's body (:func:`inline`) the
+    function runs its plain body, as part of that program; under
+    :func:`eager` it runs its eager body with the program's inputs.
+    """
+    def wrap(fn):
+        return _Function(fn, static, random, name)
+    return wrap

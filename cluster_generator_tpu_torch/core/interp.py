@@ -90,13 +90,16 @@ def cubic_spline(x: torch.Tensor, y: torch.Tensor) -> CubicSpline:
     dm[..., -2] = 2.0 * (hn2 + hn1) + hn1 * (hn2 + hn1) / hn2
     dl[..., n - 3] = hn2 - hn1 * hn1 / hn2
 
-    # decoupled boundary placeholders (s0, s_{n-1} recovered afterwards)
-    dm[..., 0] = 1.0
-    du[..., 0] = 0.0
-    dm[..., -1] = 1.0
-    dl[..., -1] = 0.0
-    dl[..., 0] = 0.0
-    du[..., n - 2] = 0.0
+    # decoupled boundary placeholders (s0, s_{n-1} recovered afterwards);
+    # filled in place: on a 1-d grid each is a 0-d view, and assigning a
+    # Python number to a 0-d card tensor copies it from the host, which a
+    # CUDA graph capture refuses
+    dm[..., 0].fill_(1.0)
+    du[..., 0].fill_(0.0)
+    dm[..., -1].fill_(1.0)
+    dl[..., -1].fill_(0.0)
+    dl[..., 0].fill_(0.0)
+    du[..., n - 2].fill_(0.0)
 
     sigma = _pcr(dl, dm, du, rhs)
     s0 = ((h0 + h1) * sigma[..., 1] - h0 * sigma[..., 2]) / h1

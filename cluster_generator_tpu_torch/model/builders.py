@@ -3,6 +3,12 @@
 Each builder maps (profiles, radius grid) to a dict of float64 field
 tensors in galactic units.  Grids have shape ``(..., n)`` with one leading
 entry per halo; profile parameters carry the same leading shape.
+
+The three builders are captured programs (:func:`..core.compiled.function`),
+as the JAX package jits them with ``order`` and ``gravity`` static: the
+profiles' parameters and ``gravity_params`` are inputs, the profiles'
+structure and the configuration's gravity constants
+(:func:`..core.compiled.config_key`) are the key.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ import math
 
 import torch
 
+from ..core import compiled
 from ..core import constants as C
 from ..core import units
 from ..core.interp import cubic_spline, spline_eval
@@ -109,6 +116,7 @@ def _field_and_potential(rr, m_tot, gravity, gravity_params):
     return g, potential_from_field(rr, g)
 
 
+@compiled.function(static=("order", "gravity"))
 def build_from_dens_and_tden(rr, density, total_density, stellar_density=None,
                              order: int = 16, gravity: str = "newtonian",
                              gravity_params=None) -> dict:
@@ -147,6 +155,7 @@ def build_from_dens_and_tden(rr, density, total_density, stellar_density=None,
                                    potential=phi)
 
 
+@compiled.function(static=("order", "gravity"))
 def build_from_dens_and_temp(rr, density, temperature, stellar_density=None,
                              order: int = 16, gravity: str = "newtonian",
                              gravity_params=None) -> dict:
@@ -181,6 +190,7 @@ def build_from_dens_and_temp(rr, density, temperature, stellar_density=None,
     return derive_secondary_fields(fields, stellar_density, potential=phi)
 
 
+@compiled.function(static=("order", "gravity"))
 def build_no_gas(rr, total_density, stellar_density=None, order: int = 16,
                  gravity: str = "newtonian", gravity_params=None) -> dict:
     """Fields of a model without gas, with the same gravity-law wiring as

@@ -42,8 +42,11 @@ class ClusterModel:
 
     ``device``: where the fields live.  ``None`` takes the device of the
     first tensor among ``fields``, and the card when there is none.  Its
-    methods run eagerly on the card, op by op (no captured program, unlike
-    the batch programs of :mod:`..core.compiled`)."""
+    constructors and its DFs, virial checks and speed tables run as the
+    captured programs of the builders and of :mod:`..virial`
+    (:mod:`..core.compiled`: memoized CUDA graphs on the card, keyed by
+    the profiles' structure, their parameters inputs); its draws' tables
+    and its checks' reductions run eagerly, op by op."""
 
     default_fields = [
         "density", "temperature", "pressure", "total_density",

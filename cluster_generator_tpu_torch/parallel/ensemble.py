@@ -52,7 +52,7 @@ from ..profiles.solvers import (find_overdensity_radius, find_radius_mass,
                                 mass_within)
 from ..virial import (build_joint_speed_pairs, compute_df, om_extended_df,
                       sample_speeds_joint, speed_inverse_cdf_table,
-                      speed_table_defaults, speed_table_key)
+                      speed_table_defaults)
 from .mesh import (all_gather_rows, ens_rows, mesh_device, replicated,
                    sharded)
 from .qa import QA_TOLERANCES as _QA
@@ -79,7 +79,9 @@ def build_one_cluster(M200, conc, z=0.1, f_g=None, rmin=0.1, rmax=10000.0,
 
     ``M200``/``conc``: float64 tensors of one batch shape (H,) — every halo
     is built at once and every field comes back as (H, num_points).
-    ``with_df`` adds the dark-matter DF ``dm_df`` (radial ordering).
+    ``z``: a float or a 0-d float64 tensor (an input of a program that
+    calls this).  ``with_df`` adds the dark-matter DF ``dm_df`` (radial
+    ordering).
     """
     r200 = find_overdensity_radius(M200, 200.0, z=z)
     a = r200 / conc
@@ -184,11 +186,12 @@ class _DatagenProgram:
                        "gas": int(n_gas)}
         self.r_a = None if r_a is None else float(r_a)
         self.gravity = str(gravity)
-        # every value the program bakes in: its memo key
+        # every argument the program bakes in: its key (the configuration
+        # joins it in compiled.program)
         self.key = ("datagen", self.num_points, int(n_dm), int(n_gas),
                     int(n_star), int(n_rows), int(rq), int(star_n_rows),
                     int(star_rq), int(star_n_s), int(star_n_q), self.r_a,
-                    self.gravity, speed_table_key())
+                    self.gravity)
         kw = speed_table_defaults()
         # per collisionless species: density and mass fields, table rows,
         # radius-quantile nodes, speed-table arguments
@@ -385,12 +388,15 @@ class _DatagenProgram:
         return res
 
     def run(self, M200, conc, generator=None, uniforms=None):
-        """The batch, eagerly: the program's body."""
+        """The batch, eagerly: the program's body (the functions it calls
+        run inline, as in the program)."""
         if generator is None and uniforms is None:
             generator = torch.Generator(device=M200.device).manual_seed(0)
-        f = self.models(M200, conc)
-        tabs = self.speed_tables(f, self.dfs(f))
-        return self.draws(f, self.draw_tables(f, tabs), generator, uniforms)
+        with compiled.inline():
+            f = self.models(M200, conc)
+            tabs = self.speed_tables(f, self.dfs(f))
+            return self.draws(f, self.draw_tables(f, tabs), generator,
+                              uniforms)
 
     def _body(self, M200, conc, uniforms):
         return self.run(M200, conc, None, uniforms)
@@ -409,20 +415,21 @@ def _datagen_full_batch_fn(num_points, n_dm, n_gas, n_star, n_rows=128,
     """The full-species datagen program, the ONE datagen core:
     ``batch(M200, conc, generator=None, uniforms=None)`` on float64 (B,)
     tensors (see :class:`_DatagenProgram`).  Memoized on every value it
-    bakes in, the ``cgparams['numerical']`` table knobs included, as the
-    JAX package's factory is."""
+    bakes in, the ``cgparams['numerical']`` table knobs and the
+    ``cgparams['gravity']`` constants included (the JAX package's factory
+    holds the knobs)."""
     return _datagen_full_batch_cached(
         int(num_points), int(n_dm), int(n_gas), int(n_star), int(n_rows),
         int(rq), int(star_n_rows), int(star_rq), int(star_n_s),
         int(star_n_q), None if r_a is None else float(r_a), str(gravity),
-        speed_table_key())
+        compiled.config_key())
 
 
 @functools.lru_cache(maxsize=32)
 def _datagen_full_batch_cached(num_points, n_dm, n_gas, n_star, n_rows, rq,
                                star_n_rows, star_rq, star_n_s, star_n_q, r_a,
-                               gravity, table_key):
-    del table_key  # in the memo key only: __init__ reads the knobs
+                               gravity, config):
+    del config  # in the memo key only: __init__ reads the knobs
     return _DatagenProgram(num_points, n_dm, n_gas, n_star, n_rows, rq,
                            star_n_rows, star_rq, star_n_s, star_n_q, r_a,
                            gravity)
@@ -435,13 +442,13 @@ def _datagen_batch_fn(num_points, n_part, n_rows=128, rq=2048, r_a=None,
     :func:`_datagen_full_batch_fn`."""
     return _datagen_batch_cached(int(num_points), int(n_part), int(n_rows),
                                  int(rq), None if r_a is None else float(r_a),
-                                 str(gravity), speed_table_key())
+                                 str(gravity), compiled.config_key())
 
 
 @functools.lru_cache(maxsize=32)
 def _datagen_batch_cached(num_points, n_part, n_rows, rq, r_a, gravity,
-                          table_key):
-    del table_key  # in the memo key only
+                          config):
+    del config  # in the memo key only
     full = _datagen_full_batch_fn(num_points, n_part, 0, 0, n_rows, rq,
                                   r_a=r_a, gravity=gravity)
 

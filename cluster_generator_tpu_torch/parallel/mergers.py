@@ -39,7 +39,6 @@ from ..core.draws import uniform
 from ..core.interp import interp
 from ..core.staging import stream_to_host
 from ..model.gravity import get_gravity
-from ..virial import speed_table_key
 from ..pipeline import (build_merger_models, build_radius_tables,
                         build_speed_tables, merger_uniforms, sample_merger_ic)
 from .ensemble import (_PORT_DRAWS, _SPECIES_MASS, _batch_generator,
@@ -318,10 +317,11 @@ class _SceneBatch:
         self.gravity = str(gravity)
         self.device = resolve_device(device)
         self.seg = {sp: _segment_offsets(ns) for sp, ns in self.counts.items()}
-        # every value the program bakes in: its memo key
+        # every argument the program bakes in: its key (the configuration
+        # joins it in compiled.program)
         self.key = ("scene_batch", self.num_points, self.counts["gas"],
                     self.counts["dm"], self.counts["star"], self.r_a,
-                    self.gravity, speed_table_key())
+                    self.gravity)
 
     def models(self, M200, conc):
         """Fields and DFs of all B*H halos, flattened to (B*H, ...)."""
@@ -391,10 +391,11 @@ class _SceneBatch:
             M200, conc, centers, velocities, r_max)
         if generator is None and uniforms is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        fields = self.models(M200, conc)
-        tables = self.tables(fields, r_max)
-        return self.draws(fields, tables, M200, centers, velocities, r_max,
-                          generator, uniforms)
+        with compiled.inline():   # the stages run inline, as in the program
+            fields = self.models(M200, conc)
+            tables = self.tables(fields, r_max)
+            return self.draws(fields, tables, M200, centers, velocities,
+                              r_max, generator, uniforms)
 
     def _body(self, M200, conc, centers, velocities, r_max, uniforms):
         return self.run(M200, conc, centers, velocities, r_max, None,
@@ -414,19 +415,20 @@ def _merger_batch_fn(num_points, n_gas, n_dm, n_star, r_a=None,
                      gravity="newtonian", device="cuda"):
     """The scene-batch program for one configuration (see
     :class:`_SceneBatch`); ``n_*`` are per-halo counts.  Memoized on every
-    value it bakes in, the ``cgparams['numerical']`` table knobs included,
-    as the JAX package's factory is."""
+    value it bakes in, the ``cgparams['numerical']`` table knobs and the
+    ``cgparams['gravity']`` constants included (the JAX package's factory
+    holds the knobs)."""
     _check_r_a(r_a)
     return _merger_batch_cached(
         int(num_points), tuple(map(int, n_gas)), tuple(map(int, n_dm)),
         tuple(map(int, n_star)), None if r_a is None else float(r_a),
-        str(gravity), resolve_device(device), speed_table_key())
+        str(gravity), resolve_device(device), compiled.config_key())
 
 
 @functools.lru_cache(maxsize=16)
 def _merger_batch_cached(num_points, n_gas, n_dm, n_star, r_a, gravity,
-                         device, table_key):
-    del table_key  # in the memo key only: the draws read the knobs
+                         device, config):
+    del config  # in the memo key only: the body reads it
     return _SceneBatch(num_points, n_gas, n_dm, n_star, r_a=r_a,
                        gravity=gravity, device=device)
 

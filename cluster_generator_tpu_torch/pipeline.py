@@ -12,13 +12,15 @@ Four stages, each a function of tensors on one device:
 
 :func:`merger_ic_fused` runs all four as one program: on the card a CUDA
 graph, captured once per configuration and memoized
-(:mod:`.core.compiled`), on the CPU its eager body.
-:func:`binary_merger_ic` adds the mass-prorated particle counts (eager:
-its counts come from the models).  Entry points run on the card unless
-called with ``device="cpu"``.  Draws take a ``torch.Generator``; each draw
-function also accepts pre-drawn uniforms (``uniforms``), the values a
-caller wants at each random site, so that draws can be compared with
-another generator's.
+(:mod:`.core.compiled`), on the CPU its eager body.  Each stage called on
+its own is a program too, as the JAX package jits each
+(:func:`.core.compiled.function`).  :func:`binary_merger_ic` runs the
+four stage programs and between them the mass-prorated particle counts
+(on the host: its counts come from the models).  Entry points run on the
+card unless called with ``device="cpu"``.  Draws take a
+``torch.Generator``; each draw function also accepts pre-drawn uniforms
+(``uniforms``), the values a caller wants at each random site, so that
+draws can be compared with another generator's.
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ from .core.grid import linspace
 from .core.interp import _gather, interp, interp_monotone
 from .parallel.ensemble import build_one_cluster
 from .virial import (_banded_row_lerp, compute_df, om_extended_df,
-                     speed_inverse_cdf_table, speed_table_defaults,
-                     speed_table_key)
+                     speed_inverse_cdf_table, speed_table_defaults)
 
 __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
            "build_radius_tables", "merger_uniforms", "sample_merger_ic",
@@ -65,13 +66,25 @@ def build_merger_models(M200, conc, z=0.1, num_points=1000,
     power-law-extended energy grid (:func:`~.virial.om_extended_df`); the
     extended grid and DFs come back as ``df_ee_ext``, ``dm_df_ext`` and
     ``star_df_ext`` (H, 192 + num_points), which
-    :func:`build_speed_tables` uses.  ``None``: ergodic."""
+    :func:`build_speed_tables` uses.  ``None``: ergodic.
+
+    One program (JAX ``build_merger_models``): ``num_points``,
+    ``with_star_df``, ``r_a``, ``gravity`` and the gravity constants are
+    its key; ``M200``, ``conc`` and ``z`` its inputs."""
     if r_a is not None and not float(r_a) > 0.0:
         raise ValueError(f"r_a must be positive (got {r_a!r}); None gives "
                          "the isotropic model")
     dev = resolve_device(device)
-    M200 = _f64(M200, dev)
-    conc = _f64(conc, dev)
+    return _build_merger_models(
+        _f64(M200, dev), _f64(conc, dev), z, num_points=int(num_points),
+        with_star_df=bool(with_star_df),
+        r_a=None if r_a is None else float(r_a), gravity=str(gravity))
+
+
+@compiled.function(static=("num_points", "with_star_df", "r_a", "gravity"),
+                   name="build_merger_models")
+def _build_merger_models(M200, conc, z, num_points, with_star_df, r_a,
+                         gravity):
     fields = build_one_cluster(M200, conc, z=z, num_points=num_points,
                                with_df=(r_a is None), gravity=gravity)
     ee = -torch.flip(fields["gravitational_potential"], (-1,))
@@ -136,10 +149,13 @@ def speed_table_inputs(fields, n_rows=256, star_n_rows=64):
                          row_ee=row_energies(star_rows))}
 
 
+@compiled.function(static=("n_rows", "star_n_rows"))
 def build_speed_tables(fields, n_rows=256, star_n_rows=64):
     """Per-halo inverse speed-CDF tables: ``{"dm": (H, n_rows, n_q),
     "star": (H, star_n_rows, n_q_star)}`` float32, one K1 launch per
-    species (see :func:`speed_table_inputs`)."""
+    species (see :func:`speed_table_inputs`).  One program (JAX
+    ``build_speed_tables``), the table knobs of ``cgparams['numerical']``
+    in its key."""
     return {kind: speed_inverse_cdf_table(**kw) for kind, kw in
             speed_table_inputs(fields, n_rows, star_n_rows).items()}
 
@@ -147,7 +163,15 @@ def build_speed_tables(fields, n_rows=256, star_n_rows=64):
 def build_radius_tables(fields, r_max, dtype=torch.float32):
     """Per-halo inverse radius-CDF tables for every species: ``tables[kind]``
     is (H, 2048) radii at uniform mass quantiles (clamped at ``r_max``),
-    ``tables[kind + "_mtot"]`` the (H,) mass inside ``r_max``."""
+    ``tables[kind + "_mtot"]`` the (H,) mass inside ``r_max``.  One program
+    (JAX ``build_radius_tables``, ``dtype`` static)."""
+    if not isinstance(r_max, (float, torch.Tensor)):
+        r_max = _f64(r_max, fields["radius"].device)
+    return _build_radius_tables(fields, r_max, dtype=dtype)
+
+
+@compiled.function(static=("dtype",), name="build_radius_tables")
+def _build_radius_tables(fields, r_max, dtype):
     rr = fields["radius"]
     r_max = _f64(r_max, rr.device).expand(rr.shape[:-1])
     q = linspace(0.0, 1.0, _RQ, device=rr.device)
@@ -369,10 +393,63 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
     ``fields``, ``tables``, ``centers`` and ``velocities`` carry through:
     each output is then ``batch + (n, ...)`` and the uniforms are
     ``batch + (n,)``.
+
+    One program (JAX ``sample_merger_ic``): the counts, ``dtype``,
+    ``compute_potential`` and ``r_a`` are its key.  Every uniform a site
+    does not find in ``uniforms`` is drawn from ``generator`` before the
+    program runs, in the body's order (:func:`merger_uniforms`), so the
+    draws equal the eager body's bit for bit.
     """
     dev = fields["radius"].device
     centers = _f64(centers, dev)
     velocities = _f64(velocities, dev)
+    if compiled.is_inline():
+        return _sample_merger_ic(fields, tables, centers, velocities, r_max,
+                                 n_gas, n_dm, n_star, n_tracer, dtype,
+                                 compute_potential, r_a, generator, uniforms)
+    counts = [None if n is None else tuple(map(int, n))
+              for n in (n_gas, n_dm, n_star, n_tracer)]
+    if generator is None and uniforms is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    given = uniforms or {}
+    sites = _merger_sites(*counts)
+    batch = tuple(centers.shape[:-2])
+
+    def draw(out):
+        res = {}
+        for site, n, fn in sites:
+            buf = None if out is None else out[site]
+            if site in given:
+                res[site] = compiled.drawer(given[site], None, dev, None)(buf)
+            else:
+                res[site] = fn(generator, batch + (n,), dtype, dev, out=buf)
+        return res
+
+    if not isinstance(r_max, (float, torch.Tensor)):
+        r_max = _f64(r_max, dev)
+    return _sample_merger_ic_program(
+        fields, tables, centers, velocities, r_max, draw, n_gas=counts[0],
+        n_dm=counts[1], n_star=counts[2], n_tracer=counts[3], dtype=dtype,
+        compute_potential=bool(compute_potential),
+        r_a=None if r_a is None else float(r_a))
+
+
+@compiled.function(static=("n_gas", "n_dm", "n_star", "n_tracer", "dtype",
+                           "compute_potential", "r_a"),
+                   random="uniforms", name="sample_merger_ic")
+def _sample_merger_ic_program(fields, tables, centers, velocities, r_max,
+                              uniforms, n_gas, n_dm, n_star, n_tracer, dtype,
+                              compute_potential, r_a):
+    return _sample_merger_ic(fields, tables, centers, velocities, r_max,
+                             n_gas, n_dm, n_star, n_tracer, dtype,
+                             compute_potential, r_a, None, uniforms)
+
+
+def _sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas,
+                      n_dm, n_star, n_tracer, dtype, compute_potential, r_a,
+                      generator, uniforms):
+    """The body of :func:`sample_merger_ic` (tensors in)."""
+    dev = fields["radius"].device
     H = centers.shape[-2]
     if generator is None and uniforms is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -465,30 +542,34 @@ def sample_merger_ic_sharded(mesh, fields, tables, centers, velocities,
     if uniforms is None:
         gen = fold_in(seed, mesh.get_local_rank(axis),
                       fields["radius"].device)
-    local = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                             div(n_gas), div(n_dm), div(n_star),
-                             n_tracer=div(n_tracer), dtype=dtype,
-                             compute_potential=compute_potential,
-                             generator=gen, uniforms=uniforms)
+    with compiled.inline():
+        local = sample_merger_ic(fields, tables, centers, velocities, r_max,
+                                 div(n_gas), div(n_dm), div(n_star),
+                                 n_tracer=div(n_tracer), dtype=dtype,
+                                 compute_potential=compute_potential,
+                                 generator=gen, uniforms=uniforms)
     return {k: sharded(mesh, v, axis, v.shape[0] * n_dev)
             for k, v in local.items()}
 
 
-def _merger_ic(M200, conc, centers, velocities, r_max, uniforms, *, n_gas,
-               n_dm, n_star, n_tracer, z, num_points, dtype,
+def _merger_ic(M200, conc, centers, velocities, r_max, z, uniforms, *,
+               n_gas, n_dm, n_star, n_tracer, num_points, dtype,
                compute_potential, r_a, gravity):
     """The body of :func:`merger_ic_fused`'s program: the four stages on
     float64 tensors of one device (``M200``/``conc``/``r_max`` (H,),
-    ``centers``/``velocities`` (H, 3)) with every uniform given."""
-    fields = build_merger_models(M200, conc, z=z, num_points=num_points,
-                                 r_a=r_a, gravity=gravity,
-                                 device=M200.device)
-    tables = build_speed_tables(fields)
-    tables["radius"] = build_radius_tables(fields, r_max)
-    parts = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                             n_gas, n_dm, n_star, n_tracer=n_tracer,
-                             dtype=dtype, compute_potential=compute_potential,
-                             r_a=r_a, uniforms=uniforms)
+    ``centers``/``velocities`` (H, 3), ``z`` 0-d) with every uniform
+    given, inline (the stages are part of this program)."""
+    with compiled.inline():
+        fields = build_merger_models(M200, conc, z=z, num_points=num_points,
+                                     r_a=r_a, gravity=gravity,
+                                     device=M200.device)
+        tables = build_speed_tables(fields)
+        tables["radius"] = build_radius_tables(fields, r_max)
+        parts = sample_merger_ic(fields, tables, centers, velocities, r_max,
+                                 n_gas, n_dm, n_star, n_tracer=n_tracer,
+                                 dtype=dtype,
+                                 compute_potential=compute_potential,
+                                 r_a=r_a, uniforms=uniforms)
     return parts, fields
 
 
@@ -506,10 +587,12 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
     uniforms instead (see :func:`merger_uniforms`).
 
     One program, as the JAX package's jitted ``merger_ic_fused``: its key
-    holds the counts, ``z``, ``num_points``, ``dtype``,
-    ``compute_potential``, ``r_a``, ``gravity`` and the speed-table knobs
-    of ``cgparams['numerical']``; masses, concentrations, centers,
-    velocities, ``r_max`` and the uniforms are its inputs.  On the card the
+    holds the counts, ``num_points``, ``dtype``, ``compute_potential``,
+    ``r_a``, ``gravity``, the speed-table knobs of ``cgparams['numerical']``
+    and the gravity constants of ``cgparams['gravity']``; masses,
+    concentrations, centers, velocities, ``r_max``, ``z`` and the uniforms
+    are its inputs (JAX traces ``z`` too), so a ``z`` sweep replays one
+    program.  On the card the
     first call of a key runs eagerly and captures a CUDA graph, later calls
     replay it (:mod:`.core.compiled`); the uniforms are drawn from
     ``generator`` before the replay, with the draws of the eager body.
@@ -520,13 +603,14 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
         n_gas=tuple(map(int, n_gas)), n_dm=tuple(map(int, n_dm)),
         n_star=tuple(map(int, n_star)),
         n_tracer=None if n_tracer is None else tuple(map(int, n_tracer)),
-        z=float(z), num_points=int(num_points), dtype=dtype,
+        num_points=int(num_points), dtype=dtype,
         compute_potential=bool(compute_potential),
         r_a=None if r_a is None else float(r_a), gravity=str(gravity))
     inputs = (_f64(M200, dev).reshape(H), _f64(conc, dev).reshape(H),
               _f64(centers, dev).reshape(H, 3),
               _f64(velocities, dev).reshape(H, 3),
-              _f64(r_max, dev).reshape(-1).expand(H))
+              _f64(r_max, dev).reshape(-1).expand(H),
+              _f64(z, dev).reshape(()))
     sites = _merger_sites(statics["n_gas"], statics["n_dm"],
                           statics["n_star"], statics["n_tracer"])
     if uniforms is not None:
@@ -538,7 +622,7 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
         merger_uniforms(gen, (), statics["n_gas"], statics["n_dm"],
                         statics["n_star"], statics["n_tracer"], dtype, dev,
                         out=out)))
-    key = ("merger_ic_fused", tuple(statics.items()), speed_table_key())
+    key = ("merger_ic_fused", tuple(statics.items()))
     return compiled.run(key, lambda *a: _merger_ic(*a, **statics), inputs,
                         draw)
 

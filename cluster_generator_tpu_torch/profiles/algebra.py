@@ -9,6 +9,16 @@ compose with profiles and scalars by ``+ - * / **`` and the modifiers
 ``add_core`` and ``cutoff`` into new profiles whose parameters are the
 operands' parameters, so a composed profile of batched operands stays
 batched.
+
+A profile is a tree for the captured programs (:mod:`..core.compiled`),
+as the JAX package's ``Profile`` is a pytree: its parameters are leaves
+and its ``eval_fn`` is structure, keyed by its ``signature``.  A module's
+eval function is keyed by its name; a composed one by the op and the
+operands' signatures.  The closures of the composition capture only
+functions and ops, never values (those are parameters), so two composed
+profiles with equal signatures compute the same function of their
+parameters, and a freshly composed profile replays the program of an
+equal one.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..core import compiled
 from ..core.device import tensor_on
 from ..core.interp import CubicSpline, cubic_spline, spline_eval
 
@@ -51,6 +62,9 @@ def _composed(op, f1, f2):
         def fn(params, r):
             p1, p2 = params
             return op(f1(p1, r), f2(p2, r))
+    fn.signature = ("composed", compiled.signature(op),
+                    compiled.signature(f1),
+                    None if f2 is None else compiled.signature(f2))
     return fn
 
 
@@ -60,6 +74,8 @@ def _composed_r(op, f1):
     def fn(params, r):
         p1, c = params
         return op(f1(p1, r), c, r)
+    fn.signature = ("composed_r", compiled.signature(op),
+                    compiled.signature(f1))
     return fn
 
 
@@ -168,6 +184,10 @@ class Profile:
         ax.set_xlabel("Radius (kpc)")
         return fig, ax
 
+
+compiled.register_node(Profile, lambda p: ((p.params,), p.eval_fn),
+                       lambda eval_fn, children: Profile(eval_fn,
+                                                         children[0]))
 
 #: alias matching the upstream class name
 RadialProfile = Profile

@@ -334,9 +334,11 @@ def _vikhlinin_density_profile_fn(p, r):
 
 
 def vikhlinin_density_profile(rho_0, r_c, r_s, alpha, beta, epsilon, gamma=None):
-    """Vikhlinin+06 modified beta-model density."""
+    """Vikhlinin+06 modified beta-model density.  The default ``gamma`` is
+    the integer 3, so that its power stays an exact cube in a captured
+    program, where a float parameter becomes an input."""
     if gamma is None:
-        gamma = 3.0
+        gamma = 3
 
     return Profile(_vikhlinin_density_profile_fn, (rho_0, r_c, r_s, alpha, beta, epsilon, gamma))
 

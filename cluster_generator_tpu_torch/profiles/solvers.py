@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from ..core import compiled
 from ..core.cosmology import Cosmology, default_cosmology
 from ..core.device import resolve_device, tensor_on
 from ..core.quadrature import gauss_legendre
@@ -43,37 +44,24 @@ def rescale_profile_by_mass(profile: Profile, mass, radius,
 
 
 def find_overdensity_radius(m, delta, z=0.0, cosmo: Cosmology | None = None):
-    """Radius enclosing mass ``m`` at overdensity ``delta``."""
+    """Radius enclosing mass ``m`` at overdensity ``delta``; ``z`` a float
+    or a 0-d float64 tensor (see :meth:`Cosmology.critical_density`)."""
     if cosmo is None:
         cosmo = default_cosmology()
     rho_crit = cosmo.critical_density(z)
     return (3.0 * m / (4.0 * math.pi * delta * rho_crit)) ** (1.0 / 3.0)
 
 
-def _flatten(params, leaves):
-    """Replace every tensor leaf of a profile's (nested) parameters by its
-    index in ``leaves``; returns the structure."""
-    if isinstance(params, torch.Tensor):
-        leaves.append(params)
-        return len(leaves) - 1
-    if isinstance(params, tuple):
-        return (type(params), [_flatten(p, leaves) for p in params])
-    return ("const", params)
+@compiled.function(static=("shape", "device"))
+def _bisect(m_r: Profile, target, shape, device):
+    """100 halvings of [0.01, 10000] kpc for the root of
+    f(r) = 3 M(r) / (4 pi r^3) - target, batched; NaN where the bracket
+    does not straddle a root.  One program, as the JAX package's
+    ``lax.fori_loop`` is one dispatch."""
+    def f(r):
+        m = m_r.eval_fn(_expand(m_r.params, r.ndim), r)
+        return 3.0 * m / (4.0 * math.pi * r**3) - target
 
-
-def _unflatten(struct, leaves):
-    if isinstance(struct, int):
-        return leaves[struct]
-    kind, body = struct
-    if kind == "const":
-        return body
-    items = [_unflatten(p, leaves) for p in body]
-    return kind(*items) if hasattr(kind, "_fields") else kind(items)
-
-
-def _bisect(f, shape, device):
-    """100 halvings of [0.01, 10000] kpc for the root of ``f``, batched;
-    NaN where the bracket does not straddle a root."""
     lo = torch.full(shape, _BRACKET[0], dtype=torch.float64, device=device)
     hi = torch.full(shape, _BRACKET[1], dtype=torch.float64, device=device)
     flo = f(lo)
@@ -98,11 +86,8 @@ class _OverdensityRoot(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, eval_fn, struct, target, shape, device, *leaves):
-        def f(r):
-            m = eval_fn(_expand(_unflatten(struct, leaves), r.ndim), r)
-            return 3.0 * m / (4.0 * math.pi * r**3) - target
-
-        r = _bisect(f, shape, device)
+        r = _bisect(Profile(eval_fn, compiled.unflatten(struct, leaves)),
+                    target, shape, device)
         ctx.eval_fn, ctx.struct, ctx.target = eval_fn, struct, target
         ctx.save_for_backward(r, *leaves)
         return r
@@ -118,7 +103,7 @@ class _OverdensityRoot(torch.autograd.Function):
                           for i, t in enumerate(leaves)]
                 root = torch.where(torch.isfinite(r), r,
                                    torch.ones_like(r)).requires_grad_()
-                m = ctx.eval_fn(_expand(_unflatten(ctx.struct, thetas),
+                m = ctx.eval_fn(_expand(compiled.unflatten(ctx.struct, thetas),
                                         root.ndim), root)
                 f = 3.0 * m / (4.0 * math.pi * root**3) - ctx.target
                 (dfdr,) = torch.autograd.grad(f.sum(), root, retain_graph=True)
@@ -150,7 +135,7 @@ def find_radius_mass(m_r: Profile, delta, z=0.0,
     shape = () if like is None else like.shape
     device = resolve_device(device) if like is None else like.device
     leaves = []
-    struct = _flatten(m_r.params, leaves)
+    struct = compiled.flatten(m_r.params, leaves)
     r_delta = _OverdensityRoot.apply(m_r.eval_fn, struct, delta * rho_crit,
                                      shape, device, *leaves)
     return r_delta, m_r(r_delta)

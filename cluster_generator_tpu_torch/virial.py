@@ -19,7 +19,9 @@
   check and its cached speed tables, all on the model's device.
 
 The functions work along the last axis with leading batch axes (one per
-halo); the class holds one model.
+halo); the class holds one model.  The DFs, the virial check and the speed
+table are captured programs (:func:`.core.compiled.function`), as the JAX
+package jits them, with the same static arguments.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import math
 import numpy as np
 import torch
 
+from .core import compiled
 from .core.config import cgparams
+from .core.device import host_to_device
 from .core.draws import uniform
 from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
@@ -41,7 +45,6 @@ from .ops.cdf_inverse import invert_cdf_rows
 __all__ = ["VirialEquilibrium", "sample_speeds", "compute_df", "om_extended_df", "compute_df_truncated",
            "check_virial_density", "speed_cdf_rows",
            "speed_inverse_cdf_table", "speed_table_defaults",
-           "speed_table_key",
            "build_joint_speed_pairs", "sample_speeds_joint"]
 
 
@@ -57,13 +60,6 @@ def speed_table_defaults():
         "nf1": int(num.get("df_node_grid_body", 4096)),
         "nf2": int(num.get("df_node_grid_top", 4096)),
     }
-
-
-def speed_table_key():
-    """:func:`speed_table_defaults` as a hashable memo key: a batch program
-    captured under one table configuration is never replayed under
-    another."""
-    return tuple(sorted(speed_table_defaults().items()))
 
 
 def _safe_sqrt(x):
@@ -108,6 +104,7 @@ def _abel_g_exact(sp, ee):
     return torch.sum(G(u_lo) - G(u_hi), dim=-1)
 
 
+@compiled.function()
 def compute_df(ee: torch.Tensor, pden: torch.Tensor):
     """Eddington inversion on an ascending relative-potential grid.
 
@@ -121,6 +118,7 @@ def compute_df(ee: torch.Tensor, pden: torch.Tensor):
     return spline_eval(g_sp, ee, nu=1) / (math.sqrt(8.0) * math.pi**2)
 
 
+@compiled.function(static=("n_ext",))
 def om_extended_df(ee, pden, n_ext: int = 192, factor: float = 256.0):
     """Eddington inversion with a power-law continuation of the density
     BELOW the grid's lowest binding energy; returns the extended grid
@@ -139,7 +137,10 @@ def om_extended_df(ee, pden, n_ext: int = 192, factor: float = 256.0):
     e0, p0 = ee[..., :1], pden[..., :1]
     mslope = ((torch.log(pden[..., 1:2]) - torch.log(p0))
               / (torch.log(ee[..., 1:2]) - torch.log(e0)))
-    lin = linspace(-math.log(factor), 0.0, n_ext + 1, dtype=ee.dtype,
+    # ``factor`` is a float, or a 0-d tensor as an input of the program
+    log_f = (torch.log(factor) if isinstance(factor, torch.Tensor)
+             else math.log(factor))
+    lin = linspace(-log_f, 0.0, n_ext + 1, dtype=ee.dtype,
                    device=ee.device)[:-1]
     psi_ext = e0 * torch.exp(lin)
     rho_ext = p0 * (psi_ext / e0) ** mslope
@@ -147,12 +148,14 @@ def om_extended_df(ee, pden, n_ext: int = 192, factor: float = 256.0):
     return ee_ext, compute_df(ee_ext, torch.cat([rho_ext, pden], dim=-1))
 
 
+@compiled.function(static=("n_ext",))
 def compute_df_truncated(ee, pden, n_ext: int = 192, factor: float = 256.0):
     """f of :func:`om_extended_df` at the ORIGINAL knots (fixed grid
     length).  Table builders and the virial check use the extended grid."""
     return om_extended_df(ee, pden, n_ext=n_ext, factor=factor)[1][..., n_ext:]
 
 
+@compiled.function()
 def check_virial_density(ee, f_vals):
     """rho(psi_i) = 4 pi int_0^psi_i f(E) sqrt(2 (psi_i - E)) dE, exactly.
 
@@ -265,6 +268,7 @@ def speed_cdf_rows(ee, f_vals, n_s: int = 1024, table_dtype=None,
     return cdf / cdf[..., -1:]
 
 
+@compiled.function(static=("n_s", "n_q", "table_dtype", "nf1", "nf2"))
 def speed_inverse_cdf_table(ee, f_vals, n_s: int = 1024, n_q: int = 512,
                             table_dtype=None, row_ee=None, nf1: int = 4096,
                             nf2: int = 4096):
@@ -387,8 +391,11 @@ def sample_speeds(radius, psi_p, ee, s_inv, generator=None, uniforms=None):
 
 class VirialEquilibrium:
     """Virial equilibrium model of one collisionless component
-    (``"dark_matter"`` or ``"stellar"``) of a model.  It runs eagerly on
-    the card (no captured program).
+    (``"dark_matter"`` or ``"stellar"``) of a model.  Its DF, virial check
+    and speed table run as the captured programs of :func:`compute_df`,
+    :func:`om_extended_df`, :func:`check_virial_density` and
+    :func:`speed_inverse_cdf_table`; the row energies of the speed table
+    are picked outside, as the caller's input.
 
     ``df``: a DF on the model's radial grid to resume from (as read from
     a model file), else it is computed.  ``r_a``: Osipkov-Merritt
@@ -511,7 +518,7 @@ class VirialEquilibrium:
             np.linspace(0, n - 1, min(n_rows, n))).astype(int))
         ee_sp, ff_sp = self._df_grid
         return dict(speed_table_defaults(), ee=ee_sp, f_vals=ff_sp,
-                    row_ee=ee[torch.as_tensor(idx, device=ee.device)])
+                    row_ee=ee[host_to_device(idx, ee.device)])
 
     def _speed_table(self, n_rows: int = 256):
         """``(row_ee, s_inv)``: the inverse speed-CDF table on an

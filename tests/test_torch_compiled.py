@@ -4,10 +4,11 @@ of tests/test_recompilation.py, held by the port's three programs.
 * the same configuration and shape give the same program object, for the
   factories (as the JAX package's ``lru_cache``) and for the programs the
   entry points run;
-* a changed count, batch size, ``z`` or ``cgparams['numerical']`` table
-  knob gives a new program;
-* masses, concentrations, centers, bulk velocities, ``r_max`` and seeds
-  are inputs: they reuse the program;
+* a changed count, batch size, ``cgparams['numerical']`` table knob or
+  ``cgparams['gravity']`` constant gives a new program;
+* masses, concentrations, centers, bulk velocities, ``r_max``, ``z`` and
+  seeds are inputs: they reuse the program (``z`` as the JAX package
+  traces it), and the result at each ``z`` is the JAX package's;
 * on the CPU each program runs its eager body, and equals the function it
   wraps (the stages with the caller's generator) bit for bit;
 * the memo is bounded; uniforms drawn into static buffers equal the
@@ -17,9 +18,13 @@ Capture and replay need the card: their tests are in
 tests/test_torch_cuda.py (marker ``cuda``).
 """
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from cluster_generator_tpu import pipeline as JP
 from cluster_generator_tpu.core.config import cgparams as jcgparams
 from cluster_generator_tpu.parallel import ensemble as JE
 from cluster_generator_tpu_torch import pipeline as TP
@@ -28,6 +33,7 @@ from cluster_generator_tpu_torch.core.config import cgparams
 from cluster_generator_tpu_torch.ops.cdf_inverse import invert_cdf_rows
 from cluster_generator_tpu_torch.parallel import ensemble as TE
 from cluster_generator_tpu_torch.parallel import mergers as TM
+from tests.test_torch_pipeline import _check_draws, _jax_uniforms
 
 torch.set_num_threads(1)
 
@@ -141,24 +147,24 @@ def test_factories_see_config_changes(case, knob):
 
 # -------------------------------------------------- the programs' memo keys
 @pytest.mark.parametrize("vary", ["masses", "centers", "velocities", "r_max",
-                                  "seed"])
+                                  "seed", "z"])
 def test_merger_physical_params_are_runtime(vary):
-    """Sweeping a physical parameter or the seed reuses ONE program
+    """Sweeping a physical parameter, ``z`` or the seed reuses ONE program
     (tests/test_recompilation.py's merger case)."""
     base = _merger()
     changed = {"masses": dict(M=(2.5e15, 0.8e15), c=(6.5, 3.1)),
                "centers": dict(ctr=((-1200.0, 50.0, 0), (1800.0, 0, -20.0))),
                "velocities": dict(vel=((-0.1, 0.2, 0), (0.7, 0, 0))),
                "r_max": dict(r_max=(5000.0, 4000.0)),
-               "seed": dict(seed=3)}[vary]
+               "seed": dict(seed=3), "z": dict(z=0.3)}[vary]
     other = _merger(**changed)
     assert _n_programs("merger_ic_fused") == 1
     assert any(not torch.equal(base[0][k], other[0][k]) for k in base[0])
 
 
-@pytest.mark.parametrize("vary", ["counts", "tracers", "z", "knob"])
+@pytest.mark.parametrize("vary", ["counts", "tracers", "knob"])
 def test_merger_statics_make_new_programs(vary, knob):
-    """A count, tracers, ``z`` or a table knob is baked in: a new program."""
+    """A count, tracers or a table knob is baked in: a new program."""
     _merger()
     if vary == "counts":
         _merger(counts=(NG, (250, 160), NS))
@@ -167,25 +173,146 @@ def test_merger_statics_make_new_programs(vary, knob):
                            [[-1500.0, 0, 0], [1500.0, 0, 0]],
                            [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0, NG, ND, NS,
                            n_tracer=(30, 20), num_points=POINTS, **CPU)
-    elif vary == "z":
-        _merger(z=0.3)
     else:
         knob(cgparams["numerical"].get(KNOB, 4096) // 2)
         _merger()
     assert _n_programs("merger_ic_fused") == 2
 
 
-def test_z_is_in_the_key_and_moves_the_result():
-    """``z`` reaches the build as a host float (the critical density), so
-    each ``z`` is a program of its own, and the result follows it."""
-    a, _ = _merger(z=0.1)
-    b, _ = _merger(z=0.3)
-    again, _ = _merger(z=0.1)
-    keys = {dict(p.key[0][1])["z"] for p in C.programs()}
-    assert keys == {0.1, 0.3}
-    assert not torch.equal(a["dm", "particle_position"],
-                           b["dm", "particle_position"])
-    assert all(torch.equal(a[k], again[k]) for k in a)
+def _jax_merger(z, key, gravity="newtonian"):
+    M, c = [1.5e15, 1.0e15], [4.0, 5.0]
+    ctr = [[-1500.0, 0, 0], [1500.0, 0, 0]]
+    vel = [[0.3, 0, 0], [-0.45, 0, 0]]
+    parts, fields = JP.merger_ic_fused(
+        jnp.asarray(M), jnp.asarray(c), jnp.asarray(ctr), jnp.asarray(vel),
+        jnp.asarray([5000.0, 5000.0]), key, NG, ND, NS, z=z,
+        num_points=POINTS, gravity=gravity)
+    return ({k: np.asarray(v) for k, v in parts.items()},
+            {k: np.asarray(v) for k, v in fields.items()})
+
+
+def _port_merger(z, uniforms, gravity="newtonian"):
+    parts, fields = TP.merger_ic_fused(
+        [1.5e15, 1.0e15], [4.0, 5.0], [[-1500.0, 0, 0], [1500.0, 0, 0]],
+        [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0, NG, ND, NS, z=z,
+        num_points=POINTS, gravity=gravity, uniforms=uniforms, **CPU)
+    return ({k: v.numpy() for k, v in parts.items()},
+            {k: v.numpy() for k, v in fields.items()})
+
+
+def _fields_close(got, want, df_floor=0.0):
+    """Fields rtol 1e-9, DFs rtol 1e-6 (tests/test_torch_pipeline.py);
+    ``df_floor``: an absolute floor for the DFs, of their largest value."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if k.endswith("_df"):
+            np.testing.assert_allclose(got[k], w, rtol=1e-6, err_msg=k,
+                                       atol=df_floor * np.abs(w).max())
+        else:
+            np.testing.assert_allclose(got[k], w, rtol=1e-9, err_msg=k)
+
+
+def test_z_is_an_input_and_moves_the_result():
+    """``z`` is an input of the program, as the JAX package traces it: two
+    ``z`` replay one program, their results differ, and each is the JAX
+    package's ``merger_ic_fused`` at that ``z`` (given its uniforms), at
+    the tolerances of tests/test_torch_pipeline.py."""
+    key = jax.random.key(7)
+    unif = _jax_uniforms(key, NG, ND, NS)
+    got = {z: _port_merger(z, unif) for z in (0.1, 0.3)}
+    assert _n_programs("merger_ic_fused") == 1
+    assert not np.array_equal(got[0.1][0]["dm", "particle_position"],
+                              got[0.3][0]["dm", "particle_position"])
+    for z, (parts, fields) in got.items():
+        j_parts, j_fields = _jax_merger(z, key)
+        _fields_close(fields, j_fields)
+        _check_draws(parts, j_parts, nd=ND, ns=NS)
+
+
+# ------------------------------------ the gravity constants (MOND a0) key
+A0 = 1.2e-10
+
+
+@pytest.fixture
+def a0():
+    """Set the MOND a0 in both packages; restored after."""
+    old = cgparams["gravity"]["mond"]["a0_m_s2"]
+    jold = jcgparams["gravity"]["mond"]["a0_m_s2"]
+
+    def set_(value):
+        cgparams["gravity"]["mond"]["a0_m_s2"] = value
+        jcgparams["gravity"]["mond"]["a0_m_s2"] = value
+
+    yield set_
+    cgparams["gravity"]["mond"]["a0_m_s2"] = old
+    jcgparams["gravity"]["mond"]["a0_m_s2"] = jold
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("case", ["datagen_full", "datagen_dm", "scenes"])
+def test_factories_see_gravity_changes(case, a0):
+    """The factories' memo key holds ``cgparams['gravity']``: after a
+    changed MOND ``a0`` a factory gives a new program object, and
+    restoring ``a0`` gives the first one back."""
+    make = {"datagen_full": lambda: TE._datagen_full_batch_fn(
+                POINTS, 500, 400, 100, gravity="qumond"),
+            "datagen_dm": lambda: TE._datagen_batch_fn(POINTS, 1000,
+                                                       gravity="qumond"),
+            "scenes": lambda: TM._merger_batch_fn(
+                POINTS, (1, 1), (2, 2), (1, 1), gravity="qumond", **CPU)}[case]
+    first = make()
+    a0(2.0 * A0)
+    second = make()
+    assert second is not first
+    a0(A0)
+    assert make() is first
+
+
+@pytest.mark.parametrize("case", ["merger", "datagen", "scenes"])
+def test_programs_see_gravity_changes(case, a0):
+    """F3: after a QUMOND program ran, a changed ``a0`` makes a new
+    program (the old one would replay the old ``a0`` on the card) whose
+    result moves; the merger's fields equal the JAX package's at that
+    ``a0`` (its caches cleared, so that it traces again).  The QUMOND DFs
+    of a 128-point grid at twice ``a0`` turn negative and noisy in the
+    outer tail, where the two packages differ by 4e-10 of the DF's
+    largest value: the DFs get an absolute floor of 1e-9 of it."""
+    if case == "merger":
+        key = jax.random.key(7)
+        unif = _jax_uniforms(key, NG, ND, NS)
+        first = _port_merger(0.1, unif, "qumond")[1]
+        a0(2.0 * A0)
+        jax.clear_caches()
+        second = _port_merger(0.1, unif, "qumond")[1]
+        _fields_close(second, _jax_merger(0.1, key, "qumond")[1],
+                      df_floor=1e-9)
+        name = "merger_ic_fused"
+        moved = first["gravitational_field"] - second["gravitational_field"]
+    elif case == "datagen":
+        M, c = _ensemble(2)
+
+        def run():
+            return TE._datagen_full_batch_fn(POINTS, 300, 200, 80,
+                                             gravity="qumond")(
+                M, c, torch.Generator().manual_seed(0))["dm"][1]
+        first = run()
+        a0(2.0 * A0)
+        second = run()
+        name, moved = "datagen", (first - second).numpy()
+    else:
+        M, c, ctr, vel = _scenes(2)
+
+        def run():
+            return TM._merger_batch_fn(POINTS, *SCENE_COUNTS.values(),
+                                       gravity="qumond", **CPU)(
+                M, c, ctr, vel, [5000.0, 5000.0],
+                torch.Generator().manual_seed(0))["dm_velocity"]
+        first = run()
+        a0(2.0 * A0)
+        second = run()
+        name, moved = "scene_batch", (first - second).numpy()
+    assert _n_programs(name) == 2
+    assert np.abs(moved).max() > 0
 
 
 @pytest.mark.parametrize("vary", ["masses", "seed", "batch_size", "counts"])

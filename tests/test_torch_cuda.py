@@ -325,9 +325,10 @@ def test_capture_and_replays_equal_the_eager_body(program):
                 t([1.5e15 * (1 + 0.2 * k), 1.0e15]), t([4.0, 5.0 - 0.3 * k]),
                 t([[-1500.0, 0, 0], [1500.0, 0, 0]]),
                 t([[0.3, 0, 0], [-0.45, 0, 0]]),
-                t([5000.0 - 100 * k] * 2), u, n_gas=(30_000, 20_000),
-                n_dm=(24_000, 16_000), n_star=(6_000, 4_000), n_tracer=None,
-                z=0.1, num_points=1000, dtype=torch.float32,
+                t([5000.0 - 100 * k] * 2), t(0.1), u,
+                n_gas=(30_000, 20_000), n_dm=(24_000, 16_000),
+                n_star=(6_000, 4_000), n_tracer=None, num_points=1000,
+                dtype=torch.float32,
                 compute_potential=False, r_a=None, gravity="newtonian")
     elif program == "datagen":
         M, c = E.sample_ensemble_params(gen(5), 96)

@@ -107,7 +107,7 @@ def _bulk(n):
                            for i in range(2)])
 
 
-def _check_draws(got, want):
+def _check_draws(got, want, nd=ND, ns=NS):
     assert set(got) == set(want)
     vmax = max(abs(v[0]) for v in VELS)
     for (sp, name), a in want.items():
@@ -117,7 +117,7 @@ def _check_draws(got, want):
         if name == "particle_velocity" and sp == "gas":
             assert np.abs(a - b).max() < 2e-5 * vmax, sp
         elif name == "particle_velocity":
-            bulk = _bulk(ND if sp == "dm" else NS)
+            bulk = _bulk(nd if sp == "dm" else ns)
             sa = np.linalg.norm(a - bulk, axis=1)
             sb = np.linalg.norm(b - bulk, axis=1)
             rel = np.abs(sa - sb) / sa
