@@ -139,13 +139,30 @@ Phases, in order; any failure exits non-zero before the last line:
     a moved result equal to the eager body); a ``z`` sweep of four values
     of ``merger_ic_fused`` (one program); phase 9's gradient again, with
     the eager calls it made;
-23. print one JSON line of kernel numbers;
-24. print the card's name and power limit, then the last line
+23. the class path's particle draws and the IC scene's gas mixing as
+    captured programs (the draw tables, K1 inside the collisionless ones,
+    the draws, the mixing of combine and resample): at class-4096-1e7
+    each species (gas, tracers, DM with potentials, stars, Osipkov-Merritt
+    DM) on a fresh model and again with its tables held, and the two- and
+    three-halo IC scenes at 1.05e7 particles (draws and combine on fresh
+    models, combine alone, resample with a passive scalar), each first
+    (captures) and three warm calls on models of other masses and
+    concentrations against the eager bodies bit for bit, K1 counted from
+    inside the draw-table program (1 per species and fresh model, 0 on
+    held tables), no sync under a program call (the syncs left outside
+    named: ``halo_generators``' seeds, ``generate_particle_radii``'s
+    reads), eager and graph warm wall,
+    capture seconds, host launches, pool growth and static bytes, the
+    host launches of combine's eager part, and phases 7 and 13's QA on
+    the first call's particles;
+24. print one JSON line of kernel numbers;
+25. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phases 4-7, 12, 13-18 and 20 run the programs as a user does: on the card
-each batch program and each function of the class path and the merger
-stages is a CUDA graph, captured at its first call and replayed after
+each batch program, each function of the class path and the merger
+stages, each draw's tables and draw and the gas mixing is a CUDA graph,
+captured at its first call and replayed after
 (``cluster_generator_tpu_torch/core/compiled.py``).  The memoized
 programs are dropped before phase 19, whose ranks need the card's memory.
 
@@ -3045,8 +3062,11 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def tree_diff(a, b, where="out"):
-    """max |a - b| over two output trees of one structure; 0 only where
-    every tensor is equal bit for bit (shapes and types too)."""
+    """max |a - b| over two output trees of one structure (a particle
+    container by its fields); 0 only where every tensor is equal bit for
+    bit (shapes and types too)."""
+    if hasattr(a, "fields"):
+        a, b = dict(a.fields), dict(b.fields)
     if isinstance(a, dict):
         check(set(a) == set(b), f"{where}: keys {set(a) ^ set(b)}")
         return max((tree_diff(a[k], b[k], f"{where}/{k}") for k in a),
@@ -3406,36 +3426,48 @@ def class_case(cg, V, k, gravity="newtonian", part="setup", dev="cuda",
     return out
 
 
+def programs_used(C, stamp):
+    """The memoized programs looked up (made or replayed) since ``stamp``
+    (a value of ``compiled._STAMP``)."""
+    return [p for p in C.programs() if p.stamp > stamp]
+
+
 def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
-                     syncs_outside=False):
-    """Phase 22's checks on one path of programs: the first call (each
+                     syncs_outside=False, k1_program=None):
+    """Phases 22-23's checks on one path of programs: the first call (each
     program's eager warm-up and capture) and ``n_cases - 1`` warm calls
     with parameters of their own, each against ``eager`` (the same calls
-    under ``compiled.eager()``) bit for bit; ``k1`` K1 launches per call;
-    no sync in a warm call (with ``syncs_outside``: none under a program
-    call, for a path whose host checks and logs sit between its
-    programs); eager and graph warm wall, host launches, device busy; the
-    programs made, their capture seconds and pool growth.  Returns the
-    report."""
+    under ``compiled.eager()``) bit for bit; ``k1`` K1 launches per call,
+    nodes of the programs the call used (with ``k1_program``: of that
+    program alone); no new program in a warm call; no sync in a warm call
+    (with ``syncs_outside``: none under a program call, for a path whose
+    host checks, logs and seeds sit between its programs; the others
+    named); eager and graph warm wall, host launches, device busy; the
+    programs used and made, their capture seconds, pool growth and static
+    bytes.  Returns ``(report, the first call's output)``."""
+    stamp = next(C._STAMP)
     before = C.programs()
     K.invert_cdf_rows.launches = 0
     first, first_s = timed(lambda: graph(0))
-    made = new_programs(C, before)
-    progs = [p for ps in made.values() for p in ps]
-    rep = {"programs": {k: len(v) for k, v in made.items()},
+    used = programs_used(C, stamp)
+    made = [p for p in used if all(p is not q for q in before)]
+    nodes = {p.key[0][0]: sum(p.nodes.values()) for p in used
+             if sum(p.nodes.values())}
+    rep = {"programs": sorted(p.key[0][0] for p in used),
+           "made": sorted(p.key[0][0] for p in made),
            "first_s": first_s, "k1": K.invert_cdf_rows.launches,
-           "capture_s": sum(p.capture_s or 0.0 for p in progs),
-           "pool_bytes": sum(p.pool_bytes or 0 for p in progs),
-           "static_bytes": sum(p.static_bytes or 0 for p in progs),
-           "k1_nodes": sum(sum(p.nodes.values()) for p in progs),
+           "k1_nodes": nodes,
+           "capture_s": sum(p.capture_s or 0.0 for p in made),
+           "pool_bytes": sum(p.pool_bytes or 0 for p in made),
+           "static_bytes": sum(p.static_bytes or 0 for p in used),
            "max_abs_diff": [tree_diff(first, eager(0), label)]}
     # (programs of one key serve both species: the DM and stellar tables
     # of one model are one program, replayed for the second)
-    check(rep["k1"] == k1 and (rep["k1_nodes"] > 0) == (k1 > 0)
-          and all(p.graph is not None for p in progs),
-          f"{label}: first call K1 {rep['k1']}, nodes {rep['k1_nodes']}, "
-          f"programs {rep['programs']}")
-    del first
+    check(rep["k1"] == k1 and bool(nodes) == (k1 > 0)
+          and (k1_program is None or set(nodes) <= {k1_program})
+          and all(p.graph is not None for p in used),
+          f"{label}: first call K1 {rep['k1']}, nodes {nodes}, programs "
+          f"{rep['programs']}")
     for k in range(1, n_cases):
         K.invert_cdf_rows.launches = 0
         before = C.programs()
@@ -3464,9 +3496,9 @@ def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
         rep[f"{side}_busy_ms"], rep[f"{side}_kernels"] = busy, len(kern)
         rep[f"{side}_busy_share"] = busy / wall_ms
     print(f"{label}: first call {first_s:.3f} s (captures "
-          f"{rep['capture_s']:.3f} s, programs {rep['programs']}), warm "
-          f"eager {rep['eager_warm_s']:.4f} s / graph "
-          f"{rep['graph_warm_s']:.4f} s, host launches per warm call "
+          f"{rep['capture_s']:.3f} s of {rep['made']}), programs "
+          f"{rep['programs']}, warm eager {rep['eager_warm_s']:.4f} s / "
+          f"graph {rep['graph_warm_s']:.4f} s, host launches per warm call "
           f"{rep['eager_host_launches']} / {rep['graph_host_launches']}, "
           f"device busy (profiled) {rep['eager_busy_ms']:.2f} / "
           f"{rep['graph_busy_ms']:.2f} ms in {rep['eager_kernels']} / "
@@ -3474,8 +3506,9 @@ def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
           f"{rep['pool_bytes'] / 2**30:.3f} GiB, static buffers "
           f"{rep['static_bytes'] / 2**30:.3f} GiB; syncs {syncs}; max "
           f"|graph - eager| over {n_cases} calls "
-          f"{max(rep['max_abs_diff'])}; K1 per call {k1} [{card}]")
-    return rep
+          f"{max(rep['max_abs_diff'])}; K1 per call {k1}, nodes {nodes} "
+          f"[{card}]")
+    return rep, first
 
 
 def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
@@ -3509,7 +3542,7 @@ def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
                           ("emond", dict(gravity="emond", part="model"), 0)):
         def graph(k, kw=kw):
             return class_case(cg, V, k, dev=dev, points=sz["points"], **kw)
-        reports[label] = compare_programs(
+        reports[label], _ = compare_programs(
             C, K, f"class {label} programs ({sz['points']} points)", graph,
             eager(graph), n_cases, k1, card, syncs_outside=True)
         launches[f"class_programs_{label}"] = reports[label]["k1"]
@@ -3559,7 +3592,7 @@ def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
         return P.sample_merger_ic(fields, tables, ctr, vel, r_max, n_gas,
                                   n_dm, n_star, generator=gen), fields
 
-    reports["staged"] = compare_programs(
+    reports["staged"], _ = compare_programs(
         C, K, f"staged merger programs ({sum(map(sum, sz['merger']['n']))} "
         "particles)", staged, eager(staged), n_cases, 2, card)
     launches["staged_merger"] = reports["staged"]["k1"]
@@ -3608,6 +3641,276 @@ def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
     print("class and staged programs:", json.dumps(reports, default=str))
     C.clear()
     return launches
+
+
+# ----------------------------------------------------------------- phase 23
+# the class path's draws and the IC scene's gas mixing as programs:
+# class-4096-1e7 (each species fresh and with its tables held) and
+# ic-scene-2h-1e7 / -3h- (draws + combine, combine alone, resample)
+DRAWS = {"points": CLASS_POINTS, "counts": CLASS_COUNTS, "om": CLASS_OM_COUNT,
+         "ic": IC_TOTALS, "halos": (2, 3), "replays": 3}
+DRAWS_SEED = 300            # case k draws from seed DRAWS_SEED + k
+
+
+def draw_model(cg, k, points, dev):
+    """Case k of the class draws: the canonical model with an ``M200`` and
+    ``c`` of its own, its DFs and its host copy of the radii made."""
+    rhog, rhot = class_profiles(cg, CLASS_M200 * (1.0 + 0.15 * k),
+                                CLASS_CONC + 0.4 * k, device=dev)
+    m = cg.ClusterModel.from_dens_and_tden(
+        0.1, 1e4, rhog, rhot, stellar_density=0.02 * rhot, num_points=points,
+        device=dev)
+    m.dm_virial, m.star_virial, m._host_field("radius")  # noqa: B018
+    return m
+
+
+def fresh_copy(cg, V, m):
+    """A model of ``m``'s fields and DFs with no draw table, no speed table
+    and ``m``'s host copies (as a model read from a file holds them): its
+    first draw builds every table, as a new model's does."""
+    c = cg.ClusterModel(m.num_elements, dict(m.fields), gravity=m.gravity,
+                        device=m.device)
+    c._host_fields = dict(m._host_fields)
+    c._dm_virial = V.VirialEquilibrium(c, "dark_matter", df=m.dm_virial.df)
+    c._star_virial = V.VirialEquilibrium(c, "stellar", df=m.star_virial.df)
+    return c
+
+
+def run_draw_programs(cg, I, PA, V, K, card, dev="cuda", sz=DRAWS):
+    """Phase 23: the class path's draws and the IC scene's gas mixing as
+    captured programs.  class-4096-1e7: each species (gas, tracers, DM with
+    potentials, stars, Osipkov-Merritt DM) on a fresh model (the tables'
+    program, K1 inside for the collisionless ones, and the draw's) and
+    again with its tables held (the draw's program alone); the IC scenes
+    of 2 and 3 halos at 1.05e7 particles: draws and combine on fresh
+    models, combine alone, resample with a passive scalar.  Each first
+    and ``replays`` warm calls on models of other masses and
+    concentrations against the eager bodies, bit for bit
+    (:func:`compare_programs`), with phases 7 and 13's QA on the first
+    call's particles; the syncs left outside the programs named.  Returns
+    K1's launches by path."""
+    from cluster_generator_tpu_torch import sampling as S
+    from cluster_generator_tpu_torch.core import compiled as C
+
+    C.clear()
+    n_cases = sz["replays"] + 1
+    n, r_max = sz["counts"], R_MAX
+    reports, launches = {}, {}
+
+    def eager(fn):
+        def run(k):
+            with C.eager():
+                return fn(k)
+        return run
+
+    def gen(k):
+        return torch.Generator(device=dev).manual_seed(DRAWS_SEED + k)
+
+    def compare(label, graph, k1, reference=None, strict=True):
+        """:func:`compare_programs` with K1 in the draw-table program;
+        ``strict``: no sync at all in a warm call."""
+        return compare_programs(C, K, label, graph, reference or eager(graph),
+                                n_cases, k1, card, syncs_outside=not strict,
+                                k1_program="_collisionless_tables_program")
+
+    models = [draw_model(cg, k, sz["points"], dev) for k in range(n_cases)]
+    oms = [V.VirialEquilibrium(m, r_a=CLASS_R_A) for m in models]
+
+    def copy(k, sp):
+        """What case k's draw of ``sp`` is made on, with no table held: a
+        fresh copy of the model, for OM its virial object."""
+        c = fresh_copy(cg, V, models[k])
+        if sp == "om":
+            return V.VirialEquilibrium(c, "dark_matter", r_a=CLASS_R_A,
+                                       df=oms[k].df)
+        return c
+
+    def species_draw(sp, obj):
+        if sp == "om":
+            return lambda g: obj.generate_particles(sz["om"], r_max=r_max,
+                                                    prng=g)
+        if sp == "dm":
+            return lambda g: obj.generate_dm_particles(
+                n["dm"], r_max=r_max, compute_potential=True, prng=g)
+        fn = getattr(obj, f"generate_{sp}_particles")
+        return lambda g: fn(n[sp], r_max=r_max, prng=g)
+
+    qa = {}
+    for sp in ("gas", "tracer", "dm", "star", "om"):
+        k1 = 0 if sp in ("gas", "tracer") else 1
+        count = sz["om"] if sp == "om" else n[sp]
+
+        def fresh(k, sp=sp):
+            return species_draw(sp, copy(k, sp))(gen(k))
+
+        rep, first = compare(f"class {sp} draw on a fresh model ({count} "
+                             f"particles, {sz['points']} points)", fresh, k1)
+        reports[f"{sp}_fresh"] = rep
+        launches[f"draw_programs_{sp}"] = rep["k1"]
+        short = "dm" if sp == "om" else sp
+        qa[sp] = class_species_qa(models[0], first, short, count, r_max)
+        if sp == "dm":
+            jeans_check(models[0], first, models[0]
+                        .compute_velocity_dispersion("dark_matter"))
+        if sp == "om":
+            check(len(beta_profile(first["dm", "particle_position"],
+                                   first["dm", "particle_velocity"],
+                                   CLASS_R_A, "class OM dm draw program"))
+                  >= 4, "too few populated bins for the OM beta")
+        del first
+        # the tables held: a copy per case, its tables built once (by the
+        # programs, and under eager() for the reference)
+        held = {side: [copy(k, sp) for k in range(n_cases)]
+                for side in ("graph", "eager")}
+        for k in range(n_cases):
+            species_draw(sp, held["graph"][k])(gen(k))
+            with C.eager():
+                species_draw(sp, held["eager"][k])(gen(k))
+
+        def again(k, sp=sp, side="graph"):
+            return species_draw(sp, held[side][k])(gen(k))
+
+        def again_eager(k, sp=sp):
+            with C.eager():
+                return again(k, sp, "eager")
+
+        reports[f"{sp}_held"], _ = compare(
+            f"class {sp} draw, tables held ({count} particles)", again, 0,
+            again_eager)
+        del held
+    print("class draw programs: QA", json.dumps(qa))
+
+    # the syncs left outside: generate_particle_radii's float of mtot (and
+    # its copy of a grid given as a tensor)
+    m = models[0]
+    for form, grid in (("tensor", m["radius"]),
+                       ("array", m._host_field("radius"))):
+        syncs = count_syncs(lambda: S.generate_particle_radii(
+            grid, m["gas_mass"], 1000, r_max=r_max, prng=gen(0),
+            device=dev))
+        reports[f"particle_radii_{form}_syncs"] = syncs
+        print(f"generate_particle_radii, grid as a {form}: syncs {syncs} "
+              f"[{card}]")
+    del models, oms, m
+
+    for n_halos in sz["halos"]:
+        C.clear()
+        reports[f"ic_{n_halos}"], launches[f"draw_programs_ic_{n_halos}"] = \
+            run_ic_programs(cg, I, PA, V, compare, card, n_halos, n_cases,
+                            sz["ic"], dev)
+    print("draw and gas-mixing programs:", json.dumps(reports, default=str))
+    C.clear()
+    return {k: v for k, v in launches.items() if v}
+
+
+def offsets_and_sum(PA, halos, centers, velocities):
+    """The eager part of ``particles._combine`` before the gas mixing:
+    every species moved to its halo, the containers summed."""
+    parts = [PA.ClusterParticles.from_fields(dict(h.fields)) for h in halos]
+    for p, c, v in zip(parts, centers, velocities):
+        p.add_offsets(c, [0.0] * 3, ptypes=["gas"])
+        p.add_offsets(c, v, ptypes=[t for t in p.particle_types
+                                    if t != "gas"])
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def run_ic_programs(cg, I, PA, V, compare, card, n_halos, n_cases, totals,
+                    dev):
+    """The IC scene of ``n_halos`` halos in phase 23 (``compare``: its
+    :func:`compare_programs`); returns its report and K1's launches."""
+    label = f"IC scene {n_halos} halos"
+    halos_def = (list(zip(M200, CONC)) + [THIRD_HALO])[:n_halos]
+    centers, velocities = ic_geometry(cg, n_halos)
+    cases = []
+    for k in range(n_cases):
+        ms = scene_models(cg, [(m200 * (1.0 + 0.1 * k), c + 0.3 * k)
+                               for m200, c in halos_def], device=dev)
+        for m in ms:
+            m.dm_virial, m.star_virial  # noqa: B018
+            m.set_field("metallicity", torch.linspace(
+                1.0, 0.1, m.num_elements, dtype=torch.float64, device=dev))
+        # the counts' host copies, made once per model
+        I.halo_particle_counts(ms, [R_MAX] * n_halos, totals)
+        cases.append(ms)
+    reports, k1 = {}, 0
+    # the counts, from the models' host copies: no read from the card
+    counts = I.halo_particle_counts(cases[0], [R_MAX] * n_halos, totals)
+    ms = [fresh_copy(cg, V, m) for m in cases[1]]
+    syncs = count_syncs(lambda: I.halo_particle_counts(
+        ms, [R_MAX] * n_halos, totals))
+    _, count_s = timed(lambda: I.halo_particle_counts(
+        ms, [R_MAX] * n_halos, totals))
+    reports["counts"] = {"s": count_s, "syncs": syncs}
+    print(f"{label}: halo_particle_counts {count_s:.5f} s, syncs {syncs} "
+          f"[{card}]")
+    check(not syncs, f"{label}: the counts synchronized: {syncs}")
+
+    def setup(k):
+        # case k draws case 0's counts: the shapes of the first call
+        ms = [fresh_copy(cg, V, m) for m in cases[k]]
+        halos = ic_draws(I, ms, counts, DRAWS_SEED + k)
+        return halos + [ic_combine(PA, halos, ms, centers, velocities)]
+
+    # (halo_generators reads each halo's seeds: syncs outside the programs)
+    reports["setup"], first = compare(
+        f"{label}: draws and combine on fresh models "
+        f"({sum(totals.values())} particles)", setup, 2 * n_halos,
+        strict=False)
+    k1 += reports["setup"]["k1"]
+    *halos, scene = first
+    rep = ic_scene_qa(halos, scene, counts, centers, velocities, label)
+    rep["density_max_rel_err"] = ic_scene_density_qa(scene, cases[0],
+                                                     centers)
+    check(rep["density_max_rel_err"] < IC_DENSITY_RTOL,
+          f"{label}: mixed density vs scipy {rep['density_max_rel_err']}")
+    del first, scene
+    drawn = [ic_draws(I, cases[k], counts, DRAWS_SEED + k)
+             for k in range(n_cases)]
+
+    def combine(k):
+        halos = [PA.ClusterParticles.from_fields(dict(h.fields))
+                 for h in drawn[k]]
+        return ic_combine(PA, halos, cases[k], centers, velocities)
+
+    reports["combine"], scenes = compare(f"{label}: combine", combine, 0)
+    del scenes
+    eager_part = host_launches(lambda: offsets_and_sum(
+        PA, drawn[1], centers, velocities))
+    reports["combine"]["offsets_and_sum_host_launches"] = eager_part
+    print(f"{label}: combine's eager part (add_offsets, __add__) "
+          f"{eager_part} host launches per call [{card}]")
+    scenes = [combine(k) for k in range(n_cases)]
+    for sc in scenes:
+        sc.set_field("gas", "metallicity",
+                     torch.zeros(sc.num_particles["gas"], device=dev),
+                     passive_scalar=True)
+
+    def resample(k):
+        sc = PA.ClusterParticles.from_fields(dict(scenes[k].fields))
+        for name in ("particle_mass", "density", "thermal_energy",
+                     "particle_velocity", "metallicity"):
+            sc.fields["gas", name] = sc.fields["gas", name].clone()
+        sc.passive_scalars = ["metallicity"]
+        return ic_resample(PA, sc, cases[k], centers, velocities)
+
+    reports["resample"], out = compare(
+        f"{label}: resample with a passive scalar (a copy of the gas "
+        "columns first)", resample, 0)
+    mass0 = scenes[0]["gas", "particle_mass"]
+    rep["resample_mass_max_rel_change"] = float(
+        ((out["gas", "particle_mass"] - mass0).abs() / mass0).max())
+    z = out["gas", "metallicity"]
+    check(rep["resample_mass_max_rel_change"] < 1e-12
+          and bool(torch.isfinite(z).all()) and float(z.min()) >= 0.1 - 1e-12
+          and float(z.max()) <= 1.0 + 1e-12,
+          f"{label}: resample {rep}, metallicity [{float(z.min())}, "
+          f"{float(z.max())}]")
+    reports["qa"] = rep
+    print(f"{label} programs: QA", json.dumps(rep))
+    return reports, k1
 
 
 def main() -> int:
@@ -3726,6 +4029,7 @@ def main() -> int:
     run_examples(card, root)
     launches.update(run_compiled(P, E, MG, K, card))
     launches.update(run_class_programs(cg, P, V, E, K, card, grad))
+    launches.update(run_draw_programs(cg, I, PA, V, K, card))
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

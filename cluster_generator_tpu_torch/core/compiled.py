@@ -92,12 +92,14 @@ eager_calls = 0
 
 
 def tree_map(fn, tree):
-    """``fn`` on every tensor of a tree of dicts, tuples and lists (a
-    ``None`` is an empty tree)."""
+    """``fn`` on every tensor of a tree of dicts, tuples (named ones too,
+    such as a spline) and lists (a ``None`` is an empty tree)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        items = [tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
     if tree is None:
         return None
     return fn(tree)

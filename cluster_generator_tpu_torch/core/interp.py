@@ -228,10 +228,9 @@ def interp(xq, x, y, left=None, right=None):
     x0, x1 = _gather(x, i - 1), _gather(x, i)
     y0, y1 = _gather(y, i - 1), _gather(y, i)
     dx = x1 - x0
-    # np.spacing(finfo.eps) in x's dtype: only exact-duplicate knots
-    eps = torch.tensor(torch.finfo(x.dtype).eps, dtype=x.dtype)
-    spacing = float(torch.nextafter(eps, torch.tensor(math.inf,
-                                                      dtype=x.dtype)) - eps)
+    # np.spacing(finfo.eps) in x's dtype, eps^2 for a binary format: only
+    # exact-duplicate knots
+    spacing = torch.finfo(x.dtype).eps ** 2
     dx0 = torch.abs(dx) <= spacing
     f = torch.where(dx0, y0,
                     y0 + ((q - x0) / torch.where(dx0, torch.ones_like(dx),

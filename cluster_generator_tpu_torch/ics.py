@@ -56,8 +56,12 @@ def compute_centers_for_binary(center, d, b, a=0.0):
 
 
 def _last_inside(model, field, r_max):
-    """``field`` at the last grid point below ``r_max``, as a float."""
-    return float(model[field][model["radius"] < float(r_max)][-1])
+    """``field`` at the last grid point below ``r_max``, as a float, from
+    the model's host copies (``ClusterModel._host_field``: the arrays of
+    its file, or one copy): the counts pick shapes, so the host decides
+    them without reading the card."""
+    radius = model._host_field("radius")
+    return float(model._host_field(field)[radius < float(r_max)][-1])
 
 
 def halo_particle_counts(models, r_max, num_particles, r_max_tracer=None):
@@ -94,7 +98,8 @@ def halo_particle_counts(models, r_max, num_particles, r_max_tracer=None):
 
 def halo_generators(base):
     """One ``torch.Generator`` per species, on ``base``'s device, seeded
-    by the next four 62-bit integers ``base`` gives."""
+    by the next four 62-bit integers ``base`` gives (one read from the
+    device: the seeds fix every stream of the scene)."""
     seeds = torch.randint(0, 2**62, (len(SPECIES),), generator=base,
                           device=base.device).tolist()
     return {sp: torch.Generator(device=base.device).manual_seed(s)
@@ -128,8 +133,12 @@ def draw_halo_particles(model, counts, r_max, r_max_tracer=None,
 class ClusterICs:
     """A scene of one to three halos, each a model HDF5 file with a center
     and a bulk velocity.  ``device``: where models and particles live (the
-    card unless ``"cpu"`` is asked for).  It runs eagerly on the card (no
-    captured program)."""
+    card unless ``"cpu"`` is asked for).  On the card its compute runs as
+    captured programs (:mod:`.core.compiled`): each species' draw tables
+    and draw (:mod:`.sampling`), the gas mixing of the combine and the
+    resample (:mod:`.particles`); the counts come from the host copies of
+    the fields the model files held, and each halo's generators take one
+    read of four seeds from the card (:func:`halo_generators`)."""
 
     def __init__(self, basename, num_halos, profiles, center, velocity,
                  num_particles=None, mag_file=None, particle_files=None,

@@ -45,8 +45,9 @@ class ClusterModel:
     constructors and its DFs, virial checks and speed tables run as the
     captured programs of the builders and of :mod:`..virial`
     (:mod:`..core.compiled`: memoized CUDA graphs on the card, keyed by
-    the profiles' structure, their parameters inputs); its draws' tables
-    and its checks' reductions run eagerly, op by op."""
+    the profiles' structure, their parameters inputs), and so do its
+    draws' tables and its draws (:mod:`..sampling`); its checks'
+    reductions run eagerly, op by op."""
 
     default_fields = [
         "density", "temperature", "pressure", "total_density",
@@ -74,6 +75,8 @@ class ClusterModel:
         self._star_virial = None
         # the gas draws' tables (sampling._draw_tables)
         self._draw_tables = None
+        # host copies of fields (see _host_field)
+        self._host_fields = {}
 
     def __repr__(self):
         rr = self.fields.get("radius")
@@ -98,6 +101,19 @@ class ClusterModel:
         """Every field as a numpy array on the host."""
         return OrderedDict((k, v.detach().cpu().numpy())
                            for k, v in self.fields.items())
+
+    def _host_field(self, name):
+        """Field ``name`` as a float64 numpy array, for what the host
+        decides from it (the grid index of a draw's ``r_max``, the grid's
+        log-uniform gate, an IC scene's particle counts): copied from the
+        device once and kept until the field is replaced or written in
+        place.  A model read from a file starts with the arrays it read."""
+        t = self.fields[name]
+        held = self._host_fields.get(name)
+        if held is None or held[0] is not t or held[1] != t._version:
+            held = (t, t._version, t.detach().cpu().numpy())
+            self._host_fields[name] = held
+        return held[2]
 
     # ------------------------------------------------------- lazy virials
     @property
@@ -218,6 +234,8 @@ class ClusterModel:
         for field in fnames:
             fields[field] = fields[field][mask]
         model = cls(int(mask.sum()), fields, gravity=gravity, device=device)
+        model._host_fields = {k: (t, t._version, fields[k])
+                              for k, t in model.fields.items()}
         if dm_df is not None:
             model._dm_virial = VirialEquilibrium(model, ptype="dark_matter",
                                                  df=dm_df[mask])

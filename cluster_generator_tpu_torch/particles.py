@@ -5,11 +5,15 @@ galactic units on one device: float64, except ``particle_index``, which
 keeps its integer dtype.  The gas mixing of :func:`combine_two_clusters`,
 :func:`combine_three_clusters` and the ``resample_*`` functions runs on
 the particles' device, one halo at a time (halo models may sit on grids of
-different sizes).  Nothing here copies a field to the host but the writers,
-:meth:`ClusterParticles.to_numpy` and :meth:`ClusterParticles.to_yt_dataset`;
-the Gadget writer assembles its blocks on the device and copies them to the
-host at once (:func:`_gadget_blocks`).  ``h5py`` and ``yt`` are imported
-inside the functions that need them.
+different sizes), as one program (:func:`~.core.compiled.function`; on
+the card a memoized CUDA graph, replayed for halos of other parameters on
+grids of the same sizes); the moves to the halos' centers and the sum of
+the containers before it run op by op.  Nothing here copies a field to
+the host but the writers, :meth:`ClusterParticles.to_numpy` and
+:meth:`ClusterParticles.to_yt_dataset`; the Gadget writer assembles its
+blocks on the device and copies them to the host at once
+(:func:`_gadget_blocks`).  ``h5py`` and ``yt`` are imported inside the
+functions that need them.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .core import compiled
 from .core import constants as C
-from .core.device import resolve_device
+from .core.device import host_to_device, resolve_device
 from .core.interp import bracket_for_spline, cubic_spline, spline_eval_at
 from .core.logging import mylog
 from .core.staging import to_host
@@ -461,11 +466,12 @@ class ClusterParticles:
         self._update_field_names()
 
     def add_offsets(self, r_ctr, v_ctr, ptypes=None):
-        """Shift positions and velocities."""
+        """Shift positions and velocities (offsets given on the host go to
+        the device through pinned memory: no host sync)."""
         if ptypes is None:
             ptypes = self.particle_types
-        r_ctr = self._coerce(("", ""), r_ctr)
-        v_ctr = self._coerce(("", ""), v_ctr)
+        r_ctr, v_ctr = (self._coerce(("", ""), x) if isinstance(
+            x, torch.Tensor) else _f64(x, self.device) for x in (r_ctr, v_ctr))
         for ptype in _ensure_list(ptypes):
             self.fields[ptype, "particle_position"] = (
                 self.fields[ptype, "particle_position"] + r_ctr)
@@ -654,14 +660,66 @@ def _halo_field(h, name, device):
     return torch.as_tensor(h[name], dtype=torch.float64, device=device)
 
 
-def _put(t, value, mask):
-    """``t[mask] = value[mask]`` in place, with no host sync (``mask``
-    None: every row)."""
-    if mask is None:
-        t.copy_(value)
-    else:
-        m = mask.reshape(mask.shape + (1,) * (t.ndim - 1))
-        t.copy_(torch.where(m, value, t))
+def _f64(value, device):
+    """A host value (centers, velocities, radii) as a float64 tensor on
+    ``device``, through pinned memory: no host sync."""
+    return host_to_device(np.asarray(value, dtype=np.float64), device)
+
+
+@compiled.function(static=("resample",), name="sample_clusters")
+def _mix_gas(pos, columns, halos, centers, bulk, radii, resample):
+    """The body of :func:`_sample_clusters` (one program): the new values
+    of the gas ``columns`` (density, thermal energy, velocity, the passive
+    scalars and, with ``resample``, the mass), each taking the old value
+    outside the radial cut.  ``halos[h]``: ``None`` for a halo without
+    gas, else its radius, density and pressure grids and its scalars' grids
+    (``"scalars"``, by name); ``centers``/``bulk`` (H, 3); ``radii`` (H,)
+    or ``None``.  The halo loop is unrolled: each halo's grid may have a
+    size of its own."""
+    # halo-centric radii for every halo, so that the radial cut holds
+    # even where a halo has no gas fields
+    halo_radius = [torch.sqrt(((pos - c) ** 2).sum(dim=1)) for c in centers]
+    in_cut = None
+    if radii is not None:
+        in_cut = torch.zeros(pos.shape[0], dtype=torch.bool,
+                             device=pos.device)
+        for r_h, rc in zip(halo_radius, radii):
+            in_cut |= r_h <= rc
+
+    rho = e_sum = mom = 0.0
+    per_halo = []
+    for i, h in enumerate(halos):
+        if h is None:
+            continue
+        rr, dens = h["radius"], h["density"]
+        r_part = torch.clamp(halo_radius[i], rr[0], rr[-1])
+        idx = bracket_for_spline(rr, r_part)
+        rho_i = spline_eval_at(cubic_spline(rr, dens), r_part, idx)
+        eint_grid = 1.5 * h["pressure"] / dens
+        e_sum = e_sum + spline_eval_at(cubic_spline(rr, eint_grid), r_part,
+                                       idx) * rho_i
+        rho = rho + rho_i
+        mom = mom + bulk[i][None, :] * rho_i[:, None]
+        per_halo.append((h, rr, r_part, idx, rho_i))
+
+    new = {}
+    if resample:
+        # the volume of the OLD density, before it is overwritten
+        vol = columns["particle_mass"] / columns["density"]
+        new["particle_mass"] = rho * vol
+    new["density"] = rho
+    new["thermal_energy"] = e_sum / rho
+    new["particle_velocity"] = mom / rho[:, None]
+    for name in per_halo[0][0]["scalars"]:
+        mixed = 0.0
+        for h, rr, r_part, idx, rho_i in per_halo:
+            sp = cubic_spline(rr, h["scalars"][name])
+            mixed = mixed + spline_eval_at(sp, r_part, idx) * rho_i
+        new[name] = mixed / rho
+    if in_cut is None:
+        return new
+    return {k: torch.where(in_cut.reshape(in_cut.shape + (1,) * (v.ndim - 1)),
+                           v, columns[k]) for k, v in new.items()}
 
 
 def _sample_clusters(particles, hses, center, velocity, radii=None,
@@ -680,67 +738,39 @@ def _sample_clusters(particles, hses, center, velocity, radii=None,
     extrapolation can turn density or 1.5 P/rho negative.  With ``radii``
     only particles within ``radii[h]`` of some halo ``h`` are rewritten.
     The fields are written in place.
+
+    One program (:func:`_mix_gas`), keyed by the number of halos, which
+    of them have gas, their grids' sizes, ``resample``, whether ``radii``
+    are given and the scalars' names; the centers, velocities and radii
+    are inputs.  It returns the new columns, written here into the
+    particles' tensors.
     """
     scalars = list(passive_scalars) if passive_scalars else []
     dev = particles.device
-    halo_centers = torch.as_tensor(np.asarray(center, dtype=np.float64),
-                                   device=dev)
-    bulk = torch.as_tensor(np.asarray(velocity, dtype=np.float64),
-                           device=dev)
-    pos = particles["gas", "particle_position"]
-
-    usable = []
-    for i, h in enumerate(hses):
+    halos = []
+    for h in hses:
         if "density" in h:
-            usable.append(i)
+            halos.append({
+                "radius": _halo_field(h, "radius", dev),
+                "density": _halo_field(h, "density", dev),
+                "pressure": _halo_field(h, "pressure", dev),
+                "scalars": {s: _halo_field(h, s, dev) for s in scalars}})
         else:
             mylog.warning("No density field found in %s. Skipping.", h)
-    if not usable:
+            halos.append(None)
+    if all(h is None for h in halos):
         raise ValueError(
             "Gas mixing needs at least one halo model with a 'density' "
             f"field; none of the {len(hses)} provided models has one.")
-
-    # halo-centric radii for every halo, so that the radial cut holds
-    # even where a halo has no gas fields
-    halo_radius = [torch.sqrt(((pos - c) ** 2).sum(dim=1))
-                   for c in halo_centers]
-    in_cut = None
-    if radii is not None:
-        r_cut = np.asarray(radii, dtype=np.float64)
-        in_cut = torch.zeros(pos.shape[0], dtype=torch.bool, device=dev)
-        for r_h, rc in zip(halo_radius, r_cut):
-            in_cut |= r_h <= float(rc)
-
-    rho = e_sum = mom = 0.0
-    per_halo = []
-    for i in usable:
-        h = hses[i]
-        rr = _halo_field(h, "radius", dev)
-        dens = _halo_field(h, "density", dev)
-        r_part = torch.clamp(halo_radius[i], rr[0], rr[-1])
-        idx = bracket_for_spline(rr, r_part)
-        rho_i = spline_eval_at(cubic_spline(rr, dens), r_part, idx)
-        eint_grid = 1.5 * _halo_field(h, "pressure", dev) / dens
-        e_sum = e_sum + spline_eval_at(cubic_spline(rr, eint_grid), r_part,
-                                       idx) * rho_i
-        rho = rho + rho_i
-        mom = mom + bulk[i][None, :] * rho_i[:, None]
-        per_halo.append((h, rr, r_part, idx, rho_i))
-
-    if resample:
-        # the volume of the OLD density, before it is overwritten
-        vol = (particles["gas", "particle_mass"]
-               / particles["gas", "density"])
-        _put(particles["gas", "particle_mass"], rho * vol, in_cut)
-    _put(particles["gas", "density"], rho, in_cut)
-    _put(particles["gas", "thermal_energy"], e_sum / rho, in_cut)
-    _put(particles["gas", "particle_velocity"], mom / rho[:, None], in_cut)
-    for name in scalars:
-        mixed = 0.0
-        for h, rr, r_part, idx, rho_i in per_halo:
-            sp = cubic_spline(rr, _halo_field(h, name, dev))
-            mixed = mixed + spline_eval_at(sp, r_part, idx) * rho_i
-        _put(particles["gas", name], mixed / rho, in_cut)
+    names = (["particle_mass"] if resample else []) + [
+        "density", "thermal_energy", "particle_velocity"] + scalars
+    columns = {name: particles["gas", name] for name in names}
+    new = _mix_gas(particles["gas", "particle_position"], columns, halos,
+                   _f64(center, dev), _f64(velocity, dev),
+                   None if radii is None else _f64(radii, dev),
+                   resample=bool(resample))
+    for name, value in new.items():
+        columns[name].copy_(value)
     return particles
 
 
@@ -779,32 +809,39 @@ def combine_three_clusters(particles1, particles2, particles3, hse1, hse2,
                     [velocity1, velocity2, velocity3])
 
 
-def resample_one_cluster(particles, hse, center, velocity):
-    """One halo's profiles resampled onto relaxed gas particles: density
-    and thermal energy splined at each particle's radius, masses scaled by
-    the new density at fixed volume, velocities set to ``velocity``."""
-    if "gas" not in particles.particle_types:
-        return particles
-    dev = particles.device
-    center = torch.as_tensor(np.asarray(center, dtype=np.float64),
-                             device=dev)
-    velocity = torch.as_tensor(np.asarray(velocity, dtype=np.float64),
-                               device=dev)
-    pos = particles["gas", "particle_position"]
-    rr = _halo_field(hse, "radius", dev)
-    dens_grid = _halo_field(hse, "density", dev)
+@compiled.function(name="resample_one_cluster")
+def _resample_one(pos, mass, density, rr, dens_grid, pres_grid, center):
+    """The body of :func:`resample_one_cluster` (one program): the new
+    thermal energy, mass and density of the gas."""
     # clamped to the model grid, as in _sample_clusters
     r = torch.clamp(torch.sqrt(((pos - center) ** 2).sum(dim=1)),
                     rr[0], rr[-1])
     idx = bracket_for_spline(rr, r)
     dens = spline_eval_at(cubic_spline(rr, dens_grid), r, idx)
-    e_grid = 1.5 * _halo_field(hse, "pressure", dev) / dens_grid
-    particles["gas", "thermal_energy"] = spline_eval_at(
-        cubic_spline(rr, e_grid), r, idx)
-    vol = particles["gas", "particle_mass"] / particles["gas", "density"]
-    particles["gas", "particle_mass"] = dens * vol
-    particles["gas", "particle_velocity"][:, :] = velocity
-    particles["gas", "density"] = dens
+    e_grid = 1.5 * pres_grid / dens_grid
+    return {"thermal_energy": spline_eval_at(cubic_spline(rr, e_grid), r,
+                                             idx),
+            "particle_mass": dens * (mass / density), "density": dens}
+
+
+def resample_one_cluster(particles, hse, center, velocity):
+    """One halo's profiles resampled onto relaxed gas particles: density
+    and thermal energy splined at each particle's radius, masses scaled by
+    the new density at fixed volume, velocities set to ``velocity``.  One
+    program (:func:`_resample_one`); the velocities are written in place
+    after it."""
+    if "gas" not in particles.particle_types:
+        return particles
+    dev = particles.device
+    new = _resample_one(
+        particles["gas", "particle_position"],
+        particles["gas", "particle_mass"], particles["gas", "density"],
+        _halo_field(hse, "radius", dev), _halo_field(hse, "density", dev),
+        _halo_field(hse, "pressure", dev), _f64(center, dev))
+    particles["gas", "thermal_energy"] = new["thermal_energy"]
+    particles["gas", "particle_mass"] = new["particle_mass"]
+    particles["gas", "particle_velocity"][:, :] = _f64(velocity, dev)
+    particles["gas", "density"] = new["density"]
     return particles
 
 

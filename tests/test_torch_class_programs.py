@@ -13,8 +13,8 @@
   JAX speed table runs its plain inversion (``use_pallas=False``), which
   the JAX tests hold against the interpreted Pallas kernel.
 * The class path as a whole (profiles -> ``from_dens_and_tden`` ->
-  ``VirialEquilibrium`` -> a DM draw with the JAX draw's uniforms) against
-  the JAX package's.
+  ``VirialEquilibrium`` -> a DM draw with the JAX draw's uniforms, whose
+  tables program builds the speed table) against the JAX package's.
 * The memo: a new ``M200``, rescale factor or freshly composed profile of
   the same structure replays the program; a new structure, ``order``,
   ``gravity``, table knob or ``a0`` makes a new one; a class-path run
@@ -390,9 +390,11 @@ def test_class_path_matches_jax():
                 - np.linalg.norm(np.asarray(want["dm", "particle_velocity"]),
                                  axis=1))
     assert (dv / v_esc).max() < 3e-4
+    # the speed table (K1) runs inside the draw-table program
     for name in ("_bisect", "build_from_dens_and_tden", "compute_df",
-                 "speed_inverse_cdf_table"):
+                 "_collisionless_tables_program", "_draw_collisionless"):
         assert _n_programs(name) == 1, name
+    assert _n_programs("speed_inverse_cdf_table") == 0
 
 
 # --------------------------------------------------------------- the memo

@@ -412,11 +412,19 @@ def test_scene_program_equals_its_eager_body():
 
 # --------------------------------------------------------------- mechanics
 @pytest.mark.parametrize("kind", ["collisionless", "gas", "merger",
-                                  "datagen"])
+                                  "datagen", "class_gas",
+                                  "class_collisionless"])
 def test_uniforms_drawn_in_place_equal_fresh_ones(kind):
-    """The static buffers are filled with the numbers a fresh draw gives."""
+    """The static buffers are filled with the numbers a fresh draw gives
+    (the class draws': ``num // sub_sample`` radii and speeds)."""
     def draw(seed, out=None):
         g = torch.Generator().manual_seed(seed)
+        if kind.startswith("class"):
+            from cluster_generator_tpu_torch import sampling as S
+            if kind == "class_gas":
+                return S._gas_uniforms(g, 70, 23, "cpu", out=out)
+            return S._collisionless_uniforms(g, 70, 23, torch.float32,
+                                             "cpu", out=out)
         if kind == "collisionless":
             from cluster_generator_tpu_torch.core.draws import (
                 collisionless_uniforms)
