@@ -43,8 +43,9 @@ Phases, in order; any failure exits non-zero before the last line:
    central difference;
 10. the random fields: the 512^3 float32 divergence-free magnetic field
     (first run, three warm runs, peak memory) with its rms, divergence and
-    spectrum checks, once at 1024^3, the vector potential with the curl
-    check at 128^3;
+    spectrum checks, once at 1024^3 (the program's peak and the memory
+    it holds after the call beside its eager body's), the vector
+    potential with the curl check at 128^3;
 11. a float64 radial magnetic field over the merger IC (two class-path
     models, 282^3 with padding) attached to the 5e6 gas particles of the
     1e7-particle IC and mapped onto a ``ClusterParticles``; card against
@@ -100,7 +101,11 @@ Phases, in order; any failure exits non-zero before the last line:
     ``sample_merger_ic`` with the rank's generator; the sharded random
     field at 1024^3 float32 with its rms, divergence and peak memory; a
     cfg5c mesh batch of 256 and a cfg6 mesh batch of 64 scenes, bit for
-    bit against no mesh), (b) a world of four on gloo with every rank on
+    bit against no mesh; the field's three stages and each mesh batch as
+    programs, the capture call and a replay against their eager bodies,
+    bit for bit, with capture seconds, pool, workspace, the memory held
+    after the call, peak memory and host launches), (b) a world
+    of four on gloo with every rank on
     ``cuda:0`` (the real decomposition with P = 4, the transport through
     the host: each shard of the draw bit for bit against its generator,
     the field at 256^3 against world 1, the batches gathered against
@@ -155,16 +160,28 @@ Phases, in order; any failure exits non-zero before the last line:
     capture seconds, host launches, pool growth and static bytes, the
     host launches of combine's eager part, and phases 7 and 13's QA on
     the first call's particles;
-24. print one JSON line of kernel numbers;
-25. print the card's name and power limit, then the last line
+24. the last programs: the 512^3 float32 magnetic field and its vector
+    potential, the 282^3 float64 radial field over the merger, its
+    sampling at bench2h-1e7's 5e6 gas particles, and one painter batch of
+    64 chunks of 64^3, f8 and f4: each first (the capture) and three warm
+    calls with seeds, positions or chunks of their own against the eager
+    bodies bit for bit, capture seconds, host launches per warm call,
+    pool growth, static bytes, eager and graph warm wall and the peak
+    memory a warm call adds; then phase 19's mesh batches and sharded
+    field per rank again, each against its eager body;
+25. print one JSON line of kernel numbers;
+26. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
-Phases 4-7, 12, 13-18 and 20 run the programs as a user does: on the card
+Phases 4-7, 10-18 and 20 run the programs as a user does: on the card
 each batch program, each function of the class path and the merger
-stages, each draw's tables and draw and the gas mixing is a CUDA graph,
-captured at its first call and replayed after
-(``cluster_generator_tpu_torch/core/compiled.py``).  The memoized
-programs are dropped before phase 19, whose ranks need the card's memory.
+stages, each draw's tables and draw, the gas mixing, each random field,
+the trilinear sampling and each painter batch is a CUDA graph, captured
+at its first call and replayed after
+(``cluster_generator_tpu_torch/core/compiled.py``); in phase 19 so are
+each rank's mesh batches, its sharded draw and the sharded field's
+stages.  The memoized programs are dropped before phase 19, whose ranks
+need the card's memory.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -1343,7 +1360,10 @@ def make_field(F, cls, dims, seed, **kw):
 
 def run_fields(F, card):
     """The constant-rms magnetic field at 512^3 and 1024^3 and its vector
-    potential, float32, timed, with QA on the card."""
+    potential, float32, timed, with QA on the card (each a program: the
+    first call at a size captures)."""
+    from cluster_generator_tpu_torch.core import compiled as C
+
     torch.cuda.reset_peak_memory_stats()
     f, first_s = timed(lambda: make_field(F, "RandomMagneticField",
                                           FIELD_DIMS, FIELD_SEED))
@@ -1369,15 +1389,39 @@ def run_fields(F, card):
           f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} [{card}]")
     print(f"field {FIELD_DIMS}^3 QA:", json.dumps(rep))
 
-    torch.cuda.reset_peak_memory_stats()
-    f, big_s = timed(lambda: make_field(F, "RandomMagneticField",
-                                        FIELD_BIG_DIMS, FIELD_SEED))
-    peak_big = torch.cuda.max_memory_allocated() / 2**30
+    # the 1024^3 program beside the 512^3 one: the peak it adds, what it
+    # holds after the call beyond the field it returned (its noise buffer
+    # and pool), its QA with that held, then its eager body's peak
+    def big():
+        return make_field(F, "RandomMagneticField", FIELD_BIG_DIMS,
+                          FIELD_SEED)
+
+    def held_beyond(f, base):
+        sync()
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_reserved() - base - sum(
+            g.numel() * g.element_size() for g in (f.gx, f.gy, f.gz))) / 2**30
+
+    sync()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    (f, big_s), peak_big = peak_added(lambda: timed(big))
+    held = held_beyond(f, base)
     rep = field_qa(f, FIELD_B_RMS, f"field {FIELD_BIG_DIMS}^3")
     del f
-    print(f"RandomMagneticField {FIELD_BIG_DIMS}^3 float32: {big_s:.4f} s "
-          f"(first at this size), peak memory {peak_big:.2f} GiB [{card}]; "
-          "QA:", json.dumps(rep))
+    sync()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    with C.eager():
+        (f, eager_s), peak_eager = peak_added(lambda: timed(big))
+    held_eager = held_beyond(f, base)
+    del f
+    print(f"RandomMagneticField {FIELD_BIG_DIMS}^3 float32 program: "
+          f"{big_s:.4f} s (first at this size: eager warm-up and capture), "
+          f"peak memory added {peak_big:.2f} GiB, held after the call "
+          f"beyond the field {held:.2f} GiB; its eager body {eager_s:.4f} "
+          f"s, peak memory added {peak_eager:.2f} GiB, held after "
+          f"{held_eager:.2f} GiB [{card}]; QA:", json.dumps(rep))
 
     torch.cuda.reset_peak_memory_stats()
     a, vp_first = timed(lambda: make_field(
@@ -1392,6 +1436,7 @@ def run_fields(F, card):
           f"{vp_first:.4f} s, again {vp_s:.4f} s, peak memory {peak:.2f} GiB "
           f"[{card}]; finite:", json.dumps(rep))
     curl_check(F)
+    C.clear()   # the fields' programs measured: their memory back
 
 
 def curl_check(F):
@@ -2682,21 +2727,71 @@ def md_steps(rank, world, out, sz):
     peaks = [torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0]
     grids = [sz["grid"], sz["grid_small"]] if world == 1 else [
         sz["grid_small"]]
+    programs = {}
+
+    def reserved_beyond(fields):
+        # the memory the card holds (pools and workspaces included) beyond
+        # ``fields``, in GiB
+        _md_sync(dev)
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_reserved(dev) - sum(
+            x.numel() * x.element_size() for x in fields)) / 2**30
+
     for n in grids:
         d = box / n
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
+        # the grid before's workspace and programs are dropped by the
+        # first call on this grid: what the card holds before and after
 
         def field():
             return sharded_gaussian_random_field(
                 FIELD_SEED, (n,) * 3, (d,) * 3, *FIELD_L, me,
                 g_rms=FIELD_B_RMS)
 
+        def local_of(g):
+            return [x.to_local() for x in g]
+
+        held_before = reserved_beyond(()) if cuda else 0.0
         g, first = _md_timed(field, dev)
+        firsts = local_of(g)
+        held_after = reserved_beyond(firsts) if cuda else 0.0
         del g
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
         g, warm = _md_timed(field, dev)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
-        local = [x.to_local() for x in g]
+        local = local_of(g)
+        # the capture call against the replay, and the stages' eager
+        # bodies on the same seed and buffers against the replay; the eager
+        # peak less the replay's field, held
+        first_diff = tree_diff(firsts, local, f"grf{n} first")
+        del firsts
+        held = sum(x.numel() * x.element_size() for x in local) / 2**30
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with C.eager():
+            e, eager_s = _md_timed(field, dev)
+        peak_eager = (torch.cuda.max_memory_allocated(dev) / 2**30 - held
+                      if cuda else 0.0)
+        stages = [p for p in C.programs() if p.key[0][0].startswith(
+            "sharded_grf")]
+        rep = {"first_s": first, "graph_warm_s": warm,
+               "eager_warm_s": eager_s,
+               "max_abs_diff": tree_diff(local, local_of(e), f"grf{n}"),
+               "first_max_abs_diff": first_diff,
+               "programs": sorted(p.key[0][0] for p in stages),
+               "capture_s": sum(p.capture_s or 0.0 for p in stages),
+               "pool_gib": sum(p.pool_bytes or 0 for p in stages) / 2**30,
+               "workspace_gib": sum(w.nbytes() for w in C.workspaces())
+               / 2**30,
+               "workspaces": len(C.workspaces()),
+               "held_before_gib": held_before,
+               "held_after_first_gib": held_after,
+               "graph_peak_gib": peak, "eager_peak_gib": peak_eager}
+        del e
+        check(rep["max_abs_diff"] == 0.0 and rep["first_max_abs_diff"] == 0.0
+              and len(stages) == 3 and rep["workspaces"] == 1,
+              f"rank {rank}: sharded field {n}^3 programs vs eager {rep}")
+        programs[f"sharded field {n}^3 world {world} rank {rank}"] = rep
         whole = local if world == 1 else [all_gather_rows(me, x)
                                           for x in local]
         rms, div = DR.grf_checks(*whole, d)
@@ -2717,7 +2812,12 @@ def md_steps(rank, world, out, sz):
         res[f"grf{n}"] = {"first_s": first, "warm_s": warm, "peak_gib": peak,
                           "rms_rel_err": abs(rms - FIELD_B_RMS) / FIELD_B_RMS,
                           "div_over_grad": div}
-        del g, local, whole
+        del g, local, whole, stages
+        if cuda:   # with no field held
+            rep["graph_host_launches"] = host_launches(field)
+            with C.eager():
+                rep["eager_host_launches"] = host_launches(field)
+    C.clear()
 
     # one pencil transpose's all-to-all at the largest grid, by events
     n = grids[0]
@@ -2743,11 +2843,47 @@ def md_steps(rank, world, out, sz):
     res["a2a_bytes"] = x.numel() * x.element_size()
     del x, y
 
-    # the cfg5c batch through datagen_batches over 'ens', gathered
-    (_, out_d), n = _md_counted(K, lambda: next(E.datagen_batches(
-        M, c, counts, batch_size=B, num_points=sz["datagen_points"],
-        seed=DATAGEN_SEED, mesh=me)))
-    launches += n
+    # the cfg5c batch through datagen_batches over 'ens', gathered: the
+    # batch program at the rank's rows (first: the capture), again, and
+    # its eager body
+    def mesh_batch(fn, pick):
+        """``fn()`` (a batch over the mesh) first and again as programs,
+        then eagerly: ``(first result, report)``, ``pick(result)`` the
+        outputs compared; K1's launches of the program calls counted."""
+        nonlocal mesh_launches
+        before = C.programs()
+        out, first = _md_timed(lambda: _md_counted(K, fn), dev)
+        again, warm = _md_timed(lambda: _md_counted(K, fn), dev)
+        mesh_launches += out[1] + again[1]
+        with C.eager():
+            eager, eager_s = _md_timed(fn, dev)
+        made = [p for p in C.programs() if all(p is not q for q in before)]
+
+        def local(t):
+            return t.to_local() if hasattr(t, "to_local") else t
+
+        rep = {"first_s": first, "graph_warm_s": warm,
+               "eager_warm_s": eager_s,
+               "max_abs_diff": tree_diff(
+                   C.tree_map(local, pick(again[0])),
+                   C.tree_map(local, pick(eager)), "mesh"),
+               "first_max_abs_diff": tree_diff(
+                   C.tree_map(local, pick(out[0])),
+                   C.tree_map(local, pick(eager)), "mesh first"),
+               "rows": [int(p.key[3][0][0][0]) for p in made],
+               "capture_s": sum(p.capture_s or 0.0 for p in made),
+               "pool_gib": sum(p.pool_bytes or 0 for p in made) / 2**30,
+               "k1_nodes": sum(sum(p.nodes.values()) for p in made)}
+        check(rep["max_abs_diff"] == 0.0 and rep["first_max_abs_diff"] == 0.0
+              and len(made) == 1 and (not cuda or rep["k1_nodes"] == 2),
+              f"rank {rank}: mesh batch program vs eager {rep}")
+        return out[0], rep
+
+    mesh_launches = 0
+    (_, out_d), programs[f"cfg5c mesh batch world {world} rank {rank}"] = \
+        mesh_batch(lambda: next(E.datagen_batches(
+            M, c, counts, batch_size=B, num_points=sz["datagen_points"],
+            seed=DATAGEN_SEED, mesh=me)), lambda r: r[1])
     whole = C.tree_map(lambda t: all_gather_rows(me, t.to_local()), out_d)
     flat = E._flat_outputs(whole)[1]
     ref = os.path.join(out, "datagen_ref.pt")
@@ -2781,9 +2917,11 @@ def md_steps(rank, world, out, sz):
                              device=dev)
     r_max = torch.full((2,), R_MAX, dtype=torch.float64, device=dev)
     inputs = (sc["M200"], sc["conc"], ctr, vel)
-    (local, rows), n = _md_counted(K, lambda: E._mesh_call(
-        fn, me, inputs, (r_max,), E._batch_generator(SCENE_SEED, 0, dev)))
-    launches += n
+    (local, rows), programs[f"cfg6 mesh batch world {world} rank {rank}"] \
+        = mesh_batch(lambda: E._mesh_call(fn, me, inputs, (r_max,),
+                                          E._batch_generator(SCENE_SEED, 0,
+                                                             dev)),
+                     lambda r: r[0])
     whole = E._gathered(me, local, rows)
     ref = os.path.join(out, "scenes_ref.pt")
     if world == 1:
@@ -2808,6 +2946,9 @@ def md_steps(rank, world, out, sz):
     launches += n
     res["dryrun_s"] = steps
     res["launches"] = launches
+    res["mesh_launches"] = mesh_launches
+    res["programs"] = programs
+    res["pool_gib"] = sum(p.pool_bytes or 0 for p in C.programs()) / 2**30
     peaks.append(torch.cuda.max_memory_allocated(dev) / 2**30
                  if cuda else 0.0)
     res["peak_gib"] = max(peaks)
@@ -2912,7 +3053,7 @@ def run_multidevice(card, sz=MD):
     import gc
 
     dev = torch.device(sz["dev"])
-    launches = {}
+    launches, programs = {}, {}
     worlds = [(1, "nccl" if dev.type == "cuda" else "gloo"), (4, "gloo")]
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards:
@@ -2928,8 +3069,11 @@ def run_multidevice(card, sz=MD):
             ranks, wall = md_world(world, backend, out, sz)
             label = f"{backend} world {world}"
             for r in ranks:
-                launches[f"multidevice_{backend}{world}_rank{r['rank']}"] = \
-                    r["launches"]
+                tag = f"{backend}{world}_rank{r['rank']}"
+                launches[f"multidevice_{tag}"] = r["launches"]
+                launches[f"mesh_programs_{tag}"] = r["mesh_launches"]
+                programs.update({f"{k} ({backend})": v
+                                 for k, v in r["programs"].items()})
                 print(f"{label} rank {r['rank']}: " + json.dumps(
                     {k: v for k, v in r.items()
                      if k not in ("rank", "world", "backend")},
@@ -2948,7 +3092,7 @@ def run_multidevice(card, sz=MD):
               f"{n_cards} card(s) and NCCL takes one card per rank")
     check(all(n > 0 for n in launches.values()),
           f"a rank never launched K1: {launches}")
-    return launches
+    return launches, programs
 
 
 # ----------------------------------------------------------------- phase 20
@@ -3913,6 +4057,121 @@ def run_ic_programs(cg, I, PA, V, compare, card, n_halos, n_cases, totals,
     return reports, k1
 
 
+# ----------------------------------------------------------------- phase 24
+# the last programs: the 512^3 float32 field and its vector potential, the
+# 282^3 float64 radial field over the merger and its sampling at the 5e6
+# gas of bench2h-1e7, one painter batch of 64 chunks of 64^3, f8 and f4
+LAST = {"field": FIELD_DIMS, "radial": RADIAL_DIMS, "grid": GRID_DIMS,
+        "chunk": GRID_CHUNK, "batch": GRID_BATCH, "replays": 3}
+LAST_SEED = 400             # case k of a field uses seed LAST_SEED + k
+
+
+def peak_added(fn):
+    """``(fn(), GiB its peak adds to the memory allocated before it)``."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    sync()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
+    """Phase 24: the fields, the trilinear sampling and the painter as
+    captured programs.  Each first (the capture) and ``replays`` warm
+    calls with seeds, positions or chunks of their own against the eager
+    bodies (``compiled.eager()``) bit for bit (:func:`compare_programs`:
+    capture seconds, host launches per warm call, pool growth, static
+    bytes, syncs under a program call), with the peak memory a warm call
+    adds, graph and eager.  ``md``: phase 19's program reports of the
+    mesh batches and the sharded field per rank, printed again here.
+    Returns the reports."""
+    import numpy as np
+
+    from cluster_generator_tpu_torch.core import compiled as C
+    from cluster_generator_tpu_torch.core.interp import cubic_spline
+
+    C.clear()
+    n_cases = sz["replays"] + 1
+    reports = {}
+
+    def eager(fn):
+        def run(k):
+            with C.eager():
+                return fn(k)
+        return run
+
+    def compare(label, name, graph):
+        rep, first = compare_programs(C, K, label, graph, eager(graph),
+                                      n_cases, 0, card, syncs_outside=True)
+        del first
+        check(dev != "cuda" or rep["programs"] == [name],
+              f"{label}: programs {rep['programs']}, want [{name}]")
+        for side, fn in (("graph", graph), ("eager", eager(graph))):
+            _, rep[f"{side}_peak_added_gib"] = peak_added(lambda: fn(1))
+        print(f"{label}: peak memory a warm call adds, graph "
+              f"{rep['graph_peak_added_gib']:.3f} GiB / eager "
+              f"{rep['eager_peak_added_gib']:.3f} GiB [{card}]")
+        return rep
+
+    def comps(f):
+        return f.gx, f.gy, f.gz
+
+    for cls in ("RandomMagneticField", "RandomMagneticVectorPotential"):
+        n = sz["field"]
+        reports[cls] = compare(
+            f"{cls} {n}^3 float32 program", "_constant_rms_field",
+            lambda k, cls=cls: comps(
+                make_field(F, cls, n, LAST_SEED + k)))
+    C.clear()
+
+    models = merger_models(cg)
+    grid = sz["radial"] + 2 * math.ceil(0.05 * sz["radial"])   # padding
+    reports["radial"] = compare(
+        f"RadialRandomMagneticField {grid}^3 float64 program "
+        "(two halos)", "_radial_field", lambda k: comps(radial_field(
+            F, models, sz["radial"], dev, seed=LAST_SEED + k)))
+    field = radial_field(F, models, sz["radial"], dev, seed=LAST_SEED)
+    parts, _, _ = run_main_path(P)
+    pos = parts["gas", "particle_position"]
+    del parts
+    moved = [pos * (1.0 + 0.02 * k) for k in range(n_cases)]
+    reports["attach"] = compare(
+        f"attach_field_to_particles program ({pos.shape[0]} gas, "
+        f"{grid}^3)", "_trilinear",
+        lambda k: P.attach_field_to_particles(
+            {("gas", "particle_position"): moved[k]}, field)[
+                "gas", "magnetic_field"])
+    del field, moved, pos
+    C.clear()
+
+    m = build_class_model(cg, device=dev)
+    m.set_magnetic_field_from_beta(GRID_BETA)
+    sp = cubic_spline(m["radius"], m["density"])
+    dims, chunk, b = sz["grid"], sz["chunk"], sz["batch"]
+    starts = torch.as_tensor(DS.construct_chunks([dims] * 3, chunk)[
+        :, 0, :].T.astype(np.float64), device=dev)
+    deltas = torch.full((3,), GRID_BOX / dims, dtype=torch.float64,
+                        device=dev)
+    left = torch.full((3,), -GRID_BOX / 2.0, dtype=torch.float64,
+                      device=dev)
+    for f32 in (False, True):
+        reports[f"paint_{'f4' if f32 else 'f8'}"] = compare(
+            f"painter program {'f4' if f32 else 'f8'} ({b} chunks of "
+            f"{chunk}^3, {dims}^3 grid)", "_paint_program",
+            lambda k, f32=f32: DS._paint_batch(
+                sp, starts[k * b:(k + 1) * b], deltas, left, chunk, f32))
+    C.clear()
+    for name, rep in md.items():
+        print(f"phase 19's {name}: " + json.dumps(rep, default=float)
+              + f" [{card}]")
+    check(all(v == 0.0 for rep in md.values() for k, v in rep.items()
+              if k.endswith("max_abs_diff")),
+          f"phase 19's programs vs eager: {md}")
+    print("last programs:", json.dumps(reports, default=str))
+    return reports
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4022,7 +4281,8 @@ def main() -> int:
           f"a path never launched K1: {launches}")
 
     C.clear()   # the ranks need the card's memory
-    launches.update(run_multidevice(card))
+    md_launches, md_programs = run_multidevice(card)
+    launches.update(md_launches)
 
     root = os.path.dirname(os.path.abspath(__file__))
     launches["bench"] = run_bench(card, root)
@@ -4030,6 +4290,7 @@ def main() -> int:
     launches.update(run_compiled(P, E, MG, K, card))
     launches.update(run_class_programs(cg, P, V, E, K, card, grad))
     launches.update(run_draw_programs(cg, I, PA, V, K, card))
+    run_last_programs(cg, F, P, DS, K, card, md_programs)
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

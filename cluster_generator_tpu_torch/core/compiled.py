@@ -31,6 +31,17 @@ runs the eager body, the graph's plain version; any other device raises.
 A decorated function called inside a program's body (or inside
 :func:`inline`) is part of that program: it runs its body there.
 
+Buffers shared in place (the port's form of JAX's buffer donation): a
+:class:`Workspace` owns large buffers and the programs that share them.
+The first ``inplace`` inputs of :meth:`Workspace.run` are its buffers,
+which the caller fills before a call and reads after it: the program
+takes them as its static buffers (no copy in), its body may write them,
+and an output that is one of them is handed back as itself (no copy
+out).  So a chain of programs with a collective between them (the sharded
+field's stages) holds each large array once: a collective writes straight
+into the next stage's input.  A device holds one workspace of a name; one
+of another configuration drops it, with its programs, first.
+
 Random numbers: a caller's generator stays outside the graph.  Before each
 replay the uniforms are drawn eagerly from it into the static buffers, by
 the calls the eager body would make, so a replay equals the eager run bit
@@ -70,7 +81,7 @@ from .device import host_to_device
 
 __all__ = ["MAX_PROGRAMS", "Program", "run", "program", "programs",
            "clear", "config_key", "count_launch", "drawer", "tree_map",
-           "function",
+           "function", "Workspace", "workspace", "workspaces",
            "register_node", "flatten", "unflatten", "signature", "inline",
            "is_inline", "eager", "eager_calls"]
 
@@ -78,6 +89,8 @@ MAX_PROGRAMS = 8
 
 # program name -> its memo (key -> Program), least recently used first
 _MEMOS: dict = {}
+# (workspace name, device) -> its one Workspace
+_WORKSPACES: dict = {}
 _DEVICES: dict = {}
 _STAMP = itertools.count()
 # kernel wrapper -> launches recorded by the capture in progress
@@ -220,15 +233,20 @@ class Program:
     ``out`` in place and returned, or, with ``out=None``, returned as new
     tensors (``None`` for a program that draws nothing).
 
+    The first ``inplace`` inputs are a :class:`Workspace`'s buffers,
+    shared in place: they are the static buffers themselves, and an output
+    that is one of them is returned as itself.
+
     After the capture: ``capture_s`` (host seconds of the capture),
     ``pool_bytes`` (what the capture added to the device's shared pool),
     ``static_bytes`` (the static inputs, uniforms and outputs) and
     ``nodes`` (the counted kernels' launches per replay).
     """
 
-    def __init__(self, key, body):
+    def __init__(self, key, body, inplace=0):
         self.key = key
         self.body = body
+        self.inplace = inplace
         self.graph = None
         self.inputs = self.uniforms = self.outputs = None
         self.nodes: dict = {}
@@ -257,23 +275,31 @@ class Program:
             state.record(cur)
         return out
 
+    def _shared(self):
+        return _storages(self.inputs[:self.inplace])
+
     def _capture(self, state, cur, inputs, draw):
         global _TALLY
-        self.inputs = tuple(a.detach().clone(
-            memory_format=torch.contiguous_format) for a in inputs)
+        n = self.inplace
+        self.inputs = tuple(inputs[:n]) + tuple(a.detach().clone(
+            memory_format=torch.contiguous_format) for a in inputs[n:])
         self.uniforms = draw(None)
         side = state.stream
         side.wait_stream(cur)
         with torch.cuda.stream(side), inline():
             out = self.body(*self.inputs, self.uniforms)
+        # the warm-up's outputs are the caller's, used on its stream once
+        # the warm-up is done
+        cur.wait_stream(side)
+        tree_map(lambda t: t.record_stream(cur), out)
         # an output that is a static buffer (a field that is the input
-        # grid) is the caller's: the next call overwrites the buffer
-        static = _storages((self.inputs, self.uniforms))
+        # grid, the field in the noise's buffer) is cloned for the caller:
+        # the next call overwrites the buffer; a buffer shared in place is
+        # read in place
+        shared = self._shared()
+        static = _storages((self.inputs[n:], self.uniforms)) - shared
         out = tree_map(lambda t: t.clone() if t.untyped_storage().data_ptr()
                        in static else t, out)
-        # the warm-up's outputs are the caller's, used on its stream
-        tree_map(lambda t: t.record_stream(cur), out)
-        cur.wait_stream(side)
 
         torch.cuda.synchronize(inputs[0].device)
         torch.cuda.empty_cache()
@@ -296,14 +322,17 @@ class Program:
         return out
 
     def _replay(self, cur, inputs, draw):
-        for buf, a in zip(self.inputs, inputs):
+        for i, (buf, a) in enumerate(zip(self.inputs, inputs)):
             if buf.shape != a.shape:
                 raise ValueError(f"input of shape {tuple(a.shape)} for a "
                                  f"program captured at {tuple(buf.shape)}")
-            buf.copy_(a)
+            if i >= self.inplace:
+                buf.copy_(a)
         draw(self.uniforms)
         self.graph.replay()
-        out = tree_map(torch.clone, self.outputs)
+        shared = self._shared()
+        out = tree_map(lambda t: t if t.untyped_storage().data_ptr()
+                       in shared else t.clone(), self.outputs)
         for kernel, n in self.nodes.items():
             kernel.launches += n
         return out
@@ -333,9 +362,14 @@ def _memo_key(key, inputs):
             tuple((tuple(a.shape), a.dtype) for a in inputs))
 
 
-def run(key, body, inputs, draw):
+def run(key, body, inputs, draw=None):
     """``body(*inputs, draw(None))``, as the memoized program of ``key``
-    and the inputs' device, shapes and types (see :class:`Program`)."""
+    and the inputs' device, shapes and types (see :class:`Program`).  Under
+    :func:`eager` the body runs eagerly."""
+    draw = draw or _no_draw
+    if _EAGER:
+        with inline():
+            return body(*inputs, draw(None))
     return program(key, body, inputs)(inputs, draw)
 
 
@@ -357,16 +391,73 @@ def program(key, body, inputs) -> Program:
     return prog
 
 
+class Workspace:
+    """Buffers that a chain of programs shares in place, and those
+    programs: their one owner, dropped as a unit (see :func:`workspace`).
+    ``buffers``: what ``make()`` returned."""
+
+    def __init__(self, key, buffers):
+        self.key = key
+        self.buffers = buffers
+        self.programs: dict = {}
+
+    def run(self, key, body, inputs, draw=None, inplace=0):
+        """:func:`run` as a program of this workspace, whose first
+        ``inplace`` inputs are buffers of the workspace, shared in place
+        (the buffers' addresses stay, so the key is :func:`_memo_key`'s)."""
+        draw = draw or _no_draw
+        if _EAGER:
+            with inline():
+                return body(*inputs, draw(None))
+        memo_key = _memo_key(key, inputs)
+        prog = self.programs.get(memo_key)
+        if prog is None:
+            prog = self.programs[memo_key] = Program(memo_key, body, inplace)
+        else:
+            prog.stamp = next(_STAMP)
+        return prog(inputs, draw)
+
+    def nbytes(self) -> int:
+        """The bytes of the buffers."""
+        return _nbytes(self.buffers)
+
+
+def workspace(name, key, device, make) -> Workspace:
+    """The workspace ``name`` on ``device`` for ``key`` (and the
+    configuration, :func:`config_key`): the one the device holds when its
+    key is the same, else ``make()``'s buffers in a new one, after the
+    device's workspace of another key and its programs are dropped, so
+    that their memory is free for the new buffers.  :func:`clear` drops
+    every workspace."""
+    slot = (name, torch.device(device))
+    key = (key, config_key())
+    ws = _WORKSPACES.get(slot)
+    if ws is not None and ws.key == key:
+        return ws
+    _WORKSPACES.pop(slot, None)
+    ws = None   # the last reference to the old buffers, before make()
+    ws = _WORKSPACES[slot] = Workspace(key, make())
+    return ws
+
+
+def workspaces() -> list:
+    """Every workspace held, one per name and device."""
+    return list(_WORKSPACES.values())
+
+
 def programs() -> list:
-    """The memoized programs of every memo, least recently used first."""
-    return sorted((p for memo in _MEMOS.values() for p in memo.values()),
-                  key=lambda p: p.stamp)
+    """The memoized programs of every memo and workspace, least recently
+    used first."""
+    return sorted([p for memo in _MEMOS.values() for p in memo.values()]
+                  + [p for ws in _WORKSPACES.values()
+                     for p in ws.programs.values()], key=lambda p: p.stamp)
 
 
 def clear() -> None:
-    """Drop every memoized program and return their memory to the card
-    (a program a caller still holds keeps its graph)."""
+    """Drop every memoized program and workspace and return their memory
+    to the card (a program a caller still holds keeps its graph)."""
     _MEMOS.clear()
+    _WORKSPACES.clear()
     _DEVICES.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()

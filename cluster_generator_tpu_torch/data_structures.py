@@ -2,10 +2,11 @@
 
 * :func:`construct_chunks`: the chunkmap, index arithmetic in numpy;
 * the painter: a radial spline field evaluated at the cell centres of a
-  batch of chunks at once on the model's device (:func:`_paint_batch`), the
-  radii clamped to the model's radial grid, each block in the z-first
-  on-disk layout.  :func:`_paint_blocks` streams a field's batches to pinned
-  host memory, batch k's copy overlapped with batch k+1's paint
+  batch of chunks at once on the model's device (:func:`_paint_batch`, a
+  captured program on the card), the radii clamped to the model's radial
+  grid, each block in the z-first on-disk layout.  :func:`_paint_blocks`
+  streams a field's batches to pinned host memory, batch k's copy
+  overlapped with batch k+1's paint
   (``core/staging``), and needs no ``h5py``; :func:`_native_blocks` is
   the same stream painted on the host by the C++ painter (``ops/native``,
   ``engine="native"``);
@@ -24,6 +25,7 @@ import pathlib as pt
 import numpy as np
 import torch
 
+from .core import compiled
 from .core import constants as C
 from .core.device import host_to_device
 from .core.h5raw import RawSlabIO, create_early_alloc
@@ -61,7 +63,18 @@ def _paint_batch(sp, starts, deltas, left, cs, f32=False):
     starts, deltas, left = (
         a.to(dev, f64) if isinstance(a, torch.Tensor)
         else host_to_device(a, dev, f64) for a in (starts, deltas, left))
-    idx = torch.arange(cs, dtype=f64, device=dev)
+    return _paint_program(sp, starts, deltas, left, cs=int(cs),
+                          f32=bool(f32))
+
+
+@compiled.function(static=("cs", "f32"))
+def _paint_program(sp, starts, deltas, left, cs, f32):
+    """The body of :func:`_paint_batch`: one program (JAX ``_paint_chunk``,
+    static ``cs``) keyed by ``cs``, ``f32``, the batch's chunk count and
+    the spline's length; the spline, the starts and the geometry are
+    inputs."""
+    f64 = torch.float64
+    idx = torch.arange(cs, dtype=f64, device=starts.device)
     x, y, z = (left[a] + (starts[:, a, None] + idx + 0.5) * deltas[a]
                for a in range(3))
     rr = torch.sqrt(z[:, :, None, None] ** 2 + y[:, None, :, None] ** 2

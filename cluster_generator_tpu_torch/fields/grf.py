@@ -11,13 +11,21 @@ standard-normal tensor in the field's dtype, or takes it pre-drawn
 
 * constant rms (no halo profile): one k-space pass, 3 forward and 3
   inverse transforms; the rms normalisation and the projection's
-  power-preserving rescale come from the spectra by Parseval;
+  power-preserving rescale come from the spectra by Parseval.  The
+  transforms run in place in the noise's buffer (:func:`_layout`), so that
+  the route holds one field's worth of memory: the noise, then the
+  spectra, then the field;
 * radial (up to three halo profiles): unit-rms shaping, the real-space
   scale sqrt(sum_h g_h(r)^2), then the projection and the vector potential
   as staged transforms.
 
-Field components are tensors on the field's device.  The fields run
-eagerly on the card (no captured program).
+Field components are tensors on the field's device.  Each route is one
+captured program on the card (``core/compiled.function``, the counterpart
+of the JAX package's jitted cores): the shape, the dtype and the switches
+are its key; the wavenumbers, the halo profiles and every float are
+inputs, and the white noise is drawn into the program's buffer from the
+caller's generator before each replay.  The trilinear sampling of a field
+at particle positions is a program too.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import os
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core import compiled
+from ..core.device import host_to_device, resolve_device
 from ..core.interp import interp
 from ..core.logging import mylog
 from ..sampling import parse_prng
@@ -37,9 +46,9 @@ __all__ = ["ClusterField", "GaussianRandomField", "RandomMagneticField",
            "RadialRandomMagneticVectorPotential", "RandomVelocityField",
            "RadialRandomVelocityField", "parse_value"]
 
-# k-space arithmetic of the constant-rms route runs on slabs of at most this
-# many half-spectrum entries, so that its temporaries stay small beside the
-# three spectra
+# the transforms and k-space arithmetic of the constant-rms route run on
+# slabs of at most this many half-spectrum entries, so that their
+# temporaries stay small beside the three spectra
 _SLAB = 1 << 24
 
 
@@ -106,22 +115,130 @@ def _spectrum_sigma(kk, k0, k1, alpha, dtype):
     return torch.where(kk > 0.0, sigma, 0.0).to(dtype)
 
 
-def _half(kz):
-    """The non-negative half of the z wavenumbers that ``rfftn`` keeps."""
-    return kz[..., :kz.shape[-1] // 2 + 1]
+def _wave_vector(waves, deltas):
+    """Every wavenumber vector a field program reads, as one float64 host
+    array (one copy to the device): the angular wavenumbers k of the three
+    axes (of z the half that ``rfftn`` keeps), their finite-difference
+    forms sin(k d)/d, their numerator forms (:func:`_odd_waves`) and the
+    Parseval weights of the kz planes: 2 where the dropped half holds the
+    conjugate mirror, 1 for the self-conjugate kz = 0 (and kz = nz/2)."""
+    kx, ky, kz = (np.asarray(k, np.float64).reshape(-1) for k in waves)
+    nz = kz.size
+    nzh = nz // 2 + 1
+    ks = (kx, ky, kz[:nzh])
+    wz = np.full(nzh, 2.0)
+    wz[0] = 1.0
+    if nz % 2 == 0:
+        wz[-1] = 1.0
+    return np.concatenate([*ks, *(np.sin(k * d) / d
+                                  for k, d in zip(ks, deltas)),
+                           _odd_waves(kx), _odd_waves(ky),
+                           _odd_waves(kz)[:nzh], wz])
 
 
-def _draw_noise(noise, gen, shape, dtype, device):
-    """``(3, nx, ny, nz)`` standard normals in ``dtype``: ``noise`` as
-    given, or one draw from ``gen``."""
-    if noise is None:
-        return torch.randn((3,) + tuple(shape), generator=gen, dtype=dtype,
-                           device=device)
-    noise = torch.as_tensor(noise, dtype=dtype, device=device)
-    if tuple(noise.shape) != (3,) + tuple(shape):
-        raise ValueError(f"noise has shape {tuple(noise.shape)}, the field "
-                         f"needs {(3,) + tuple(shape)}")
-    return noise
+def _unpack_waves(vec, shape):
+    """:func:`_wave_vector`'s array on the device as views: ``(k, kd,
+    k_odd, wz)``, the first three each a triple of float64 tensors shaped
+    (nx, 1, 1), (1, ny, 1), (1, 1, nzh) to broadcast over a half
+    spectrum, ``wz`` (nzh,)."""
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+    parts = torch.split(vec, (nx, ny, nzh) * 3 + (nzh,))
+    axes = [p.reshape([-1 if a == i % 3 else 1 for a in range(3)])
+            for i, p in enumerate(parts[:9])]
+    return axes[0:3], axes[3:6], axes[6:9], parts[9]
+
+
+def _noise_drawer(noise, gen, shape, dtype, device, spectra=False):
+    """The white noise of a field program (its ``noise`` argument): a flat
+    buffer in ``dtype`` whose head holds ``(3, nx, ny, nz)`` standard
+    normals, ``noise`` as given, or drawn from ``gen`` (default: one on
+    ``device`` seeded with 0) as one ``torch.randn`` call draws them (the
+    head is contiguous).  With ``spectra`` the buffer has room for the
+    three half spectra as well (:func:`_layout`).  Drawn into the
+    program's buffer in place before each replay, or into a new one."""
+    nx, ny, nz = shape
+    shape = (3,) + tuple(shape)
+    size = 3 * nx * ny * 2 * (nz // 2 + 1) if spectra else int(np.prod(shape))
+    if noise is not None:
+        noise = torch.as_tensor(noise, dtype=dtype, device=device)
+        if tuple(noise.shape) != shape:
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, the "
+                             f"field needs {shape}")
+
+    def draw(g, out):
+        if out is None:
+            out = torch.empty(size, dtype=dtype, device=device)
+        head = _head(out, shape[1:])
+        if noise is None:
+            head.normal_(generator=g)
+        else:
+            head.copy_(noise)
+        return out
+
+    return compiled.drawer(None, gen, device, draw)
+
+
+def _head(buf, shape):
+    """The ``(3, nx, ny, nz)`` head of a field program's flat buffer: its
+    noise, and the constant-rms route's field."""
+    return buf[:3 * int(np.prod(shape))].view((3,) + tuple(shape))
+
+
+def _layout(buf, shape):
+    """The constant-rms route's views of its buffer: the head
+    (:func:`_head`) and the three (nx, ny, nz // 2 + 1) complex half
+    spectra, spectrum c from entry c M, M = nx ny (nz + 2).  Spectrum c
+    starts at or after noise c (c M >= c N, N = nx ny nz) and each of its
+    x rows at or after the same row of the noise (ny (nz + 2) >= ny nz
+    entries per row), which is what lets :func:`_rfftn_in_place` and
+    :func:`_irfftn_in_place` overwrite the noise and the spectra."""
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+    m = nx * ny * 2 * nzh
+    return _head(buf, shape), [torch.view_as_complex(
+        buf[c * m:(c + 1) * m].view(nx, ny, nzh, 2)) for c in range(3)]
+
+
+def _chunks(n, per):
+    """Slices of ``range(n)`` of at most ``_SLAB // per`` (at least 1)."""
+    step = max(1, _SLAB // per)
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _rfftn_in_place(buf, shape):
+    """The three noise components' half spectra, in place in ``buf``
+    (:func:`_layout`): per x slab the 2D transform over (y, z), then per y
+    chunk the transform over x.  The components from the last to the
+    first, each one's x slabs from the last to the first: a slab's
+    spectrum then overwrites only noise already transformed."""
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+    noise, spec = _layout(buf, shape)
+    for c in (2, 1, 0):
+        for s in reversed(_chunks(nx, ny * nzh)):
+            spec[c][s].copy_(torch.fft.rfftn(noise[c][s], dim=(1, 2)))
+        for s in _chunks(ny, nx * nzh):
+            spec[c][:, s].copy_(torch.fft.fft(spec[c][:, s], dim=0))
+    return spec
+
+
+def _irfftn_in_place(buf, shape):
+    """The inverse of :func:`_rfftn_in_place`: per y chunk the inverse
+    transform over x, then per x slab the inverse over (y, z) into the
+    head.  The components from the first to the last, each one's x slabs
+    from the first to the last: a slab's field overwrites only spectra
+    already transformed.  Returns the head's three components."""
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+    field, spec = _layout(buf, shape)
+    for c in range(3):
+        for s in _chunks(ny, nx * nzh):
+            spec[c][:, s].copy_(torch.fft.ifft(spec[c][:, s], dim=0))
+        for s in _chunks(nx, ny * nzh):
+            field[c][s].copy_(torch.fft.irfftn(spec[c][s], s=(ny, nz),
+                                               dim=(1, 2)))
+    return tuple(field.unbind(0))
 
 
 def _plane_power(w):
@@ -130,42 +247,32 @@ def _plane_power(w):
                                               dtype=torch.float64)
 
 
-def _constant_rms_route(noise, gen, shape, waves, k0, k1, alpha, g_rms,
-                        deltas, div_clean, vec_pot, dtype, device):
+@compiled.function(static=("shape", "dtype", "div_clean", "vec_pot"),
+                   random="noise")
+def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
+                        div_clean, vec_pot, noise):
     """The constant-rms field on half spectra: shaping, rms normalisation,
     divergence projection with its power-preserving rescale and the vector
     potential in one k-space pass between 3 forward and 3 inverse
-    transforms.  The k-space arithmetic runs slab by slab along x."""
+    transforms, the k-space arithmetic slab by slab along x.  ``noise``:
+    the flat buffer of :func:`_noise_drawer` with room for the spectra;
+    the transforms run in place in it, and the field is its head.
+
+    One program (JAX ``_grf_core_fused`` and its staged rfft route) keyed
+    by the shape, the dtype and the two switches; ``waves``
+    (:func:`_wave_vector`), ``k0``, ``k1``, ``alpha`` and ``g_rms`` are
+    inputs, so an ``l_min`` or ``g_rms`` sweep replays it."""
     nx, ny, nz = shape
-    nzh = nz // 2 + 1
     n_cells = nx * ny * nz
-    kx, ky, kz = waves
+    # the shaping in float64, the rest at the field's real dtype: a float64
+    # operand would promote complex64 spectra
+    k64, kd, k_odd, wz = _unpack_waves(waves, shape)
+    kd = [k.to(dtype) for k in kd]
+    k_odd = [k.to(dtype) for k in k_odd]
+    k_sq = [k.to(dtype) ** 2 for k in k64]
+    slabs = _chunks(nx, ny * (nz // 2 + 1))
 
-    def dev(a, dt=dtype):
-        return torch.as_tensor(a, dtype=dt, device=device)
-
-    # every wavenumber array (nx, 1, 1), (1, ny, 1), (1, 1, nzh); sliced
-    # along x per slab.  The shaping in float64, the rest at the field's
-    # real dtype: a float64 operand would promote complex64 spectra
-    k64 = [dev(kx, torch.float64), dev(ky, torch.float64),
-           dev(_half(kz), torch.float64)]
-    kd = [dev(np.sin(k * d) / d) for k, d in
-          zip((kx, ky, _half(kz)), deltas)]
-    k_odd = [dev(_odd_waves(kx)), dev(_odd_waves(ky)),
-             dev(_half(_odd_waves(kz)))]
-    k_sq = [dev(kx) ** 2, dev(ky) ** 2, dev(_half(kz)) ** 2]
-    # Parseval weights of the kz planes: 2 where the dropped half holds the
-    # conjugate mirror, 1 for the self-conjugate kz = 0 (and kz = nz/2)
-    wz = torch.full((nzh,), 2.0, dtype=torch.float64, device=device)
-    wz[0] = 1.0
-    if nz % 2 == 0:
-        wz[-1] = 1.0
-    step = max(1, _SLAB // (ny * nzh))
-    slabs = [slice(i, min(i + step, nx)) for i in range(0, nx, step)]
-
-    noise = _draw_noise(noise, gen, shape, dtype, device)
-    W = [torch.fft.rfftn(noise[c]) for c in range(3)]
-    del noise
+    W = _rfftn_in_place(noise, shape)
 
     def power(ws):
         return sum((_plane_power(w) * wz).sum() for w in ws)
@@ -208,22 +315,78 @@ def _constant_rms_route(noise, gen, shape, waves, k0, k1, alpha, g_rms,
                 w[s].mul_(rescale)
             if vec_pot:
                 potential(s)
-    out = []
-    while W:
-        out.append(torch.fft.irfftn(W.pop(0), s=shape))
-    return tuple(out)
+    return _irfftn_in_place(noise, shape)
 
 
-def _unit_rms_field(noise, shape, waves, k0, k1, alpha):
-    """White noise -> spectrum-shaped unit-rms Gaussian random field."""
-    kx, ky, kz = (torch.as_tensor(k, device=noise.device)
-                  for k in (waves[0], waves[1], _half(waves[2])))
+def _unit_rms_field(noise, shape, k, k0, k1, alpha):
+    """White noise -> spectrum-shaped unit-rms Gaussian random field
+    (``k``: the float64 wavenumbers of :func:`_unpack_waves`)."""
+    kx, ky, kz = k
     sigma = _spectrum_sigma(torch.sqrt(kx**2 + ky**2 + kz**2), k0, k1, alpha,
                             noise.dtype)
     g = [torch.fft.irfftn(torch.fft.rfftn(noise[c]) * sigma, s=shape)
          for c in range(3)]
     g_avg = torch.sqrt(torch.mean(g[0]**2 + g[1]**2 + g[2]**2))
     return tuple(x / g_avg for x in g)
+
+
+def _transform(g, shape, mul):
+    """The inverse transforms of ``mul`` applied to the half spectra of
+    the components ``g``."""
+    W = [torch.fft.rfftn(c) for c in g]
+    return [torch.fft.irfftn(w, s=shape) for w in mul(*W)]
+
+
+@compiled.function(static=("shape", "dtype", "div_clean", "vec_pot"),
+                   random="noise")
+def _radial_field(waves, x, y, z, halos, r_max, k0, k1, alpha, shape, dtype,
+                  div_clean, vec_pot, noise):
+    """The radial route: unit-rms shaping (JAX ``_grf_core``), the
+    real-space scale sqrt(sum_h g_h(r)^2), the finite-difference projection
+    with its power-preserving rescale (JAX ``_div_clean_k``) and the vector
+    potential (JAX ``_vector_potential_k``), as staged transforms in one
+    program.
+
+    ``x``/``y``/``z``: the cell centres; ``halos``: per halo ``(center,
+    r, g)``, the centre three floats and the profile's radii and values;
+    ``r_max`` clamps the radii (``None``: no clamp).  The key holds the
+    number of halos, each profile's length and whether ``r_max`` is None;
+    the centres, profiles and ``r_max`` are inputs."""
+    k64, kd, k_odd, _ = _unpack_waves(waves, shape)
+    g = _unit_rms_field(_head(noise, shape), shape, k64, k0, k1, alpha)
+    X, Y, Z = x[:, None, None], y[None, :, None], z[None, None, :]
+    g2sum = torch.zeros(shape, dtype=dtype, device=x.device)
+    for ctr, rprof, gprof in halos:
+        rr = torch.sqrt((X - ctr[0]) ** 2 + (Y - ctr[1]) ** 2
+                        + (Z - ctr[2]) ** 2)
+        if r_max is not None:
+            rr = torch.clamp_max(rr, r_max)
+        g2sum = g2sum + interp(rr, rprof, gprof).to(dtype) ** 2
+    scale = torch.sqrt(g2sum)
+    g = [c * scale for c in g]
+    if div_clean:
+        # keep <g^2> through the projection; the wavenumbers at the
+        # field's real dtype (a float64 operand would promote complex64
+        # spectra to complex128)
+        power = sum(torch.sum(c**2) for c in g)
+        kd = [k.to(dtype) for k in kd]
+        g = _transform(g, shape, lambda *W: _div_clean_k(*W, *kd))
+        rescale = torch.sqrt(power / sum(torch.sum(c**2) for c in g))
+        g = [c * rescale for c in g]
+    if vec_pot:
+        k_odd = [k.to(dtype) for k in k_odd]
+        k2 = sum(k.to(dtype) ** 2 for k in k64)
+        g = _transform(g, shape, lambda *W: _vector_potential_k(*W, *k_odd,
+                                                                k2))
+    return tuple(g)
+
+
+def _on_device(a, device):
+    """A radial profile (a tensor or an array) as a float64 tensor on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float64)
+    return host_to_device(np.asarray(a, np.float64), device)
 
 
 class ClusterField:
@@ -256,8 +419,8 @@ class ClusterField:
         """Cell-centre coordinates, three float64 tensors on the device."""
         le = self.left_edge + self.deltas * 0.5
         re = self.right_edge - self.deltas * 0.5
-        return [torch.as_tensor(np.linspace(le[i], re[i], self.ddims[i]),
-                                device=self.device) for i in range(3)]
+        return [host_to_device(np.linspace(le[i], re[i], self.ddims[i]),
+                               self.device) for i in range(3)]
 
     def _compute_waves(self):
         """FFT angular wavenumbers, float64 numpy arrays shaped to
@@ -269,36 +432,6 @@ class ClusterField:
         return (kx[:, None, None].astype(np.float64),
                 ky[None, :, None].astype(np.float64),
                 kz[None, None, :].astype(np.float64))
-
-    def _transform(self, mul):
-        """Replace (gx, gy, gz) by the inverse transform of ``mul`` applied
-        to their half spectra."""
-        shape = tuple(int(n) for n in self.ddims)
-        W = [torch.fft.rfftn(g) for g in (self.gx, self.gy, self.gz)]
-        self.gx, self.gy, self.gz = (torch.fft.irfftn(w, s=shape)
-                                     for w in mul(*W))
-
-    def _divergence_clean(self, kx, ky, kz):
-        """Transform -> finite-difference projection -> inverse."""
-        mylog.info("Perform divergence cleaning.")
-        # the wavenumbers at the field's real dtype: a float64 operand would
-        # promote complex64 spectra to complex128
-        kd = [torch.as_tensor(np.sin(k * d) / d, dtype=self.dtype,
-                              device=self.device)
-              for k, d in zip((kx, ky, _half(kz)), self.deltas)]
-        self._transform(lambda *W: _div_clean_k(*W, *kd))
-
-    def _compute_vector_potential(self, kx, ky, kz):
-        """Replace g by A with curl A = g."""
-        mylog.info("Compute vector potential.")
-
-        def dev(k):
-            return torch.as_tensor(k, dtype=self.dtype, device=self.device)
-
-        k_odd = [dev(_odd_waves(kx)), dev(_odd_waves(ky)),
-                 dev(_half(_odd_waves(kz)))]
-        k2 = dev(kx) ** 2 + dev(ky) ** 2 + dev(_half(kz)) ** 2
-        self._transform(lambda *W: _vector_potential_k(*W, *k_odd, k2))
 
     # ------------------------------------------------------------- mapping
     def __getitem__(self, item):
@@ -394,9 +527,11 @@ class ClusterField:
                                         units=units)
 
 
+@compiled.function()
 def _trilinear(x, y, z, g, pos):
     """Trilinear sample of a (3, nx, ny, nz) field at (N, 3) points;
-    returns (3, N).
+    returns (3, N).  One program (JAX ``_trilinear``) keyed by the grid's
+    and the particles' counts and the dtypes.
 
     Points outside ``[coords[0], coords[-1]]`` (the outermost cell centres)
     get 0.  The coordinates are uniform, so each cell index is computed,
@@ -489,55 +624,34 @@ class GaussianRandomField(ClusterField):
         kx, ky, kz = self._compute_waves()
         self.x, self.y, self.z = self._compute_coords()
 
+        waves = host_to_device(_wave_vector((kx, ky, kz), self.deltas),
+                               self.device)
+        noise = _noise_drawer(noise, gen, shape, self.dtype, self.device,
+                              spectra=not ctrs)
+        statics = dict(shape=shape, dtype=self.dtype,
+                       div_clean=bool(self.divergence_clean),
+                       vec_pot=bool(self.vector_potential), noise=noise)
         if not ctrs:
             g_rms = float(parse_value(g_rms, self._units))
             mylog.info("Scaling the fields by the constant value %s.", g_rms)
-            self.gx, self.gy, self.gz = _constant_rms_route(
-                noise, gen, shape, (kx, ky, kz), k0, k1, alpha, g_rms,
-                self.deltas, self.divergence_clean, self.vector_potential,
-                self.dtype, self.device)
+            self.gx, self.gy, self.gz = _constant_rms_field(
+                waves, k0, k1, float(alpha), g_rms, **statics)
             mylog.info("Field generation complete.")
             return
 
-        noise = _draw_noise(noise, gen, shape, self.dtype, self.device)
-        self.gx, self.gy, self.gz = _unit_rms_field(noise, shape,
-                                                    (kx, ky, kz), k0, k1,
-                                                    alpha)
-        del noise
-
-        X = self.x[:, None, None]
-        Y = self.y[None, :, None]
-        Z = self.z[None, None, :]
-        g2sum = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        for ctr, rprof, gprof in zip(ctrs, rs, gs):
-            mylog.info("Scaling the fields by a cluster profile.")
-            rr = torch.sqrt((X - float(ctr[0])) ** 2 + (Y - float(ctr[1])) ** 2
-                            + (Z - float(ctr[2])) ** 2)
-            if r_max is not None:
-                rr = torch.clamp_max(rr, float(parse_value(r_max, "kpc")))
-            gval = interp(rr, torch.as_tensor(rprof, device=self.device),
-                          torch.as_tensor(gprof, device=self.device))
-            g2sum = g2sum + gval.to(self.dtype) ** 2
-        scale = torch.sqrt(g2sum)
-        self.gx = self.gx * scale
-        self.gy = self.gy * scale
-        self.gz = self.gz * scale
-
+        mylog.info("Scaling the fields by %d cluster profile(s).", len(ctrs))
         if self.divergence_clean:
-            # keep <g^2> through the projection
-            power = (torch.sum(self.gx**2) + torch.sum(self.gy**2)
-                     + torch.sum(self.gz**2))
-            self._divergence_clean(kx, ky, kz)
-            power2 = (torch.sum(self.gx**2) + torch.sum(self.gy**2)
-                      + torch.sum(self.gz**2))
-            rescale = torch.sqrt(power / power2)
-            self.gx = self.gx * rescale
-            self.gy = self.gy * rescale
-            self.gz = self.gz * rescale
-
+            mylog.info("Perform divergence cleaning.")
         if self.vector_potential:
-            self._compute_vector_potential(kx, ky, kz)
-
+            mylog.info("Compute vector potential.")
+        halos = [(tuple(float(c) for c in ctr), _on_device(r, self.device),
+                  _on_device(g, self.device)) for ctr, r, g in zip(ctrs, rs,
+                                                                   gs)]
+        if r_max is not None:
+            r_max = float(parse_value(r_max, "kpc"))
+        self.gx, self.gy, self.gz = _radial_field(
+            waves, self.x, self.y, self.z, halos, r_max, k0, k1, float(alpha),
+            **statics)
         mylog.info("Field generation complete.")
 
 

@@ -455,10 +455,6 @@ def _datagen_batch_cached(num_points, n_part, n_rows, rq, r_a, gravity,
     def batch(M200, conc, generator=None, uniforms=None):
         return full(M200, conc, generator, uniforms)["dm"]
 
-    def run(M200, conc, generator=None, uniforms=None):
-        return full.run(M200, conc, generator, uniforms)["dm"]
-
-    batch.run = run
     batch.uniforms = full.uniforms
     return batch
 
@@ -534,18 +530,18 @@ def _mesh_call(batch_fn, mesh, row_args, rest, generator):
     (``batch_fn.uniforms``) and keeps its rows, so every rank's draws are
     those of the whole batch.  ``rows`` is ``(lo, hi)``, or ``None`` when
     the batch ran whole: no mesh, or a batch the ``ens`` size does not
-    divide.  Without a mesh the batch runs as the memoized program; with
-    one, eagerly (``batch_fn.run``)."""
-    if mesh is None:
-        return batch_fn(*row_args, *rest, generator), None
+    divide.  The batch runs as the memoized program at the rows it runs
+    on (the rank's, given its slice of the uniforms), as the JAX
+    package's jitted batch runs under the mesh: no collective sits inside
+    it, so every backend's ranks replay their own programs."""
     B = int(row_args[0].shape[0])
-    rows = ens_rows(mesh, B)
+    rows = None if mesh is None else ens_rows(mesh, B)
     if rows is None:
-        return batch_fn.run(*row_args, *rest, generator), None
+        return batch_fn(*row_args, *rest, generator), None
     lo, hi = rows
     u = compiled.tree_map(lambda t: t[lo:hi],
-                  batch_fn.uniforms(B, generator, row_args[0].device))
-    return batch_fn.run(*(a[lo:hi] for a in row_args), *rest, None, u), rows
+                          batch_fn.uniforms(B, generator, row_args[0].device))
+    return batch_fn(*(a[lo:hi] for a in row_args), *rest, None, u), rows
 
 
 def _as_dtensors(mesh, out, rows, B):

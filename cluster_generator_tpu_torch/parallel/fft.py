@@ -22,12 +22,14 @@ from .mesh import sharded
 __all__ = ["pencil_fftn", "pencil_ifftn"]
 
 
-def _all_to_all(x, group):
+def _all_to_all(x, group, out=None):
     """``all_to_all_single`` of ``x`` (P, ...) over ``group``: block j goes
     to rank j, and block j of the result came from rank j.  Complex
-    tensors travel as their real view."""
+    tensors travel as their real view.  ``out``: the contiguous buffer to
+    receive into (default a new one)."""
     x = x.contiguous()  # an FFT along dim 0 may return permuted strides
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     if x.is_complex():
         dist.all_to_all_single(torch.view_as_real(out), torch.view_as_real(x),
                                group=group)

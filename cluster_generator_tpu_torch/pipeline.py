@@ -524,8 +524,9 @@ def sample_merger_ic_sharded(mesh, fields, tables, centers, velocities,
     (:func:`~.parallel.mesh.fold_in`); ranks that differ only in the other
     mesh dim draw the same shard.  Every output is a DTensor sharded over
     ``axis``.  ``uniforms`` (optional): this rank's pre-drawn uniforms, as
-    in :func:`sample_merger_ic`.  Counts must divide the axis size.  It
-    runs eagerly (no captured program)."""
+    in :func:`sample_merger_ic`.  Counts must divide the axis size.  The
+    rank's draw is :func:`sample_merger_ic`'s program at the shard's counts
+    (no collective inside: the outputs become DTensors after it)."""
     from .parallel.mesh import fold_in, sharded
 
     n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
@@ -542,12 +543,11 @@ def sample_merger_ic_sharded(mesh, fields, tables, centers, velocities,
     if uniforms is None:
         gen = fold_in(seed, mesh.get_local_rank(axis),
                       fields["radius"].device)
-    with compiled.inline():
-        local = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                                 div(n_gas), div(n_dm), div(n_star),
-                                 n_tracer=div(n_tracer), dtype=dtype,
-                                 compute_potential=compute_potential,
-                                 generator=gen, uniforms=uniforms)
+    local = sample_merger_ic(fields, tables, centers, velocities, r_max,
+                             div(n_gas), div(n_dm), div(n_star),
+                             n_tracer=div(n_tracer), dtype=dtype,
+                             compute_potential=compute_potential,
+                             generator=gen, uniforms=uniforms)
     return {k: sharded(mesh, v, axis, v.shape[0] * n_dev)
             for k, v in local.items()}
 

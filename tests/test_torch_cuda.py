@@ -384,3 +384,71 @@ def test_batches_held_while_the_next_replays():
         sl = slice(b0, b0 + 32)
         want = prog.run(M[sl], c[sl], E._batch_generator(3, b0, M.device))
         assert _equal(out, want), b0
+
+
+@pytest.mark.cuda
+def test_field_painter_and_workspace_programs_equal_their_eager_bodies():
+    """The field programs (constant rms, radial, trilinear sampling), a
+    painter batch and an in-place workspace program: the first call
+    (capture) and two replays with seeds, points or chunks of their own,
+    each equal to its eager body bit for bit; an in-place buffer is handed
+    back as itself."""
+    from cluster_generator_tpu_torch import data_structures as DS
+    from cluster_generator_tpu_torch import fields as F
+    from cluster_generator_tpu_torch.core.interp import cubic_spline
+
+    _card()
+    dev = "cuda"
+    C.clear()
+    r = torch.logspace(0, 4, 200, dtype=torch.float64, device=dev)
+    g = 1e-6 * (1.0 + r / 300.0) ** -1.5
+    sp = cubic_spline(r, g)
+    starts = torch.as_tensor(DS.construct_chunks([32] * 3, 8)[:, 0, :].T,
+                             dtype=torch.float64, device=dev)
+    step = torch.full((3,), 100.0, dtype=torch.float64, device=dev)
+    box = [-1000.0] * 3, [1000.0] * 3
+
+    def comps(f):
+        return f.gx, f.gy, f.gz
+
+    cases = {
+        "constant": lambda k: comps(F.RandomMagneticVectorPotential(
+            *box, (40, 40, 38), 100.0, 800.0, 1e-6, prng=k, device=dev,
+            dtype=torch.float32)),
+        "radial": lambda k: comps(F.RadialRandomMagneticField(
+            *box, (32,) * 3, 100.0, 800.0, [-200.0 * k] * 3, (r, g),
+            ctr2=[300.0] * 3, profile2=(r, 2 * g), prng=k, device=dev)),
+        "trilinear": lambda k: F.grf._trilinear(
+            *(torch.linspace(-900.0, 900.0, 32, dtype=torch.float64,
+                             device=dev),) * 3,
+            torch.ones((3, 32, 32, 32), dtype=torch.float64, device=dev),
+            torch.rand((5000, 3), dtype=torch.float64, device=dev,
+                       generator=torch.Generator(dev).manual_seed(k))
+            * 2000.0 - 1000.0),
+        "paint": lambda k: DS._paint_batch(sp, starts[8 * k:8 * k + 8],
+                                           step, -step * 16, 8),
+    }
+    for name, fn in cases.items():
+        for k in range(3):
+            got = fn(k)
+            with C.eager():
+                want = fn(k)
+            assert _equal(got, want), (name, k)
+    assert all(p.graph is not None for p in C.programs())
+    ws = C.workspace("cuda_ws_test", 8, dev,
+                     lambda: torch.zeros(8, device=dev))
+    buf = ws.buffers
+
+    def body(buf, x, uniforms):
+        buf.add_(x)
+        return buf, x * 2
+
+    for k in range(3):
+        out, twice = ws.run(("cuda_inplace_test",), body,
+                            (buf, torch.full((8,), float(k), device=dev)),
+                            inplace=1)
+        assert out is buf and torch.equal(twice,
+                                          torch.full_like(buf, 2.0 * k))
+    torch.cuda.synchronize()
+    assert torch.equal(buf, torch.full_like(buf, 3.0))
+    C.clear()
