@@ -169,8 +169,19 @@ Phases, in order; any failure exits non-zero before the last line:
     pool growth, static bytes, eager and graph warm wall and the peak
     memory a warm call adds; then phase 19's mesh batches and sharded
     field per rank again, each against its eager body;
-25. print one JSON line of kernel numbers;
-26. print the card's name and power limit, then the last line
+25. every path in one process with no ``compiled.clear()`` between its
+    steps (``scripts/memory_sequence_torch.py``: the class path at
+    class-4096-1e7, the merger, a datagen batch, the 512^3 and 1024^3
+    fields, the class path and the merger again with their particles
+    joined eagerly, the sharded 1024^3 field on a world of one over NCCL,
+    the datagen batch and the merger again, every output kept) under a memory
+    fraction of 1.15 times the sequence's need under JAX's memory model
+    (outputs kept plus a step's eager peak): every step runs and equals
+    its run alone on a clean card bit for bit; per step the programs
+    released and recaptured and the memory held after it; warm calls
+    after it release nothing;
+26. print one JSON line of kernel numbers;
+27. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phases 4-7, 10-18 and 20 run the programs as a user does: on the card
@@ -180,8 +191,13 @@ the trilinear sampling and each painter batch is a CUDA graph, captured
 at its first call and replayed after
 (``cluster_generator_tpu_torch/core/compiled.py``); in phase 19 so are
 each rank's mesh batches, its sharded draw and the sharded field's
-stages.  The memoized programs are dropped before phase 19, whose ranks
-need the card's memory.
+stages.  Nothing is dropped between phases to free memory: a program or
+workspace that does not fit releases the least recently used ones
+(phase 25, and each warm call of phases 21-24 checks that it released
+none).  The memoized programs are dropped before phase 19, whose ranks
+are other processes on the card, at the start of phases 21-24 and each
+IC scene of phase 23, whose first calls are measured captures, and
+before phase 10's 1024^3 field, whose held memory is measured.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -1402,6 +1418,9 @@ def run_fields(F, card):
         return (torch.cuda.memory_reserved() - base - sum(
             g.numel() * g.element_size() for g in (f.gx, f.gy, f.gz))) / 2**30
 
+    # a baseline: a card that holds no program, so that no release during
+    # the call moves the memory held after it
+    C.clear()
     sync()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_reserved()
@@ -1436,7 +1455,6 @@ def run_fields(F, card):
           f"{vp_first:.4f} s, again {vp_s:.4f} s, peak memory {peak:.2f} GiB "
           f"[{card}]; finite:", json.dumps(rep))
     curl_check(F)
-    C.clear()   # the fields' programs measured: their memory back
 
 
 def curl_check(F):
@@ -2817,6 +2835,8 @@ def md_steps(rank, world, out, sz):
             rep["graph_host_launches"] = host_launches(field)
             with C.eager():
                 rep["eager_host_launches"] = host_launches(field)
+    # the ranks of a world on one card share it: a rank's make_room cannot
+    # see what the others need
     C.clear()
 
     # one pencil transpose's all-to-all at the largest grid, by events
@@ -3292,6 +3312,7 @@ def compare_program(C, K, label, name, graph, eager, n_cases, card):
           f"{label}: graph {prog.graph}, K1 nodes {prog.nodes}")
     del first
     held, snap = None, None
+    released = C.releases
     for k in range(1, n_cases):
         K.invert_cdf_rows.launches = 0
         out = graph(k)
@@ -3323,6 +3344,10 @@ def compare_program(C, K, label, name, graph, eager, n_cases, card):
         timed(lambda: fn(1))
         rep[f"{side}_peak_gib"] = (torch.cuda.max_memory_allocated()
                                    - base) / 2**30
+    # a warm replay that fits releases nothing
+    rep["releases_warm"] = C.releases - released
+    check(rep["releases_warm"] == 0,
+          f"{label}: warm calls released {rep['releases_warm']} programs")
     print(f"{label}: first call {first_s:.3f} s (capture "
           f"{prog.capture_s:.3f} s), warm eager {rep['eager_warm_s']:.4f} s "
           f"/ graph {rep['graph_warm_s']:.4f} s, host launches per warm call "
@@ -3354,6 +3379,8 @@ def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
 
     from cluster_generator_tpu_torch.core import compiled as C
 
+    # a clean memo: each program's first call in this phase is its
+    # capture, whose seconds and pool are measured
     C.clear()
     n_cases = sz["replays"] + 1
     f64 = dict(dtype=torch.float64, device=dev)
@@ -3534,7 +3561,6 @@ def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
     reports["scenes"]["stream_max_abs_diff"] = diffs
     reports["scenes"]["staged_max_abs_diff"] = staged
     print("compiled programs:", json.dumps(reports, default=str))
-    C.clear()
     return launches
 
 
@@ -3612,6 +3638,7 @@ def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
           and all(p.graph is not None for p in used),
           f"{label}: first call K1 {rep['k1']}, nodes {nodes}, programs "
           f"{rep['programs']}")
+    released = C.releases
     for k in range(1, n_cases):
         K.invert_cdf_rows.launches = 0
         before = C.programs()
@@ -3639,6 +3666,10 @@ def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
         wall_ms, kern, busy = kernel_profile(lambda: fn(1))
         rep[f"{side}_busy_ms"], rep[f"{side}_kernels"] = busy, len(kern)
         rep[f"{side}_busy_share"] = busy / wall_ms
+    # warm calls that fit release nothing
+    rep["releases_warm"] = C.releases - released
+    check(rep["releases_warm"] == 0,
+          f"{label}: warm calls released {rep['releases_warm']} programs")
     print(f"{label}: first call {first_s:.3f} s (captures "
           f"{rep['capture_s']:.3f} s of {rep['made']}), programs "
           f"{rep['programs']}, warm eager {rep['eager_warm_s']:.4f} s / "
@@ -3669,6 +3700,8 @@ def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
     from cluster_generator_tpu_torch.core import compiled as C
     from cluster_generator_tpu_torch.core.config import cgparams
 
+    # a clean memo: each program's first call in this phase is its
+    # capture, whose seconds and pool are measured
     C.clear()
     n_cases = sz["replays"] + 1
     f64 = dict(dtype=torch.float64, device=dev)
@@ -3783,7 +3816,6 @@ def run_class_programs(cg, P, V, E, K, card, grad, dev="cuda", sz=PROGRAMS):
     reports["gradient"] = {"grad": again, "eager_calls":
                            C.eager_calls - calls}
     print("class and staged programs:", json.dumps(reports, default=str))
-    C.clear()
     return launches
 
 
@@ -3836,6 +3868,8 @@ def run_draw_programs(cg, I, PA, V, K, card, dev="cuda", sz=DRAWS):
     from cluster_generator_tpu_torch import sampling as S
     from cluster_generator_tpu_torch.core import compiled as C
 
+    # a clean memo: each program's first call in this phase is its
+    # capture, whose seconds and pool are measured
     C.clear()
     n_cases = sz["replays"] + 1
     n, r_max = sz["counts"], R_MAX
@@ -3938,12 +3972,11 @@ def run_draw_programs(cg, I, PA, V, K, card, dev="cuda", sz=DRAWS):
     del models, oms, m
 
     for n_halos in sz["halos"]:
-        C.clear()
+        C.clear()   # a clean memo: the scene's captures are measured
         reports[f"ic_{n_halos}"], launches[f"draw_programs_ic_{n_halos}"] = \
             run_ic_programs(cg, I, PA, V, compare, card, n_halos, n_cases,
                             sz["ic"], dev)
     print("draw and gas-mixing programs:", json.dumps(reports, default=str))
-    C.clear()
     return {k: v for k, v in launches.items() if v}
 
 
@@ -4091,6 +4124,8 @@ def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
     from cluster_generator_tpu_torch.core import compiled as C
     from cluster_generator_tpu_torch.core.interp import cubic_spline
 
+    # a clean memo: each program's first call in this phase is its
+    # capture, whose seconds and pool are measured
     C.clear()
     n_cases = sz["replays"] + 1
     reports = {}
@@ -4123,7 +4158,6 @@ def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
             f"{cls} {n}^3 float32 program", "_constant_rms_field",
             lambda k, cls=cls: comps(
                 make_field(F, cls, n, LAST_SEED + k)))
-    C.clear()
 
     models = merger_models(cg)
     grid = sz["radial"] + 2 * math.ceil(0.05 * sz["radial"])   # padding
@@ -4143,7 +4177,6 @@ def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
             {("gas", "particle_position"): moved[k]}, field)[
                 "gas", "magnetic_field"])
     del field, moved, pos
-    C.clear()
 
     m = build_class_model(cg, device=dev)
     m.set_magnetic_field_from_beta(GRID_BETA)
@@ -4161,7 +4194,6 @@ def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
             f"{chunk}^3, {dims}^3 grid)", "_paint_program",
             lambda k, f32=f32: DS._paint_batch(
                 sp, starts[k * b:(k + 1) * b], deltas, left, chunk, f32))
-    C.clear()
     for name, rep in md.items():
         print(f"phase 19's {name}: " + json.dumps(rep, default=float)
               + f" [{card}]")
@@ -4170,6 +4202,72 @@ def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
           f"phase 19's programs vs eager: {md}")
     print("last programs:", json.dumps(reports, default=str))
     return reports
+
+
+# ----------------------------------------------------------------- phase 25
+# every path in one process with no compiled.clear() between its steps, under
+# a memory cap set from the sequence's need under JAX's memory model
+# (scripts/memory_sequence_torch.py), then warm replays that fit
+
+
+def run_memory_sequence(K, card, root):
+    """Phase 25: ``scripts/memory_sequence_torch.py``'s steps (class,
+    merger, datagen, the 512^3 and 1024^3 fields, the class path and the
+    merger joined by the package's eager ``ClusterParticles.__add__``, the
+    sharded 1024^3 field on a world of one over NCCL in this process,
+    datagen and merger again),
+    each first alone on a clean card under ``compiled.eager()`` (its eager
+    peak and its outputs, the reference), then in turn with every output
+    kept and no ``compiled.clear()``, under
+    ``torch.cuda.set_per_process_memory_fraction`` at the script's
+    ``MARGIN`` times the largest of (outputs kept before a step + its eager peak):
+    every step runs, each bit for bit its alone run; per step the programs
+    released and recaptured and the memory held after it; then three warm
+    calls each of the merger and the datagen batch, which release
+    nothing.  Returns K1's launches in the sequence."""
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import memory_sequence_torch as MS
+
+    from cluster_generator_tpu_torch.core import compiled as C
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as d, MS.world_of_one(d) as mesh:
+        seq = MS.steps(mesh)
+        # (alone() and sequence() each start from a clean card: a baseline)
+        refs = MS.alone(seq)
+        need = MS.need(seq, refs)
+        fraction = min(1.0, MS.MARGIN * need / total)
+        print(f"memory sequence: card {total / 2**30:.2f} GiB, need under "
+              f"JAX's model {need / 2**30:.2f} GiB, cap {fraction:.4f} of "
+              f"the card [{card}]")
+        torch.cuda.set_per_process_memory_fraction(fraction)
+        try:
+            K.invert_cdf_rows.launches = 0
+            records, oom = MS.sequence(seq, refs, lambda line: print(
+                f"memory sequence step: {line} [{card}]"))
+            launches = K.invert_cdf_rows.launches
+            check(oom is None, f"memory sequence: {oom} ran out of memory")
+            warm = {}
+            for name, fn, _ in seq[-2:]:
+                fn()   # a replay (or a capture after a release) first
+                released, walls = C.releases, []
+                for _ in range(3):
+                    _, s = timed(fn)
+                    walls.append(s)
+                warm[name] = {"warm_s": walls,
+                              "released": C.releases - released}
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+    print(f"memory sequence warm calls under the cap: {json.dumps(warm)} "
+          f"[{card}]")
+    check(all(r["equal_to_alone"] for r in records),
+          f"memory sequence: a step differs from its alone run {records}")
+    check(sum(r["released"] for r in records) > 0,
+          "memory sequence: nothing was released, the cap tested nothing")
+    check(all(w["released"] == 0 for w in warm.values()),
+          f"memory sequence: a warm call released programs {warm}")
+    check(launches > 0, "memory sequence: K1 never launched")
+    return launches
 
 
 def main() -> int:
@@ -4280,7 +4378,9 @@ def main() -> int:
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 
-    C.clear()   # the ranks need the card's memory
+    # the ranks are other processes on this card, whose needs make_room
+    # cannot see: the memoized programs go first
+    C.clear()
     md_launches, md_programs = run_multidevice(card)
     launches.update(md_launches)
 
@@ -4291,6 +4391,7 @@ def main() -> int:
     launches.update(run_class_programs(cg, P, V, E, K, card, grad))
     launches.update(run_draw_programs(cg, I, PA, V, K, card))
     run_last_programs(cg, F, P, DS, K, card, md_programs)
+    launches["memory_sequence"] = run_memory_sequence(K, card, root)
 
     # one entry per kernel; its numbers are those of the shape where it is
     # bound by bytes (the ensemble batch's DM rows), every path shape is in

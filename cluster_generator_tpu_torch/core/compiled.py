@@ -50,14 +50,30 @@ for bit.  Registering a generator with the graph
 generator objects, while the batch streams give every batch a generator of
 its own.
 
-Memory: the programs of a device capture into one shared pool, which is
-safe because their replays never overlap (each call waits for the
-device's previous program call, on whatever stream it ran) and a program
-reads its static outputs only right after its own replay.  Each program's
-name (the first entry of its key: one decorated function, one batch
-program) has a memo of at most :data:`MAX_PROGRAMS` programs, the least
-recently used goes first, as each jitted JAX function has a cache of its
-own; :func:`clear` drops them all and returns their memory to the card.
+Memory: each program captures into a memory pool of its own, so that
+releasing it returns its memory to the card.  Each program's name (the
+first entry of its key: one decorated function, one batch program) has a
+memo of at most :data:`MAX_PROGRAMS` programs, the least recently used
+goes first, as each jitted JAX function has a cache of its own.  What a
+card keeps between calls (:func:`held`) is what the caller keeps plus the
+memoized programs and workspaces, these only while the next call fits
+beside them, as an XLA executable keeps only its outputs: before a
+program's warm-up (the need: what its last capture held, for a program
+captured again after a release), before its capture (what its warm-up
+took) and before a workspace's buffers are made, :func:`make_room`
+releases the least recently used programs and workspaces of that card
+until the need fits in what it can still allocate (:func:`free_bytes`,
+within the process's memory fraction).  A warm-up, a capture, the copies
+a replay hands out and a workspace's ``make()`` that run out of memory
+all the same are each run once more after every other program and
+workspace of the card is released (:func:`retrying`), as the caching
+allocator frees its cache before it raises; a second failure raises.  A
+warm-up that has run through never runs again: it may have written
+buffers shared in place.  A warm replay that fits releases nothing.  Only
+these calls make room: eager work between them (the caller's, or the
+package's own) has what the held programs leave.  :func:`clear` drops
+everything, the counterpart of ``jax.clear_caches``: for handing the card
+to another process.
 
 Kernel launches: a wrapper counts each launch with :func:`count_launch`.
 A launch recorded into a graph is counted on each replay instead, once
@@ -70,8 +86,11 @@ import contextlib
 import functools
 import inspect
 import itertools
+import math
 import time
+import weakref
 from collections import OrderedDict
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -83,12 +102,17 @@ __all__ = ["MAX_PROGRAMS", "Program", "run", "program", "programs",
            "clear", "config_key", "count_launch", "drawer", "tree_map",
            "function", "Workspace", "workspace", "workspaces",
            "register_node", "flatten", "unflatten", "signature", "inline",
-           "is_inline", "eager", "eager_calls"]
+           "is_inline", "eager", "eager_calls", "Held", "held", "free_bytes",
+           "make_room", "retrying", "releases", "retries"]
 
 MAX_PROGRAMS = 8
 
 # program name -> its memo (key -> Program), least recently used first
 _MEMOS: dict = {}
+# program key -> what its last capture held (static and pool bytes): the
+# room its warm-up needs when it is captured again; the last _MAX_NEEDS
+_NEEDS: OrderedDict = OrderedDict()
+_MAX_NEEDS = 256
 # (workspace name, device) -> its one Workspace
 _WORKSPACES: dict = {}
 _DEVICES: dict = {}
@@ -102,6 +126,11 @@ _EAGER = False
 #: calls of decorated functions that ran their eager body because an input
 #: requires grad (see :func:`function`)
 eager_calls = 0
+#: programs and workspaces released to make room (:func:`make_room`,
+#: :func:`retrying`)
+releases = 0
+#: calls run once more after running out of memory (:func:`retrying`)
+retries = 0
 
 
 def tree_map(fn, tree):
@@ -143,7 +172,8 @@ def drawer(uniforms, generator, device, draw):
     """The ``draw`` of a program call: the caller's ``uniforms`` (copied
     into the static buffers, or cloned when there are none yet), else
     ``draw(generator, out)`` with ``generator`` (default: one on
-    ``device`` seeded with 0)."""
+    ``device`` seeded with 0), which is the draw's ``generator``
+    attribute."""
     if uniforms is not None:
         def given(out):
             if out is None:
@@ -153,7 +183,14 @@ def drawer(uniforms, generator, device, draw):
         return given
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return lambda out: draw(generator, out)
+
+    def drawn(out):
+        return draw(generator, out)
+
+    # a first call run again after running out of memory draws again from
+    # the generator's state before the first attempt
+    drawn.generator = generator
+    return drawn
 
 
 def count_launch(kernel) -> None:
@@ -202,12 +239,10 @@ def eager():
 
 
 class _Device:
-    """What the programs of one card share: the memory pool, the side
-    stream of warm-ups and captures, and the event after the last program
-    call."""
+    """What the programs of one card share: the side stream of warm-ups
+    and captures, and the event after the last program call."""
 
     def __init__(self, device):
-        self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
         self.done = None
 
@@ -237,16 +272,25 @@ class Program:
     shared in place: they are the static buffers themselves, and an output
     that is one of them is returned as itself.
 
+    The first call is a warm-up, then a capture, each with room made
+    before it and run once more if it runs out of memory (:meth:`_first`).
     After the capture: ``capture_s`` (host seconds of the capture),
-    ``pool_bytes`` (what the capture added to the device's shared pool),
-    ``static_bytes`` (the static inputs, uniforms and outputs) and
-    ``nodes`` (the counted kernels' launches per replay).
+    ``pool_bytes`` (its own pool: what the capture added to the card's
+    reserved memory, its outputs included), ``static_bytes`` (the static
+    inputs and uniforms, less a workspace's buffers) and ``nodes`` (the
+    counted kernels' launches per replay); ``device``, ``workspace`` (a
+    weak reference to the one it belongs to, or ``None``) and ``stamp``
+    (its last use) are what :func:`held` reads.
     """
 
-    def __init__(self, key, body, inplace=0):
+    def __init__(self, key, body, inplace=0, workspace=None):
         self.key = key
         self.body = body
         self.inplace = inplace
+        # weak: a workspace and its programs are freed by reference
+        # counting alone once it is released
+        self.workspace = None if workspace is None else weakref.ref(workspace)
+        self.device = None
         self.graph = None
         self.inputs = self.uniforms = self.outputs = None
         self.nodes: dict = {}
@@ -269,57 +313,112 @@ class Program:
             cur = torch.cuda.current_stream(dev)
             state.wait(cur)
             if self.graph is None:
-                out = self._capture(state, cur, inputs, draw)
+                self.device = dev
+                out = self._first(state.stream, cur, inputs, draw)
             else:
                 out = self._replay(cur, inputs, draw)
             state.record(cur)
         return out
 
+    def _keep(self):
+        """What releasing room for this program must not release."""
+        return (self, self.workspace and self.workspace())
+
     def _shared(self):
         return _storages(self.inputs[:self.inplace])
 
-    def _capture(self, state, cur, inputs, draw):
-        global _TALLY
-        n = self.inplace
-        self.inputs = tuple(inputs[:n]) + tuple(a.detach().clone(
-            memory_format=torch.contiguous_format) for a in inputs[n:])
-        self.uniforms = draw(None)
-        side = state.stream
-        side.wait_stream(cur)
-        with torch.cuda.stream(side), inline():
-            out = self.body(*self.inputs, self.uniforms)
-        # the warm-up's outputs are the caller's, used on its stream once
-        # the warm-up is done
-        cur.wait_stream(side)
-        tree_map(lambda t: t.record_stream(cur), out)
+    def _handed(self, tree, copied):
+        """``tree`` as the caller gets it: each tensor whose storage's
+        address is ``copied`` cloned (retried after running out of
+        memory)."""
+        return retrying(lambda: tree_map(
+            lambda t: t.clone() if copied(t.untyped_storage().data_ptr())
+            else t, tree), self.device, self._keep())
+
+    def _first(self, side, cur, inputs, draw):
+        """The warm-up (:meth:`_warm_up`), then the capture
+        (:meth:`_capture`), each run once more after running out of memory
+        (:func:`retrying`): the warm-up from the generator's state before
+        its first attempt, the capture alone, so that a warm-up that has
+        run through, and may have written buffers shared in place, never
+        runs again.  Room is made before each (:func:`make_room`): for the
+        warm-up what this program's last capture held, when it is captured
+        again after a release; for the capture what the warm-up took."""
+        dev, keep = self.device, self._keep()
+        gen = getattr(draw, "generator", None)
+        start = None if gen is None else gen.get_state()
+        if self.key in _NEEDS:
+            make_room(_NEEDS[self.key], dev, keep)
+
+        def warm_up():
+            if start is not None:
+                gen.set_state(start)
+            return self._warm_up(side, cur, inputs, draw)
+
+        out, need = retrying(warm_up, dev, keep)
         # an output that is a static buffer (a field that is the input
         # grid, the field in the noise's buffer) is cloned for the caller:
         # the next call overwrites the buffer; a buffer shared in place is
         # read in place
-        shared = self._shared()
-        static = _storages((self.inputs[n:], self.uniforms)) - shared
-        out = tree_map(lambda t: t.clone() if t.untyped_storage().data_ptr()
-                       in static else t, out)
+        static = _storages((self.inputs[self.inplace:], self.uniforms)) \
+            - self._shared()
+        out = self._handed(out, static.__contains__)
+        make_room(need, dev, keep)
+        retrying(functools.partial(self._capture, side), dev, keep)
+        _NEEDS[self.key] = self.static_bytes + self.pool_bytes
+        _NEEDS.move_to_end(self.key)
+        while len(_NEEDS) > _MAX_NEEDS:
+            _NEEDS.popitem(last=False)
+        return out
 
-        torch.cuda.synchronize(inputs[0].device)
+    def _warm_up(self, side, cur, inputs, draw):
+        """The static buffers, the uniforms and the eager run of the body
+        on ``side``: returns its outputs and the capture's need, what the
+        run took from the card (the reserved memory's growth and the
+        cached blocks it could reuse)."""
+        n = self.inplace
+        dev = self.device
+        statics = tuple(inputs[:n]) + tuple(a.detach().clone(
+            memory_format=torch.contiguous_format) for a in inputs[n:])
+        uniforms = draw(None)
+        side.wait_stream(cur)
+        reserved = torch.cuda.memory_reserved(dev)
+        need = reserved - torch.cuda.memory_allocated(dev)
+        with torch.cuda.stream(side), inline():
+            out = self.body(*statics, uniforms)
+        need += torch.cuda.memory_reserved(dev) - reserved
+        # the warm-up's outputs are the caller's, used on its stream once
+        # the warm-up is done
+        cur.wait_stream(side)
+        tree_map(lambda t: t.record_stream(cur), out)
+        self.inputs, self.uniforms = statics, uniforms
+        return out, need
+
+    def _capture(self, side):
+        """The body captured on ``side`` into a graph with a pool of its
+        own, from the static buffers and uniforms of the warm-up."""
+        global _TALLY
+        dev = self.device
+        # the capture empties the allocator's cache as it begins: its pool
+        # is what the reserved memory grows from there
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(inputs[0].device)
+        reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         _TALLY = {}
         try:
-            with torch.cuda.graph(graph, pool=state.pool, stream=side), \
-                    inline():
+            with torch.cuda.graph(graph, stream=side), inline():
                 outputs = self.body(*self.inputs, self.uniforms)
-            self.nodes = _TALLY
+            nodes = _TALLY
         finally:
             _TALLY = None
         self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = (torch.cuda.memory_reserved(inputs[0].device)
-                           - reserved)
-        self.graph, self.outputs = graph, outputs
-        self.static_bytes = _nbytes((self.inputs, self.uniforms, outputs))
-        return out
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph, self.nodes, self.outputs = graph, nodes, outputs
+        shared = self._shared()
+        own = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+               for t in _leaves((self.inputs[self.inplace:], self.uniforms))}
+        self.static_bytes = sum(v for k, v in own.items() if k not in shared)
 
     def _replay(self, cur, inputs, draw):
         for i, (buf, a) in enumerate(zip(self.inputs, inputs)):
@@ -331,8 +430,7 @@ class Program:
         draw(self.uniforms)
         self.graph.replay()
         shared = self._shared()
-        out = tree_map(lambda t: t if t.untyped_storage().data_ptr()
-                       in shared else t.clone(), self.outputs)
+        out = self._handed(self.outputs, lambda p: p not in shared)
         for kernel, n in self.nodes.items():
             kernel.launches += n
         return out
@@ -394,12 +492,15 @@ def program(key, body, inputs) -> Program:
 class Workspace:
     """Buffers that a chain of programs shares in place, and those
     programs: their one owner, dropped as a unit (see :func:`workspace`).
-    ``buffers``: what ``make()`` returned."""
+    ``buffers``: what ``make()`` returned; ``device``: theirs; ``stamp``:
+    the last use."""
 
-    def __init__(self, key, buffers):
+    def __init__(self, key, buffers, device):
         self.key = key
         self.buffers = buffers
+        self.device = device
         self.programs: dict = {}
+        self.stamp = next(_STAMP)
 
     def run(self, key, body, inputs, draw=None, inplace=0):
         """:func:`run` as a program of this workspace, whose first
@@ -412,9 +513,11 @@ class Workspace:
         memo_key = _memo_key(key, inputs)
         prog = self.programs.get(memo_key)
         if prog is None:
-            prog = self.programs[memo_key] = Program(memo_key, body, inplace)
+            prog = self.programs[memo_key] = Program(
+                memo_key, body, inplace, self)
         else:
             prog.stamp = next(_STAMP)
+        self.stamp = next(_STAMP)
         return prog(inputs, draw)
 
     def nbytes(self) -> int:
@@ -422,21 +525,39 @@ class Workspace:
         return _nbytes(self.buffers)
 
 
-def workspace(name, key, device, make) -> Workspace:
+def _card(device):
+    """``device`` with its index (the current card's for a bare ``cuda``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def workspace(name, key, device, make, nbytes=None) -> Workspace:
     """The workspace ``name`` on ``device`` for ``key`` (and the
     configuration, :func:`config_key`): the one the device holds when its
     key is the same, else ``make()``'s buffers in a new one, after the
     device's workspace of another key and its programs are dropped, so
-    that their memory is free for the new buffers.  :func:`clear` drops
-    every workspace."""
+    that their memory is free for the new buffers.  On a card, room is
+    made for ``nbytes`` (what ``make()`` allocates) first
+    (:func:`make_room`), and a ``make()`` that runs out of memory runs once
+    more (:func:`retrying`).  :func:`clear` drops every workspace."""
     slot = (name, torch.device(device))
     key = (key, config_key())
     ws = _WORKSPACES.get(slot)
     if ws is not None and ws.key == key:
+        ws.stamp = next(_STAMP)
         return ws
     _WORKSPACES.pop(slot, None)
     ws = None   # the last reference to the old buffers, before make()
-    ws = _WORKSPACES[slot] = Workspace(key, make())
+    dev = _card(device)
+    if dev.type == "cuda":
+        if nbytes:
+            make_room(nbytes, dev)
+        buffers = retrying(make, dev)
+    else:
+        buffers = make()
+    ws = _WORKSPACES[slot] = Workspace(key, buffers, dev)
     return ws
 
 
@@ -453,10 +574,102 @@ def programs() -> list:
                      for p in ws.programs.values()], key=lambda p: p.stamp)
 
 
+class Held(NamedTuple):
+    """One thing a card keeps between calls (see :func:`held`): its last
+    use, its card, its bytes (a program's static buffers and pool; a
+    workspace's buffers and its programs' bytes), the :class:`Program` or
+    :class:`Workspace`, and the call that releases it (out of its memo or
+    slot)."""
+
+    stamp: int
+    device: torch.device
+    nbytes: int
+    what: object
+    drop: Callable[[], object]
+
+
+def _program_bytes(p) -> int:
+    return (p.static_bytes or 0) + (p.pool_bytes or 0)
+
+
+def held(device=None) -> list:
+    """What the cards keep between calls beside what callers keep, least
+    recently used first: each memoized program that has run on a device
+    (its ``static_bytes`` and ``pool_bytes``) and each workspace with its
+    programs (a unit); only ``device``'s when given."""
+    out = [Held(p.stamp, p.device, _program_bytes(p), p,
+                functools.partial(memo.pop, k, None))
+           for memo in _MEMOS.values() for k, p in memo.items()
+           if p.device is not None]
+    out += [Held(ws.stamp, ws.device, ws.nbytes() + sum(
+        map(_program_bytes, ws.programs.values())), ws,
+        functools.partial(_WORKSPACES.pop, slot, None))
+        for slot, ws in _WORKSPACES.items()]
+    return sorted((h for h in out if device is None or h.device == device),
+                  key=lambda h: h.stamp)
+
+
+def free_bytes(device, empty=True) -> int:
+    """What ``device`` can still allocate: its free memory within the
+    process's memory fraction (``torch.cuda.set_per_process_memory_fraction``),
+    with ``empty`` once the caching allocator has returned its unused
+    blocks to the card (a synchronisation), else beside them."""
+    if empty:
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    cap = torch.cuda.get_per_process_memory_fraction(device) * total
+    return int(min(free, cap - torch.cuda.memory_reserved(device)))
+
+
+def make_room(need, device, keep=(), free=None) -> int:
+    """Release the least recently used programs and workspaces of
+    ``device`` (:func:`held`), never one in ``keep``, until ``free()``
+    reaches ``need`` bytes or nothing is left to release.  By default
+    ``free`` is :func:`free_bytes` of ``device``: a need that fits beside
+    the allocator's cache returns at once, with no synchronisation;
+    otherwise the cache, and with it each released program's pool, goes
+    back to the card before each reading.  Returns how many were released
+    (also added to :data:`releases`)."""
+    global releases
+    if free is None:
+        if free_bytes(device, empty=False) >= need:
+            return 0
+        free = functools.partial(free_bytes, device)
+    victims = [h for h in held(device) if all(h.what is not k for k in keep)]
+    n = 0
+    while free() < need and victims:
+        victims.pop(0).drop()
+        n += 1
+    releases += n
+    return n
+
+
+def retrying(fn, device, keep=()):
+    """``fn()``; if it runs out of memory, once more after every program and
+    workspace of ``device`` but those in ``keep`` is released and the
+    card's unused cached memory returned (:func:`make_room`), as the
+    caching allocator frees its cache before it raises.  A second failure
+    raises.  Nothing else is caught, and nothing runs in ``fn``'s place."""
+    global retries
+    try:
+        return fn()
+    except torch.cuda.OutOfMemoryError:
+        pass
+    # outside the except clause, so that the failed attempt's frames and
+    # their tensors are gone
+    retries += 1
+    make_room(math.inf, device, keep)
+    return fn()
+
+
 def clear() -> None:
     """Drop every memoized program and workspace and return their memory
-    to the card (a program a caller still holds keeps its graph)."""
+    to the card (a program a caller still holds keeps its graph): the
+    counterpart of ``jax.clear_caches``, for handing the card to another
+    process, whose needs :func:`make_room` cannot see."""
     _MEMOS.clear()
+    _NEEDS.clear()
     _WORKSPACES.clear()
     _DEVICES.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():

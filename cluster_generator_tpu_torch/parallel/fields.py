@@ -29,7 +29,8 @@ so that no temporary approaches a spectrum's size.
 The workspace and its programs stay on the device after a call, keyed by
 the grid, the group size, the rank and the dtype; the box, ``l_min``,
 ``l_max``, ``alpha`` and ``g_rms`` are inputs.  A call on another grid
-drops them first; ``compiled.clear()`` returns them.
+drops them first; a call of another path that needs their room releases
+them (``compiled.make_room``); ``compiled.clear()`` returns them.
 """
 
 from __future__ import annotations
@@ -126,9 +127,18 @@ def _kspace_stage(s0, s1, s2, params, uniforms, *, div_clean):
         sigma = _spectrum_sigma(kk, k0, k1, alpha, dtype)
         parts = [w * sigma for w in parts]
         if div_clean:
-            parts = _div_clean_k(*parts, kxd, kyd[sl], kzd)
+            parts = list(_div_clean_k(*parts, kxd, kyd[sl], kzd))
+        # every temporary of a chunk is made before the chunk is written
+        # and gone before the next chunk, which reuses its blocks: a
+        # warm-up that runs out of memory does so before any write, so
+        # that its run again (compiled.retrying) starts from the spectra
+        # as they were
+        for i, w in enumerate(parts):
+            parts[i] = torch.fft.ifft(w, dim=0)
+        del w
         for s, w in zip((s0, s1, s2), parts):
-            s[sl].copy_(torch.fft.ifft(w, dim=0))
+            s[sl].copy_(w)
+        del parts, kk, sigma, w
 
 
 def _backward_stage(recv, out, uniforms):
@@ -187,8 +197,12 @@ def sharded_gaussian_random_field(seed, ddims, deltas, l_min, l_max, mesh,
     params = host_to_device(_kspace_params(shape, deltas, p, r, k0, k1,
                                            float(alpha)), dev)
 
-    ws = compiled.workspace("sharded_grf", (shape, p, r, dtype), dev,
-                            lambda: _workspace(shape, p, dtype, dev))
+    meta = _workspace(shape, p, dtype, "meta")
+    ws = compiled.workspace(
+        "sharded_grf", (shape, p, r, dtype), dev,
+        lambda: _workspace(shape, p, dtype, dev),
+        nbytes=sum(t.nbytes for t in (meta["noise"], meta["a2a"],
+                                      *meta["spectra"])))
     slab, a2a, spectra = (ws.buffers[k] for k in ("noise", "a2a", "spectra"))
 
     for c in range(3):
@@ -212,7 +226,7 @@ def sharded_gaussian_random_field(seed, ddims, deltas, l_min, l_max, mesh,
         _all_to_all(spectra[c].view(a2a.shape), group, out=a2a)
         sumsq += ws.run(("sharded_grf_backward",), _backward_stage,
                         (a2a, slab), inplace=2)
-        comps.append(slab.clone())
+        comps.append(compiled.retrying(slab.clone, slab.device, (ws,)))
     dist.all_reduce(sumsq, group=group)
     scale = (float(g_rms) / torch.sqrt(sumsq / (nx * ny * nz))).to(dtype)
     return tuple(sharded(mesh, g.mul_(scale), axis_name, nx) for g in comps)

@@ -425,6 +425,7 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
                 res[site] = fn(generator, batch + (n,), dtype, dev, out=buf)
         return res
 
+    draw.generator = generator   # see compiled.drawer
     if not isinstance(r_max, (float, torch.Tensor)):
         r_max = _f64(r_max, dev)
     return _sample_merger_ic_program(

@@ -452,3 +452,50 @@ def test_field_painter_and_workspace_programs_equal_their_eager_bodies():
     torch.cuda.synchronize()
     assert torch.equal(buf, torch.full_like(buf, 3.0))
     C.clear()
+
+
+@pytest.mark.cuda
+def test_a_program_that_does_not_fit_releases_another():
+    """Under a memory fraction that holds one of two programs, the second
+    program's first call releases the first (least recently used) and
+    the first's next call releases the second; each call equals its eager
+    body bit for bit."""
+    _card()
+    C.clear()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    size = 1 << 30                       # bytes of each program's input
+    gen = torch.Generator(dev).manual_seed(0)
+    x = {"a": torch.randn((size // 4096, 1024), device=dev, generator=gen),
+         "b": torch.randn((size // 8192, 2048), device=dev, generator=gen)}
+
+    def body(x, uniforms):
+        y = x * 2.0                      # a peak of twice the input
+        return (y + 1.0).sum(0)
+
+    def call(name):
+        return C.run(("cuda_room_test_" + name,), body, (x[name],))
+
+    with C.eager():
+        want = {k: call(k) for k in x}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # room for the inputs and one program (static copy and pool: 3 sizes)
+    # and the other's first call's copy, not for its warm-up too
+    cap = torch.cuda.memory_reserved(dev) + 4.5 * size
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        # (name, programs it releases): a capture, a replay, b's capture
+        # releases a, b's replay, a's capture releases b
+        for name, released in (("a", 0), ("a", 0), ("b", 1), ("b", 0),
+                               ("a", 1)):
+            before = C.releases
+            got = call(name)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want[name]), name
+            assert C.releases - before == released, name
+            assert [h.what.key[0][0] for h in C.held(dev)] == [
+                "cuda_room_test_" + name], name
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        C.clear()

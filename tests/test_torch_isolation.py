@@ -370,7 +370,8 @@ def test_no_source_of_the_port_names_a_foreign_import():
                 os.path.join(ROOT, "bench_torch.py"),
                 os.path.join(ROOT, "scripts", "bench_k1.py"),
                 os.path.join(ROOT, "scripts", "profile_torch_merger.py"),
-                os.path.join(ROOT, "scripts", "probe_overlap.py")])
+                os.path.join(ROOT, "scripts", "probe_overlap.py"),
+                os.path.join(ROOT, "scripts", "memory_sequence_torch.py")])
     assert len(files) >= len(MODULES) + 9
     for path in files:
         with open(path) as fh:
