@@ -174,12 +174,17 @@ Phases, in order; any failure exits non-zero before the last line:
     class-4096-1e7, the merger, a datagen batch, the 512^3 and 1024^3
     fields, the class path and the merger again with their particles
     joined eagerly, the sharded 1024^3 field on a world of one over NCCL,
-    the datagen batch and the merger again, every output kept) under a memory
-    fraction of 1.15 times the sequence's need under JAX's memory model
-    (outputs kept plus a step's eager peak): every step runs and equals
-    its run alone on a clean card bit for bit; per step the programs
-    released and recaptured and the memory held after it; warm calls
-    after it release nothing;
+    ``eager-after-sharded`` (eager only: the particles of the first two
+    steps joined five times over, 9.5e7, moved into a Gadget box and made
+    into Gadget blocks), the datagen batch and the merger again, every
+    output kept) under a memory fraction of 1.15 times the sequence's
+    need under JAX's memory model (outputs kept plus a step's eager
+    peak): every step runs and equals its run alone on a clean card bit
+    for bit; per step the headroom before it, the programs released and
+    recaptured and the memory held after it; the eager step releases the
+    sharded field's workspace, reruns nothing and launches no K1 (its
+    particles, sizes, eager peak and headroom printed); warm calls after
+    it release nothing;
 26. print one JSON line of kernel numbers;
 27. print the card's name and power limit, then the last line
     ``{"ok": true, "device": {...}}``.
@@ -4210,21 +4215,31 @@ def run_last_programs(cg, F, P, DS, K, card, md, dev="cuda", sz=LAST):
 # (scripts/memory_sequence_torch.py), then warm replays that fit
 
 
+# the headroom under the cap before eager-after-sharded at the parent commit
+# 27fc595, whose eager steps made no room: it ran out of memory there
+# (PERF.md section 6)
+PARENT_EAGER_HEADROOM_GIB = 1.93
+
+
 def run_memory_sequence(K, card, root):
     """Phase 25: ``scripts/memory_sequence_torch.py``'s steps (class,
     merger, datagen, the 512^3 and 1024^3 fields, the class path and the
     merger joined by the package's eager ``ClusterParticles.__add__``, the
     sharded 1024^3 field on a world of one over NCCL in this process,
-    datagen and merger again),
+    ``eager-after-sharded``: eager only, steps 1-2's particles joined five
+    times over, moved and cut into Gadget blocks, datagen and merger
+    again),
     each first alone on a clean card under ``compiled.eager()`` (its eager
     peak and its outputs, the reference), then in turn with every output
     kept and no ``compiled.clear()``, under
     ``torch.cuda.set_per_process_memory_fraction`` at the script's
     ``MARGIN`` times the largest of (outputs kept before a step + its eager peak):
     every step runs, each bit for bit its alone run; per step the programs
-    released and recaptured and the memory held after it; then three warm
-    calls each of the merger and the datagen batch, which release
-    nothing.  Returns K1's launches in the sequence."""
+    released and recaptured and the memory held after it; the eager step
+    releases the sharded field's workspace, reruns nothing and launches no
+    kernel of the port; then three warm calls each of the merger and the
+    datagen batch, which release nothing.  Returns K1's launches in the
+    sequence."""
     sys.path.insert(0, os.path.join(root, "scripts"))
     import memory_sequence_torch as MS
 
@@ -4243,21 +4258,48 @@ def run_memory_sequence(K, card, root):
         torch.cuda.set_per_process_memory_fraction(fraction)
         try:
             K.invert_cdf_rows.launches = 0
-            records, oom = MS.sequence(seq, refs, lambda line: print(
-                f"memory sequence step: {line} [{card}]"))
+            per_step = {}
+
+            def report(line):
+                rec = json.loads(line)
+                per_step[rec["step"]] = (rec, K.invert_cdf_rows.launches)
+                print(f"memory sequence step: {line} [{card}]")
+
+            records, oom = MS.sequence(seq, refs, report)
             launches = K.invert_cdf_rows.launches
             check(oom is None, f"memory sequence: {oom} ran out of memory")
             warm = {}
-            for name, fn, _ in seq[-2:]:
-                fn()   # a replay (or a capture after a release) first
+            for step in seq[-2:]:
+                step.fn({})   # a replay (or a capture after a release) first
                 released, walls = C.releases, []
                 for _ in range(3):
-                    _, s = timed(fn)
+                    _, s = timed(lambda: step.fn({}))
                     walls.append(s)
-                warm[name] = {"warm_s": walls,
-                              "released": C.releases - released}
+                warm[step.name] = {"warm_s": walls,
+                                   "released": C.releases - released}
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
+    names = [s.name for s in seq]
+    eager = names.index("eager-after-sharded")
+    rec, k1_after = per_step["eager-after-sharded"]
+    host, sum_bytes, peak = refs["eager-after-sharded"]
+    kept_before = per_step[names[eager - 1]][0]["outputs_kept_gib"]
+    print(f"memory sequence eager-after-sharded: "
+          f"{MS.JOIN_REPEATS * MS.PARTICLES_PER_JOIN:.3g} particles, sum "
+          f"{sum_bytes / 2**30:.2f} GiB, Gadget blocks "
+          f"{host[-1].numel() / 2**30:.2f} GiB, eager peak alone "
+          f"{peak / 2**30:.2f} GiB; headroom before it "
+          f"{rec['headroom_before_gib']:.2f} GiB here, "
+          f"{fraction * total / 2**30 - kept_before:.2f} under JAX's "
+          f"model, {PARENT_EAGER_HEADROOM_GIB} at the parent commit "
+          f"27fc595; released {rec['released']}, reruns {rec['retries']}, "
+          f"workspaces held after {rec['workspaces_held']} [{card}]")
+    k1_before = per_step[names[eager - 1]][1]
+    check(rec["released"] >= 1 and rec["workspaces_held"] == 0,
+          f"eager-after-sharded kept the sharded field's workspace {rec}")
+    check(rec["retries"] == 0 and rec["captures"] == 0
+          and k1_after == k1_before,
+          f"eager-after-sharded reran, captured or launched K1 {rec}")
     print(f"memory sequence warm calls under the cap: {json.dumps(warm)} "
           f"[{card}]")
     check(all(r["equal_to_alone"] for r in records),

@@ -3,8 +3,10 @@ the particle writer they share.
 
 The particle arrays are assembled on the particles' device and copied to
 the host once per file; AREPO's background grid is built on the device
-(:func:`_arepo_background`).  HDF5 output needs ``h5py``, imported inside
-the writers; the Fortran format needs only scipy.
+(:func:`_arepo_background`).  Each of these eager steps first makes room
+on a card for what it reckons it allocates
+(:func:`~.core.compiled.room_for`).  HDF5 output needs ``h5py``, imported
+inside the writers; the Fortran format needs only scipy.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .core import compiled
 from .core import constants as C
 from .core import units
 from .core.logging import mylog
@@ -39,7 +42,10 @@ def _cgs_factor(field):
 
 
 def _amr_field(particles, field, ptypes, in_cgs):
-    fd = torch.cat([particles[ptype, field] for ptype in ptypes], dim=0)
+    parts = [particles[ptype, field] for ptype in ptypes]
+    # the joined field, and its scaled copy
+    compiled.room_for(particles.device, *parts * (1 + bool(in_cgs)))
+    fd = torch.cat(parts, dim=0)
     return fd * _cgs_factor(field) if in_cgs else fd
 
 
@@ -74,6 +80,7 @@ def write_amr_particles(particles, output_filename, ptypes, ptype_num,
         cols = [_amr_field(particles, field, ptypes, in_cgs)
                 for field in _AMR_FIELDS]
         num_particles = int(cols[-1].numel())
+        compiled.room_for(particles.device, *cols)
         rec = torch.cat([cols[0], cols[1], cols[2][:, None]],
                         dim=1).cpu().numpy()
         with FortranFile(output_filename, "w") as f:
@@ -202,6 +209,12 @@ def _arepo_background(centers, r_max, boxsize, nx, gas):
     inside each halo of a multi-halo scene."""
     dens, eint = gas["gas", "density"], gas["gas", "thermal_energy"]
     dev = dens.device
+    # at most every cell: the cell centres, the squared offsets and their
+    # sum, the mask, then the kept centres and velocities, and the mass,
+    # density and energy columns
+    n3, f64 = nx ** 3, torch.float64
+    compiled.room_for(dev, *[(3 * n3, f64)] * 4, *[(n3, f64)] * 3,
+                      (n3, torch.bool))
     dx = boxsize / nx
     le = 0.5 * dx
     re = boxsize - 0.5 * dx

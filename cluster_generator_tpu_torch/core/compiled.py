@@ -69,11 +69,17 @@ all the same are each run once more after every other program and
 workspace of the card is released (:func:`retrying`), as the caching
 allocator frees its cache before it raises; a second failure raises.  A
 warm-up that has run through never runs again: it may have written
-buffers shared in place.  A warm replay that fits releases nothing.  Only
-these calls make room: eager work between them (the caller's, or the
-package's own) has what the held programs leave.  :func:`clear` drops
-everything, the counterpart of ``jax.clear_caches``: for handing the card
-to another process.
+buffers shared in place.  A warm replay that fits releases nothing.  The
+package's own eager steps between program calls that allocate in
+proportion to the particles or the grid (joining, moving and cutting
+particles, the Gadget blocks, the AREPO background, the AMR records, the
+stacked field of a sampling, a container's conversions) make room the
+same way before they allocate, for the bytes they reckon from their
+inputs' sizes (:func:`room_for`); none of them is run again.  Only the
+caller's own eager work has what the held programs leave: the allocator
+gives no hook to make room for it.  :func:`clear` drops everything, the
+counterpart of ``jax.clear_caches``: before such work, or for handing
+the card to another process.
 
 Kernel launches: a wrapper counts each launch with :func:`count_launch`.
 A launch recorded into a graph is counted on each replay instead, once
@@ -103,7 +109,7 @@ __all__ = ["MAX_PROGRAMS", "Program", "run", "program", "programs",
            "function", "Workspace", "workspace", "workspaces",
            "register_node", "flatten", "unflatten", "signature", "inline",
            "is_inline", "eager", "eager_calls", "Held", "held", "free_bytes",
-           "make_room", "retrying", "releases", "retries"]
+           "make_room", "room_for", "card", "retrying", "releases", "retries"]
 
 MAX_PROGRAMS = 8
 
@@ -525,7 +531,7 @@ class Workspace:
         return _nbytes(self.buffers)
 
 
-def _card(device):
+def card(device):
     """``device`` with its index (the current card's for a bare ``cuda``)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -550,7 +556,7 @@ def workspace(name, key, device, make, nbytes=None) -> Workspace:
         return ws
     _WORKSPACES.pop(slot, None)
     ws = None   # the last reference to the old buffers, before make()
-    dev = _card(device)
+    dev = card(device)
     if dev.type == "cuda":
         if nbytes:
             make_room(nbytes, dev)
@@ -643,6 +649,21 @@ def make_room(need, device, keep=(), free=None) -> int:
         n += 1
     releases += n
     return n
+
+
+def room_for(device, *sizes) -> int:
+    """Before an eager step of the package on ``device``: make room
+    (:func:`make_room`) for the new tensors it allocates, one per entry of
+    ``sizes``: a tensor (a new one of its bytes) or ``(numel, dtype)``.
+    On a card a need that fits beside the allocator's cache returns at
+    once, with no synchronisation and no release; anywhere else nothing is
+    done.  Returns how many programs and workspaces were released."""
+    dev = card(device)
+    need = sum(s.numel() * s.element_size() if isinstance(s, torch.Tensor)
+               else s[0] * s[1].itemsize for s in sizes)
+    if dev.type != "cuda" or not need:
+        return 0
+    return make_room(need, dev)
 
 
 def retrying(fn, device, keep=()):

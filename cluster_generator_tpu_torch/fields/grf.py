@@ -516,13 +516,15 @@ class ClusterField:
         if pos.device.type != self.device.type:
             raise ValueError(f"the particles live on {pos.device}, the field "
                              f"on {self.device}")
-        vals = _trilinear(self.x, self.y, self.z,
-                          torch.stack([self.gx, self.gy, self.gz]), pos)
+        comps = (self.gx, self.gy, self.gz)
+        compiled.room_for(pos.device, *comps)   # the stacked field
+        vals = _trilinear(self.x, self.y, self.z, torch.stack(comps), pos)
         out = vals.T
         if units is None:
             cluster_particles.set_field(ptype, self._name, out)
         else:
             factor = U.conversion_factor(self.units, units)
+            compiled.room_for(pos.device, vals)
             cluster_particles.set_field(ptype, self._name, out * factor,
                                         units=units)
 

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import compiled
+
 __all__ = ["shard_particles", "write_sharded_gadget_files"]
 
 # pipeline-dict field name -> ClusterParticles container field name
@@ -117,6 +119,8 @@ def _export_plan(parts: dict, box_size, center_offset=None):
     mine = list(shard_particles(parts))
     if center_offset is not None:
         for _, sp in mine:
+            compiled.room_for(sp.device, *(
+                sp.fields[p, "particle_position"] for p in sp.particle_types))
             for ptype in sp.particle_types:
                 sp.fields[ptype, "particle_position"] = (
                     sp.fields[ptype, "particle_position"]
@@ -124,12 +128,18 @@ def _export_plan(parts: dict, box_size, center_offset=None):
     off = torch.as_tensor(np.zeros(3) if center_offset is None
                           else np.asarray(center_offset, np.float64),
                           device=_local(first).device)
+
+    def inbox(p):
+        pos = _local(parts[p, "particle_position"])
+        # the float64 positions, moved, and the in-box masks
+        compiled.room_for(pos.device, *[(pos.numel(), torch.float64)] * 2,
+                          (2 * pos.numel() + 4 * pos.shape[0], torch.bool))
+        return _inbox_count(pos.to(torch.float64) + off, box_size)
+
     # this rank's row: shard index, owner flag, in-box count per species
     row = torch.cat([
         torch.as_tensor([index, int(owner)], device=off.device),
-        torch.stack([_inbox_count(
-            _local(parts[p, "particle_position"]).to(torch.float64) + off,
-            box_size) for p in species])])
+        torch.stack([inbox(p) for p in species])])
     if isinstance(first, DTensor):
         rows = [torch.empty_like(row) for _ in range(dist.get_world_size())]
         dist.all_gather(rows, row)

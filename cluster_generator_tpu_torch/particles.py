@@ -8,8 +8,13 @@ the particles' device, one halo at a time (halo models may sit on grids of
 different sizes), as one program (:func:`~.core.compiled.function`; on
 the card a memoized CUDA graph, replayed for halos of other parameters on
 grids of the same sizes); the moves to the halos' centers and the sum of
-the containers before it run op by op.  Nothing here copies a field to
-the host but the writers, :meth:`ClusterParticles.to_numpy` and
+the containers before it run op by op.  Each eager step here that
+allocates on a card in proportion to the particles (a container's
+conversions, the sum, the moves, the radial cut, the Gadget blocks)
+first makes room for what it reckons from its inputs' sizes among the
+memoized programs the card holds (:func:`~.core.compiled.room_for`).
+Nothing here copies a field to the host but the writers,
+:meth:`ClusterParticles.to_numpy` and
 :meth:`ClusterParticles.to_yt_dataset`; the Gadget writer assembles its
 blocks on the device and copies them to the host at once
 (:func:`_gadget_blocks`).  ``h5py`` and ``yt`` are imported inside the
@@ -130,12 +135,19 @@ class ClusterParticles:
             elif value.dtype in (torch.uint16, torch.uint32, torch.uint64):
                 self._index_dtypes[key[0]] = np.dtype(
                     str(value.dtype).removeprefix("torch."))
-                value = value.to(torch.int64)
-            return value.to(self.device)
-        if isinstance(value, torch.Tensor):
-            return value.to(device=self.device, dtype=torch.float64)
-        return torch.as_tensor(np.array(value, dtype=np.float64),
-                               device=self.device)
+                value = self._moved(value, torch.int64)
+            return self._moved(value, value.dtype)
+        if not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.array(value, dtype=np.float64))
+        return self._moved(value, torch.float64)
+
+    def _moved(self, value, dtype):
+        """``value`` as ``dtype`` on this container's device, room made
+        there first when that is a new tensor."""
+        if value.dtype != dtype or value.device != (
+                compiled.card(self.device) if value.is_cuda else self.device):
+            compiled.room_for(self.device, (value.numel(), dtype))
+        return value.to(device=self.device, dtype=dtype)
 
     def __init__(self, particle_types, fields, device=None):
         self.particle_types = _ensure_list(particle_types)
@@ -212,6 +224,10 @@ class ClusterParticles:
         the other's particles.  Dropped names are logged.  Passive-scalar
         registrations carry over for scalars that survive."""
         shared = set(self.particle_types) & set(other.particle_types)
+        compiled.room_for(self.device, *(
+            t for field, arr in self.fields.items()
+            if field[0] in shared and field in other.fields
+            for t in (arr, other[field])))
         fields = OrderedDict()
         for field, arr in self.fields.items():
             if field[0] not in shared:
@@ -270,8 +286,14 @@ class ClusterParticles:
         if ptypes is None:
             ptypes = self.particle_types
         for part in _ensure_list(ptypes):
-            cidx = (((self[part, "particle_position"] - center) ** 2)
-                    .sum(dim=1) <= rm2)
+            # the squared offsets and their sum, the mask, and every field
+            # at most whole
+            pos = self[part, "particle_position"]
+            compiled.room_for(self.device, pos, pos,
+                              (pos.shape[0], torch.bool),
+                              *(self.fields[part, f]
+                                for f in self.field_names[part]))
+            cidx = (((pos - center) ** 2).sum(dim=1) <= rm2)
             for field in self.field_names[part]:
                 self.fields[part, field] = self.fields[part, field][cidx]
         self._update_num_particles()
@@ -441,6 +463,9 @@ class ClusterParticles:
         ``units``: if given, ``value`` is interpreted in that unit and
         converted to galactic base units for storage."""
         value = self._coerce((ptype, name), value)
+        # the value converted from ``units``, the sum with the old one
+        compiled.room_for(self.device, *[value] * (
+            (units is not None) + (add and (ptype, name) in self.fields)))
         if units is not None:
             from .core.units import to_galactic
 
@@ -472,17 +497,20 @@ class ClusterParticles:
             ptypes = self.particle_types
         r_ctr, v_ctr = (self._coerce(("", ""), x) if isinstance(
             x, torch.Tensor) else _f64(x, self.device) for x in (r_ctr, v_ctr))
-        for ptype in _ensure_list(ptypes):
+        ptypes = _ensure_list(ptypes)
+        compiled.room_for(self.device, *(
+            self.fields[p, f] for p in ptypes
+            for f in ("particle_position", "particle_velocity")))
+        for ptype in ptypes:
             self.fields[ptype, "particle_position"] = (
                 self.fields[ptype, "particle_position"] + r_ctr)
             self.fields[ptype, "particle_velocity"] = (
                 self.fields[ptype, "particle_velocity"] + v_ctr)
 
     # ------------------------------------------------------------- gadget
-    def _gadget_field_blocks(self, ptype, index, dtype, code):
-        """``(Gadget name, tensor)`` for every block of ``ptype`` but the
-        IDs, at the particles ``index`` selects, in file units and
-        ``dtype`` (the passive scalars keep float64, as written)."""
+    def _gadget_sources(self, ptype, code):
+        """``(Gadget name, [fields])`` for every block of ``ptype`` but the
+        IDs: the field it is made of, or the passive scalars it stacks."""
         fields = list(gadget_fields[ptype])
         if code in code_fields:
             fields += code_fields[code].get(ptype, [])
@@ -491,9 +519,8 @@ class ClusterParticles:
                 continue
             if field == "PassiveScalars":
                 if self.num_passive_scalars > 0:
-                    data = torch.stack([self[ptype, s] for s in
-                                        self.passive_scalars], dim=-1)
-                    yield field, data[index]
+                    yield field, [self[ptype, s]
+                                  for s in self.passive_scalars]
                 continue
             my_field = gadget_field_map[field]
             if ((ptype, my_field) not in self.fields
@@ -502,9 +529,40 @@ class ClusterParticles:
                 # the generators store 'particle_potential'
                 my_field = "particle_potential"
             if (ptype, my_field) in self.fields:
-                fd = self.fields[ptype, my_field]
-                yield field, (fd[index] / gadget_field_factors[field]).to(
-                    dtype)
+                yield field, [self.fields[ptype, my_field]]
+
+    def _gadget_field_blocks(self, ptype, index, dtype, code):
+        """``(Gadget name, tensor)`` for every block of ``ptype`` but the
+        IDs, at the particles ``index`` selects, in file units and
+        ``dtype`` (the passive scalars keep float64, as written)."""
+        for field, src in self._gadget_sources(ptype, code):
+            if field == "PassiveScalars":
+                yield field, torch.stack(src, dim=-1)[index]
+            else:
+                yield field, (src[0][index] / gadget_field_factors[field]
+                              ).to(dtype)
+
+    def _gadget_room(self, ptype, dtype, code):
+        """Room for the Gadget blocks of ``ptype`` (:func:`_gadget_blocks`),
+        as if every particle were in the box: the in-box masks, the index,
+        each block in ``dtype`` (the passive scalars stacked, then
+        selected, in float64), the selected and scaled float64 values of
+        the largest block on their way to ``dtype``, and the IDs (int64,
+        then int32)."""
+        pos = self.fields[ptype, "particle_position"]
+        n = pos.shape[0]
+        sizes = [(2 * pos.numel() + 4 * n, torch.bool), (n, torch.int64),
+                 (n, torch.int64), (n, torch.int32)]
+        largest = 0
+        for field, src in self._gadget_sources(ptype, code):
+            numel = sum(t.numel() for t in src)
+            if field == "PassiveScalars":
+                sizes += [(numel, torch.float64)] * 2
+            else:
+                sizes.append((numel, dtype))
+                largest = max(largest, numel)
+        sizes += [(largest, torch.float64)] * 2
+        compiled.room_for(self.device, *sizes)
 
     def _write_gadget_fields(self, ptype, h5_group, idxs, dtype, code,
                              raw=None):
@@ -512,6 +570,7 @@ class ClusterParticles:
         the particles the boolean mask ``idxs`` keeps."""
         _add = (raw.add if raw is not None
                 else lambda g, k, v: g.create_dataset(k, data=v))
+        self._gadget_room(ptype, _torch_dtype(dtype), code)
         index = torch.as_tensor(idxs, device=self.device)
         for field, block in self._gadget_field_blocks(ptype, index,
                                                       _torch_dtype(dtype),
@@ -629,6 +688,7 @@ def _gadget_blocks(particles, box_size, dtype="float32", code=None,
     names, tensors, counts = [], [], {}
     npart = id_offset
     for ptype in particles.particle_types:
+        particles._gadget_room(ptype, tdtype, code)
         index = torch.nonzero(particles._clip_to_box(ptype,
                                                      box_size)).squeeze(1)
         n = counts[ptype] = int(index.numel())

@@ -636,7 +636,11 @@ def attach_field_to_particles(parts: dict, field, ptype: str = "gas"):
     from .fields.grf import _trilinear
 
     pos = parts[ptype, "particle_position"]
-    g = torch.stack([field.gx, field.gy, field.gz]).to(pos.dtype)
+    comps = (field.gx, field.gy, field.gz)
+    # the stacked field, and its cast to the positions' dtype
+    compiled.room_for(pos.device, *comps, *[
+        (c.numel(), pos.dtype) for c in comps if c.dtype != pos.dtype])
+    g = torch.stack(comps).to(pos.dtype)
     vals = _trilinear(field.x.to(pos.dtype), field.y.to(pos.dtype),
                       field.z.to(pos.dtype), g, pos)
     parts[ptype, field._name] = vals.T

@@ -14,19 +14,29 @@ The steps, each at full width and with seeds of its own:
    card beside the held programs, which make no room for it);
 7. ``sharded1024``: the sharded 1024^3 field on a world of one over NCCL,
    in this process;
-8. ``datagen again`` and ``merger again``: steps 3 and 2 with their seeds.
+8. ``eager-after-sharded``: eager work only, no program call, on what the
+   caller kept from steps 1 and 2: the class containers and the merger's
+   particles joined :data:`JOIN_REPEATS` times by
+   ``ClusterParticles.__add__`` (9.5e7 particles), the sum moved into a
+   Gadget box by ``add_offsets``, and its Gadget blocks
+   (``particles._gadget_blocks``, the device half of
+   ``write_to_gadget_file``);
+9. ``datagen again`` and ``merger again``: steps 3 and 2 with their seeds.
 
 The caller keeps every step's outputs, as a user's script would.
 
 First each step runs alone on a clean card (``compiled.clear()`` before
 it) under ``compiled.eager()``: its eager peak and its outputs, copied to
-the host as the reference.  The need under JAX's memory model, where an
-executable keeps only its outputs, is the largest over the steps of the
-outputs kept before the step plus the step's eager peak; the cap is
-``--margin`` (default :data:`MARGIN`) times that need, as a fraction of the card's memory
+the host as the reference (a step that works on earlier steps' outputs
+gets them from eager runs of those steps made before it).  The need
+under JAX's memory model, where an executable keeps only its outputs, is
+the largest over the steps of the outputs kept before the step plus the
+step's eager peak; the cap is ``--margin`` (default :data:`MARGIN`)
+times that need, as a fraction of the card's memory
 (``torch.cuda.set_per_process_memory_fraction``), unless ``--fraction``
 gives it.  Then the sequence runs under the cap: for each step one JSON
-line with its wall seconds, the peak it adds, the memory the card holds
+line with its wall seconds, the headroom before it (what the card can
+still allocate under the cap), the peak it adds, the memory the card holds
 after it beyond the outputs kept (reserved after ``empty_cache()``), the
 programs it captured (and how many of them had been captured before: the
 recaptures) with their capture seconds, the programs and workspaces the
@@ -41,7 +51,11 @@ Run from the root of the checkout whose package is to be measured (or
 with ``PYTHONPATH`` at another checkout's root):
 
     PYTHONPATH=. python3 scripts/memory_sequence_torch.py [--label change] \\
-        [--margin 1.15 | --fraction F]
+        [--margin 1.15 | --fraction F] [--first N]
+
+``--first N`` runs only the first N steps (their first calls: with
+``--fraction`` of the whole sequence's cap, a wall comparable between
+checkouts).
 """
 
 from __future__ import annotations
@@ -55,7 +69,9 @@ import sys
 import tempfile
 import time
 import weakref
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 GIB = 2.0 ** 30
@@ -78,6 +94,26 @@ CLASS_DM, CLASS_GAS = 5_000_000, 4_000_000
 FIELD_LE, FIELD_RE = [-1000.0] * 3, [1000.0] * 3
 FIELD_L, FIELD_B_RMS = (50.0, 500.0), 1.0e-6
 SEED = 25
+# eager-after-sharded: the join of steps 1-2's 1.9e7 particles five times
+# over (9.5e7, inside the 1e6-1e9 users run) peaks near 10 GiB eagerly:
+# above the ~2 GiB the parent leaves after the sharded field, and above
+# that plus the class and merger programs held before the workspace, so
+# that making room reaches the workspace
+JOIN_REPEATS = 5
+PARTICLES_PER_JOIN = CLASS_DM + CLASS_GAS + sum(N_GAS + N_DM + N_STAR)
+GADGET_BOX = 14000.0   # kpc: the IC scenes' box, the sum at its centre
+
+
+class Step(NamedTuple):
+    """One step: ``fn(kept)`` runs it, ``kept`` the outputs of the steps
+    before it by name; ``ref`` names its reference (a step run again
+    shares its first run's); ``uses`` the earlier steps whose outputs it
+    reads."""
+
+    name: str
+    fn: Callable
+    ref: str
+    uses: tuple = ()
 
 
 def gen(k):
@@ -99,7 +135,9 @@ def leaves(obj):
 
 
 def nbytes(obj):
-    return sum(t.numel() * t.element_size() for t in leaves(obj))
+    """The card's bytes of ``obj`` (its host tensors hold none)."""
+    return sum(t.numel() * t.element_size() for t in leaves(obj)
+               if t.is_cuda)
 
 
 def to_host(obj):
@@ -184,6 +222,28 @@ def joined_step(cg, P):
                                           parts)
 
 
+def eager_step(cg, kept, repeats=JOIN_REPEATS, box=GADGET_BOX):
+    """``eager-after-sharded``: the class containers and the merger's
+    particles kept from steps 1 and 2 joined ``repeats`` times over, the
+    sum moved to the centre of a Gadget box of side ``box``, and its
+    Gadget blocks.  Returns the sum and the blocks' bytes (one host
+    tensor)."""
+    from cluster_generator_tpu_torch.particles import _gadget_blocks
+
+    _, dm, gas = kept["class"]
+    parts, _ = kept["merger"]
+    one = dm + gas + cg.ClusterParticles(sorted({k[0] for k in parts}),
+                                         parts)
+    total = one
+    for _ in range(repeats - 1):
+        total = total + one
+    total.add_offsets([box / 2.0] * 3, [0.0] * 3)
+    blocks, _, _ = _gadget_blocks(total, box)
+    return total, torch.from_numpy(np.concatenate([
+        np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+        for arrays in blocks.values() for a in arrays.values()]))
+
+
 @contextlib.contextmanager
 def world_of_one(store_dir):
     """A world of one over NCCL, started as a rank of a world does (a file
@@ -209,16 +269,21 @@ def steps(mesh, field_dims=(512, 1024), sharded_dims=1024):
     from cluster_generator_tpu_torch.parallel import ensemble as E
 
     small, big = field_dims
-    return [("class", lambda: class_step(cg), "class"),
-            ("merger", lambda: merger_step(P), "merger"),
-            ("datagen", lambda: datagen_step(E), "datagen"),
-            (f"field{small}", lambda: field_step(F, small), f"field{small}"),
-            (f"field{big}", lambda: field_step(F, big), f"field{big}"),
-            ("joined", lambda: joined_step(cg, P), "joined"),
-            (f"sharded{sharded_dims}", lambda: sharded_step(
-                mesh, sharded_dims), f"sharded{sharded_dims}"),
-            ("datagen again", lambda: datagen_step(E), "datagen"),
-            ("merger again", lambda: merger_step(P), "merger")]
+    sharded = f"sharded{sharded_dims}"
+    return [Step("class", lambda kept: class_step(cg), "class"),
+            Step("merger", lambda kept: merger_step(P), "merger"),
+            Step("datagen", lambda kept: datagen_step(E), "datagen"),
+            Step(f"field{small}", lambda kept: field_step(F, small),
+                 f"field{small}"),
+            Step(f"field{big}", lambda kept: field_step(F, big),
+                 f"field{big}"),
+            Step("joined", lambda kept: joined_step(cg, P), "joined"),
+            Step(sharded, lambda kept: sharded_step(mesh, sharded_dims),
+                 sharded),
+            Step("eager-after-sharded", lambda kept: eager_step(cg, kept),
+                 "eager-after-sharded", ("class", "merger")),
+            Step("datagen again", lambda kept: datagen_step(E), "datagen"),
+            Step("merger again", lambda kept: merger_step(P), "merger")]
 
 
 def clean():
@@ -232,25 +297,30 @@ def clean():
 
 
 def alone(seq):
-    """Each step of ``seq`` alone on a clean card, eagerly: ``{reference
-    name: (host outputs, output bytes, eager peak bytes)}``."""
+    """Each step of ``seq`` alone on a clean card, eagerly (the steps it
+    uses run eagerly before it, outside its peak): ``{reference name:
+    (host outputs, output bytes, eager peak bytes)}``."""
     from cluster_generator_tpu_torch.core import compiled as C
 
+    by_name = {s.name: s for s in seq}
     refs = {}
-    for name, fn, ref in seq:
-        if ref in refs:
+    for step in seq:
+        if step.ref in refs:
             continue
         clean()
+        with C.eager():
+            kept = {u: by_name[u].fn({}) for u in step.uses}
+        torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         with C.eager():
-            out = fn()
+            out = step.fn(kept)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - before
-        refs[ref] = (to_host(out), nbytes(out), peak)
-        print(json.dumps({"alone": name, "eager_peak_gib": peak / GIB,
+        refs[step.ref] = (to_host(out), nbytes(out), peak)
+        print(json.dumps({"alone": step.name, "eager_peak_gib": peak / GIB,
                           "outputs_gib": nbytes(out) / GIB}), flush=True)
-        del out
+        del out, kept
     clean()
     return refs
 
@@ -259,11 +329,19 @@ def need(seq, refs):
     """The sequence's need under JAX's memory model, in bytes: the largest
     over the steps of the outputs kept before it plus its eager peak."""
     kept, most = 0, 0
-    for _, _, ref in seq:
-        _, out_bytes, peak = refs[ref]
+    for step in seq:
+        _, out_bytes, peak = refs[step.ref]
         most = max(most, kept + peak)
         kept += out_bytes
     return most
+
+
+def headroom():
+    """What the card can still allocate under the process's memory
+    fraction, beside the allocator's cache."""
+    free, total = torch.cuda.mem_get_info()
+    cap = torch.cuda.get_per_process_memory_fraction() * total
+    return min(free, cap - torch.cuda.memory_reserved())
 
 
 def sequence(seq, refs, report=print):
@@ -274,31 +352,36 @@ def sequence(seq, refs, report=print):
     from cluster_generator_tpu_torch.core import compiled as C
 
     base = clean()
-    kept, kept_bytes, records, seen = [], 0, [], set()
-    for name, fn, ref in seq:
+    kept, kept_bytes, records, seen = {}, 0, [], set()
+    for step in seq:
         # weak: a program held here could not be released by the package
         before_progs = weakref.WeakSet(C.programs())
         released = getattr(C, "releases", None)
         retried = getattr(C, "retries", None)
         torch.cuda.synchronize()
+        room = headroom()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            out = fn()
+            out = step.fn(kept)
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError as e:
-            report(json.dumps({"step": name, "oom": str(e).split("\n")[0]}))
-            return records, name
+            report(json.dumps({"step": step.name,
+                               "headroom_before_gib": room / GIB,
+                               "oom": str(e).split("\n")[0]}))
+            return records, step.name
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - before
-        kept.append(out)
+        kept[step.name] = out
         kept_bytes += nbytes(out)
         torch.cuda.empty_cache()
         held = torch.cuda.memory_reserved() - base - kept_bytes
         new = [p for p in C.programs() if p not in before_progs]
         keys = [p.key for p in new]
-        rec = {"step": name, "wall_s": wall, "peak_added_gib": peak / GIB,
+        rec = {"step": step.name, "wall_s": wall,
+               "headroom_before_gib": room / GIB,
+               "peak_added_gib": peak / GIB,
                "outputs_kept_gib": kept_bytes / GIB,
                "held_after_gib": held / GIB,
                "captures": len(new),
@@ -310,7 +393,9 @@ def sequence(seq, refs, report=print):
                "accounted_gib": (sum(h.nbytes for h in C.held()) / GIB
                                  if hasattr(C, "held") else None),
                "programs_held": len(C.programs()),
-               "equal_to_alone": bitwise_equal(out, refs[ref][0])}
+               "workspaces_held": (len(C.workspaces())
+                                   if hasattr(C, "workspaces") else None),
+               "equal_to_alone": bitwise_equal(out, refs[step.ref][0])}
         seen.update(keys)
         records.append(rec)
         report(json.dumps(rec))
@@ -330,6 +415,7 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--margin", type=float, default=MARGIN)
     ap.add_argument("--fraction", type=float)
+    ap.add_argument("--first", type=int, help="run only the first N steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("memory_sequence_torch: no CUDA device", file=sys.stderr)
@@ -337,7 +423,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     total = torch.cuda.get_device_properties(0).total_memory
     with tempfile.TemporaryDirectory() as d, world_of_one(d) as mesh:
-        seq = steps(mesh)
+        seq = steps(mesh)[:args.first]
         refs = alone(seq)
         jax_need = need(seq, refs)
         fraction = args.fraction or min(1.0, args.margin * jax_need / total)
@@ -354,6 +440,15 @@ def main() -> int:
             torch.cuda.set_per_process_memory_fraction(1.0)
     print(f"card: {card_line()}; torch {torch.__version__}, package "
           f"{os.path.abspath('cluster_generator_tpu_torch')}")
+    eager = next((refs[s.ref] for s in seq
+                  if s.ref == "eager-after-sharded"), None)
+    if eager is not None:
+        host, out_bytes, peak = eager
+        print(json.dumps({"eager_after_sharded": {
+            "particles": JOIN_REPEATS * PARTICLES_PER_JOIN,
+            "sum_gib": out_bytes / GIB,
+            "gadget_blocks_gib": host[-1].numel() / GIB,
+            "eager_peak_gib": peak / GIB}}))
     print(json.dumps({"label": args.label, "oom_step": oom,
                       "steps_run": len(records),
                       "all_equal": all(r["equal_to_alone"]

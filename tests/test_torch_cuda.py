@@ -499,3 +499,212 @@ def test_a_program_that_does_not_fit_releases_another():
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0, dev)
         C.clear()
+
+
+@pytest.mark.cuda
+def test_an_eager_join_releases_a_workspace_that_leaves_no_room():
+    """Under a memory fraction that leaves beside a held workspace less
+    room than a join of two particle containers needs, the package's
+    eager ``ClusterParticles.__add__`` releases the workspace first and
+    equals the same join on a clean card bit for bit."""
+    from cluster_generator_tpu_torch.particles import ClusterParticles
+
+    _card()
+    C.clear()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 1 << 24                          # particles of each container
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def container():
+        return ClusterParticles(["dm"], {
+            ("dm", "particle_position"): torch.rand(
+                (n, 3), device=dev, dtype=torch.float64, generator=gen),
+            ("dm", "particle_velocity"): torch.randn(
+                (n, 3), device=dev, dtype=torch.float64, generator=gen),
+            ("dm", "particle_mass"): torch.rand(
+                n, device=dev, dtype=torch.float64, generator=gen)})
+
+    a, b = container(), container()
+    want = {k: v.cpu() for k, v in (a + b).fields.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    size = 2 << 30                       # the workspace's bytes
+    C.workspace("cuda_eager_room_test", 0, dev, lambda: torch.empty(
+        size, dtype=torch.uint8, device=dev), nbytes=size)
+    # the join needs 112 n bytes (1.75 GiB); 1 GiB is left beside the
+    # workspace
+    cap = torch.cuda.memory_reserved(dev) + (1 << 30)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        before = C.releases
+        got = a + b
+        torch.cuda.synchronize()
+        assert C.releases - before == 1 and C.workspaces() == []
+        assert list(got.fields) == list(want)
+        assert all(torch.equal(got[k].cpu(), v) for k, v in want.items())
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        C.clear()
+
+
+# every reckonable eager site of the package (PERF.md section 3): its
+# inputs, handed out by a program, and its run, as tensors or arrays
+def _eager_site_cases():
+    from cluster_generator_tpu_torch import codes as CO
+    from cluster_generator_tpu_torch import particles as PA
+    from cluster_generator_tpu_torch.fields import grf as G
+    from cluster_generator_tpu_torch.parallel import export as EX
+
+    def container(parts, ptypes=("gas", "dm")):
+        return PA.ClusterParticles(list(ptypes), {
+            k: v for k, v in parts.items() if k[0] in ptypes})
+
+    def fields_of(p):
+        return list(p.fields.values())
+
+    def field(parts, dtype):
+        """A field over the particles' box, made before the run is
+        measured (it is not the site's allocation)."""
+        dev = parts["gas", "particle_position"].device
+        f = G.ClusterField([0.0] * 3, [100.0] * 3, (256,) * 3, padding=0.0,
+                           dtype=dtype, device=dev)
+        f.x, f.y, f.z = (torch.linspace(0.0, 100.0, 256, dtype=dtype,
+                                        device=dev),) * 3
+        f.gx, f.gy, f.gz = (parts["grid"][i].to(dtype) for i in range(3))
+        return f
+
+    fields = {}
+
+    def field_of(parts, dtype):
+        if dtype not in fields:
+            fields[dtype] = field(parts, dtype)
+        return fields[dtype]
+
+    def amr(parts, tmp):
+        out = tmp / "dm.dat"
+        CO.write_amr_particles(container(parts, ("dm", "star")), out,
+                               ["dm", "star"], {"dm": 1, "star": 2},
+                               in_cgs=True, format="fortran")
+        return [np.fromfile(out, dtype=np.uint8)]
+
+    def plan(parts):
+        n_files, total, mine = EX._export_plan(
+            {k: v for k, v in parts.items() if k != "grid"}, 200.0,
+            center_offset=[100.0] * 3)
+        return [torch.as_tensor(total.astype(np.int64))] + fields_of(
+            mine[0][1])
+
+    def blocks(parts):
+        b, _, _ = PA._gadget_blocks(container(parts), 200.0)
+        return [a for arrays in b.values() for a in arrays.values()]
+
+    def moved(parts):
+        p = container(parts)
+        p.add_offsets([100.0] * 3, [0.5, 0.0, 0.0])
+        return fields_of(p)
+
+    def cut(parts):
+        p = container(parts)
+        p.make_radial_cut(40.0, center=[50.0] * 3)
+        return fields_of(p)
+
+    def units(parts):
+        p = container(parts)
+        p.set_field("dm", "metallicity", parts["dm", "particle_mass"],
+                    units="Msun")
+        return fields_of(p)
+
+    def mapped(parts):
+        p = container(parts)
+        field_of(parts, torch.float64).map_field_to_particles(p)
+        return fields_of(p)
+
+    def attached(parts):
+        f = field_of(parts, torch.float32)
+        out = P.attach_field_to_particles(
+            {k: v for k, v in parts.items() if k[0] == "gas"}, f)
+        return [out["gas", f._name]]
+
+    return {"add": lambda parts, tmp: fields_of(
+                container(parts) + container(parts, ("dm", "star"))),
+            "conversions": lambda parts, tmp: fields_of(container(parts)),
+            "add_offsets": lambda parts, tmp: moved(parts),
+            "make_radial_cut": lambda parts, tmp: cut(parts),
+            "set_field_units": lambda parts, tmp: units(parts),
+            "gadget_blocks": lambda parts, tmp: blocks(parts),
+            "arepo_background": lambda parts, tmp: list(
+                CO._arepo_background([[50.0] * 3], [30.0], 100.0, 192,
+                                     container(parts, ("gas",))).values()),
+            "amr_fortran": amr,
+            "attach_field": lambda parts, tmp: attached(parts),
+            "map_field": lambda parts, tmp: mapped(parts),
+            "export_plan": lambda parts, tmp: plan(parts)}
+
+
+EAGER_SITES = ("add", "conversions", "add_offsets", "make_radial_cut",
+               "set_field_units", "gadget_blocks", "arepo_background",
+               "amr_fortran", "attach_field", "map_field", "export_plan")
+
+
+def _site_inputs(x, grid, uniforms):
+    """A program's outputs for the eager sites: float32 particle fields in
+    a box of 100 kpc and a (3, 256, 256, 256) field."""
+    parts = {}
+    for k, pt in enumerate(("gas", "dm", "star")):
+        parts[pt, "particle_position"] = x[k] * 100.0
+        parts[pt, "particle_velocity"] = x[k] - 0.5
+        parts[pt, "particle_mass"] = x[k, :, 0] * 1e9
+    for name in ("density", "thermal_energy"):
+        parts["gas", name] = x[0, :, 1] + 1.0
+    parts["grid"] = grid * 2.0
+    return parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", EAGER_SITES)
+def test_an_eager_site_after_a_release_equals_its_run_with_room(site,
+                                                                tmp_path):
+    """Each eager site, its inputs handed out by a program, under a memory
+    fraction that leaves beside that program and a held workspace less
+    room than the site needs: it releases them (the program first, as
+    least recently used) and equals its run with room to spare bit for
+    bit, its inputs intact."""
+    _card()
+    C.clear()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(dev).manual_seed(2)
+    x = torch.rand((3, 1 << 22, 3), device=dev, generator=gen)
+    grid = torch.randn((3, 256, 256, 256), device=dev, generator=gen)
+    parts = C.run(("cuda_eager_site_inputs",), _site_inputs, (x, grid))
+    del x, grid
+    before = {k: v.clone() for k, v in parts.items()}
+    run = _eager_site_cases()[site]
+
+    def host(outs):
+        return [o.cpu() if isinstance(o, torch.Tensor) else o for o in outs]
+
+    want = host(run(parts, tmp_path))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    size = 4 << 30
+    C.workspace("cuda_eager_site_test", 0, dev, lambda: torch.empty(
+        size, dtype=torch.uint8, device=dev), nbytes=size)
+    cap = torch.cuda.memory_reserved(dev) + (32 << 20)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        released = C.releases
+        got = host(run(parts, tmp_path))
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    assert C.releases > released, site
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, torch.Tensor):
+            assert g.dtype == w.dtype and torch.equal(g, w), site
+        else:
+            assert np.array_equal(g, w), site
+    assert all(torch.equal(parts[k], v) for k, v in before.items())
+    C.clear()

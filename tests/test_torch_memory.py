@@ -12,20 +12,34 @@ on the CPU).
   warm-up from the generator's state of its first attempt, a capture
   alone (a warm-up that ran through never runs twice);
 * a program captured again makes room for its warm-up first;
-* :data:`compiled.MAX_PROGRAMS` still bounds each memo.
+* :data:`compiled.MAX_PROGRAMS` still bounds each memo;
+* the package's eager steps (the inventory in PERF.md) make room for the
+  bytes they reckon before they allocate (:func:`compiled.room_for`),
+  least recently used first; one that fits makes no sync and releases
+  nothing; ``_combine`` moves the particles once however its steps make
+  room; a release changes no result.
 
-On the card: tests/test_torch_cuda.py (two programs under a memory
-fraction) and ``chip_smoke.py`` phase 25.
+On the card: tests/test_torch_cuda.py (two programs, and a workspace
+before an eager join, under a memory fraction) and ``chip_smoke.py``
+phase 25.
 """
 
 import math
+import types
 import weakref
 
+import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from cluster_generator_tpu_torch import codes as TC
+from cluster_generator_tpu_torch import particles as TP
+from cluster_generator_tpu_torch import pipeline as TPL
 from cluster_generator_tpu_torch.core import compiled as C
+from cluster_generator_tpu_torch.fields import grf as TG
 from cluster_generator_tpu_torch.parallel import ensemble as TE
+from cluster_generator_tpu_torch.parallel import export as TX
 from cluster_generator_tpu_torch.parallel import mergers as TM
 
 torch.set_num_threads(1)
@@ -323,3 +337,316 @@ def test_each_memo_stays_bounded():
     assert names == ["m"] * C.MAX_PROGRAMS
     assert [h.what for h in C.held(CARD0)] == progs[3:]
     assert C.make_room(0, CARD0, free=lambda: 0) == 0   # nothing needed
+
+
+# ------------------------------------------------ the package's eager steps
+F64 = torch.float64
+N = 64   # particles per type of the stand-in containers
+
+
+def _container(seed, ptypes=("gas", "dm"), n=N):
+    """Particles on the CPU standing in for a card's: positions in a box
+    of 100 kpc, and the gas's density and thermal energy."""
+    g = torch.Generator().manual_seed(seed)
+    fields = {}
+    for pt in ptypes:
+        fields[pt, "particle_position"] = torch.rand(
+            n, 3, generator=g, dtype=F64) * 100.0
+        fields[pt, "particle_velocity"] = torch.randn(n, 3, generator=g,
+                                                      dtype=F64)
+        fields[pt, "particle_mass"] = torch.rand(n, generator=g, dtype=F64)
+        if pt == "gas":
+            for name in ("density", "thermal_energy"):
+                fields[pt, name] = torch.rand(n, generator=g, dtype=F64)
+    return TP.ClusterParticles(list(ptypes), fields)
+
+
+def _bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _Allocations(TorchDispatchMode):
+    """Logs ``("alloc", op)`` for each op whose output is a new tensor (no
+    input's storage) of at least ``numel`` elements."""
+
+    def __init__(self, log, numel):
+        super().__init__()
+        self.log, self.numel = log, numel
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = {t.untyped_storage().data_ptr()
+               for t in torch.utils._pytree.tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)}
+        for t in torch.utils._pytree.tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.numel() >= self.numel
+                    and t.untyped_storage().data_ptr() not in ins):
+                self.log.append(("alloc", str(func)))
+        return out
+
+
+def _on_card(monkeypatch, free, log=None):
+    """The CPU tensors stand in for CARD0's: ``room_for`` makes room there,
+    ``free`` bytes free plus what each release gives back (the injected
+    probe); ``log`` gets ``("room", need)`` for each ``make_room``."""
+    monkeypatch.setattr(C, "card", lambda device: CARD0)
+    probe = _probe(CARD0, free)
+    monkeypatch.setattr(C, "free_bytes", lambda device, empty=True: probe())
+    if log is not None:
+        real = C.make_room
+
+        def make_room(need, device, keep=(), free=None):
+            log.append(("room", need))
+            return real(need, device, keep, free)
+
+        monkeypatch.setattr(C, "make_room", make_room)
+
+
+def _gadget_need(p, dtype=torch.float32):
+    """What ``_gadget_blocks`` reckons per type, every particle in the box:
+    masks, index, the blocks, the two float64 temporaries of the largest,
+    the IDs (int64, int32)."""
+    out = []
+    for pt in p.particle_types:
+        n = p.num_particles[pt]
+        blocks = [p[pt, f] for f in ("particle_position",
+                                     "particle_velocity", "particle_mass",
+                                     "thermal_energy", "density")
+                  if (pt, f) in p.fields]
+        largest = max(t.numel() for t in blocks)
+        out.append(10 * n + 8 * n + 8 * n + 4 * n
+                   + sum(t.numel() for t in blocks) * dtype.itemsize
+                   + 2 * 8 * largest)
+    return out
+
+
+def _site_add():
+    a, b = _container(1), _container(2, ("dm", "star"))
+    need = [2 * _bytes(*(a["dm", f] for f in ("particle_position",
+                                              "particle_velocity",
+                                              "particle_mass")))]
+    return lambda: a + b, need
+
+
+def _site_add_offsets():
+    p = _container(3)
+    need = [_bytes(*(p[pt, f] for pt in ("gas", "dm")
+                     for f in ("particle_position", "particle_velocity")))]
+    return lambda: p.add_offsets([10.0, 0, 0], [1.0, 0, 0]), need
+
+
+def _site_radial_cut():
+    p = _container(4)
+    need = [2 * _bytes(p[pt, "particle_position"]) + N
+            + _bytes(*(p[pt, f] for f in p.field_names[pt]))
+            for pt in ("gas", "dm")]
+    return lambda: p.make_radial_cut(80.0, center=[50.0] * 3), need
+
+
+def _site_gadget_blocks():
+    p = _container(5)
+    return lambda: TP._gadget_blocks(p, 100.0), _gadget_need(p)
+
+
+def _site_conversions():
+    g = torch.Generator().manual_seed(6)
+    fields = {("dm", "particle_position"): torch.rand(N, 3, generator=g),
+              ("dm", "particle_mass"): torch.rand(N, generator=g),
+              ("dm", "particle_index"): torch.arange(N).to(torch.uint32)}
+    # float32 to float64, the unsigned IDs widened to int64
+    need = [N * 3 * 8, N * 8, N * 8]
+    return lambda: TP.ClusterParticles(["dm"], fields), need
+
+
+def _site_set_field_units():
+    p = _container(7)
+    value = torch.rand(N, dtype=F64)
+    return (lambda: p.set_field("dm", "metallicity", value, units="Msun"),
+            [N * 8])
+
+
+def _site_arepo_background():
+    p = _container(8, ("gas",))
+    nx = 8
+    need = [nx ** 3 * (4 * 24 + 3 * 8 + 1)]
+    return (lambda: TC._arepo_background([[50.0] * 3], [30.0], 100.0, nx,
+                                         p), need)
+
+
+def _site_amr_fortran(tmp_path):
+    p = _container(9, ("dm", "star"))
+    cols = [_bytes(p["dm", f], p["star", f]) for f in TC._AMR_FIELDS]
+    need = [2 * c for c in cols] + [sum(cols)]
+    return (lambda: TC.write_amr_particles(
+        p, tmp_path / "p.dat", ["dm", "star"], {"dm": 1, "star": 2},
+        in_cgs=True, format="fortran"), need)
+
+
+def _stand_in_field(dtype):
+    g = torch.Generator().manual_seed(10)
+    x = torch.linspace(0.0, 100.0, 8, dtype=dtype)
+    comps = [torch.randn(8, 8, 8, generator=g, dtype=dtype)
+             for _ in range(3)]
+    return types.SimpleNamespace(x=x, y=x, z=x, gx=comps[0], gy=comps[1],
+                                 gz=comps[2], _name="magnetic_field")
+
+
+def _site_attach_field():
+    parts = {("gas", "particle_position"): torch.rand(
+        N, 3, generator=torch.Generator().manual_seed(11), dtype=F64) * 100}
+    field = _stand_in_field(torch.float32)
+    # the stack in float32, its cast to float64
+    need = [3 * 512 * 4 + 3 * 512 * 8]
+    return lambda: TPL.attach_field_to_particles(parts, field), need
+
+
+def _site_map_field():
+    p = _container(12)
+    field = TG.RandomMagneticField([0.0] * 3, [100.0] * 3, (8,) * 3, 20.0,
+                                   80.0, 1e-6, prng=3, device="cpu")
+    grid = field.gx.numel() * field.gx.element_size()
+    # the stacked field; the values scaled, then converted to gauss
+    need = [3 * grid, N * 3 * 8, N * 3 * 8]
+    return (lambda: field.map_field_to_particles(p, units="uG"), need)
+
+
+def _site_export_plan():
+    parts = {}
+    g = torch.Generator().manual_seed(13)
+    for pt in ("gas", "dm"):
+        parts[pt, "particle_position"] = torch.rand(N, 3, generator=g) * 50
+        parts[pt, "particle_velocity"] = torch.randn(N, 3, generator=g)
+        parts[pt, "particle_mass"] = torch.rand(N, generator=g)
+    # the container's float64 copies (one room each), the moved positions,
+    # then per type the float64 positions moved, and the in-box masks
+    need = ([N * 3 * 8, N * 3 * 8, N * 8] * 2 + [2 * N * 3 * 8]
+            + [2 * N * 3 * 8 + 10 * N] * 2)
+    return (lambda: TX._export_plan(parts, 100.0, center_offset=[25.0] * 3),
+            need)
+
+
+SITES = {"add": _site_add, "add_offsets": _site_add_offsets,
+         "make_radial_cut": _site_radial_cut,
+         "gadget_blocks": _site_gadget_blocks,
+         "container_conversions": _site_conversions,
+         "set_field_units": _site_set_field_units,
+         "arepo_background": _site_arepo_background,
+         "amr_fortran": _site_amr_fortran,
+         "attach_field": _site_attach_field, "map_field": _site_map_field,
+         "export_plan": _site_export_plan}
+
+
+@pytest.mark.parametrize("site", sorted(SITES))
+def test_an_eager_site_makes_room_for_its_need_before_it_allocates(
+        monkeypatch, tmp_path, site):
+    """Each reckonable site of the inventory asks ``make_room`` for the
+    bytes it reckons before its first allocation in proportion to the
+    particles or the grid, and the least recently used program goes
+    first."""
+    make = SITES[site]
+    fn, need = make(tmp_path) if site == "amr_fortran" else make()
+    _program("old", CARD0, sum(need))
+    new = _program("new", CARD0, sum(need))
+    log = []
+    _on_card(monkeypatch, 0, log)
+    with _Allocations(log, N):
+        fn()
+    rooms = [n for kind, n in log if kind == "room"]
+    assert rooms == need, site
+    assert log[0][0] == "room", (site, log[:3])
+    assert [h.what for h in C.held(CARD0)] == [new]   # "old" went first
+
+
+def test_an_eager_step_that_fits_makes_no_sync_and_releases_nothing(
+        monkeypatch):
+    synced = []
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: synced.append(1))
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (60 * MIB, 100 * MIB))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 30 * MIB)
+    monkeypatch.setattr(torch.cuda, "get_per_process_memory_fraction",
+                        lambda d: 1.0)
+    monkeypatch.setattr(C, "card", lambda device: CARD0)
+    a, b = _container(14), _container(15)
+    _program("held", CARD0, MIB)
+    before = C.releases
+    joined = a + b
+    joined.add_offsets([1.0] * 3, [0.0] * 3)
+    TP._gadget_blocks(joined, 200.0)
+    assert synced == [] and C.releases == before
+    assert len(C.held(CARD0)) == 1
+    # the same join where it does not fit beside the cache: one sync and
+    # empty per reading, and the program goes
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (1024, 100 * MIB))
+    a + b
+    assert synced and C.releases == before + 1
+
+
+def _hses():
+    """Two halos' radius, density and pressure grids."""
+    rr = torch.logspace(-1, 4, 128, dtype=F64)
+    return [{"radius": rr, "density": 1e7 / (1 + rr / s) ** 3,
+             "pressure": 1e3 / (1 + rr / s) ** 4} for s in (200.0, 300.0)]
+
+
+def test_combine_moves_the_particles_once_when_room_is_made_midway(
+        monkeypatch):
+    """``_combine`` makes room step by step: here its sum needs the room
+    its moves did not, and a join while a program still holds the card
+    runs out of memory.  Every particle moves to its halo once (a
+    ``_combine`` that ran its whole body again under ``retrying`` would
+    move them twice)."""
+    parts = [_container(16), _container(17)]
+    want = {(i, pt): p[pt, "particle_position"].clone()
+            for i, p in enumerate(parts) for pt in ("gas", "dm")}
+    centers = [[100.0, 0.0, 0.0], [-100.0, 0.0, 0.0]]
+    velocities = [[0.5, 0.0, 0.0], [-0.5, 0.0, 0.0]]
+    moves = max(_bytes(*(p[pt, f] for pt in ("gas", "dm")
+                         for f in ("particle_position",
+                                   "particle_velocity"))) for p in parts)
+    held = _program("held", CARD0, 100 * MIB)
+    _on_card(monkeypatch, moves)
+    cat = torch.cat
+
+    def join(tensors, *args, **kwargs):
+        if C.held(CARD0):
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (a "
+                                              "stand-in)")
+        return cat(tensors, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "cat", join)
+    out = TP._combine(parts, _hses(), centers, velocities)
+    assert held.device == CARD0 and C.held(CARD0) == []
+    for pt in ("gas", "dm"):
+        expect = cat([want[0, pt] + torch.tensor(centers[0], dtype=F64),
+                      want[1, pt] + torch.tensor(centers[1], dtype=F64)])
+        assert torch.equal(out[pt, "particle_position"], expect), pt
+
+
+def _export(p, box=200.0):
+    blocks, _, _ = TP._gadget_blocks(p, box)
+    return [a for arrays in blocks.values() for a in arrays.values()]
+
+
+def test_a_release_changes_no_result(monkeypatch):
+    """The eager steps after a release equal the same steps with room to
+    spare, bit for bit."""
+    def run():
+        a, b = _container(18), _container(19, ("dm", "star"))
+        joined = a + b
+        joined.add_offsets([50.0] * 3, [0.0] * 3)
+        joined.make_radial_cut(120.0, center=[100.0] * 3)
+        return [t.clone() for t in joined.fields.values()], _export(joined)
+
+    _on_card(monkeypatch, 1 << 40)
+    _program("spare", CARD0, MIB)
+    before = C.releases
+    roomy = run()
+    assert C.releases == before
+    _on_card(monkeypatch, 0)
+    tight = run()
+    assert C.releases == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(roomy[0], tight[0]))
+    assert all(np.array_equal(x, y) for x, y in zip(roomy[1], tight[1]))
