@@ -1,0 +1,7 @@
+"""Merger ICs whose arrays reached host memory, over the whole window."""
+
+from portbench.yardstick.stats import units_per_s
+
+
+def read(ctx):
+    return units_per_s(ctx, "ics")
