@@ -222,8 +222,13 @@ import time
 
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet), for the kernels' bounds
-HBM_BYTES_PER_S = 3.35e12
+from portbench.yardstick import kernels as yard_kernels
+from portbench.yardstick import peaks as yard_peaks
+from portbench.yardstick import trace as yard_trace
+
+# H100 SXM published peaks (NVIDIA data sheet), for the kernels' bounds:
+# the memory rate from the benchmark's table of peaks
+HBM_BYTES_PER_S = yard_peaks.PEAKS["NVIDIA H100 80GB HBM3"]["hbm_bytes_per_s"]
 FP32_OPS_PER_S = 67e12
 
 # bench.py's workload: two halos, 1e7 particles in all
@@ -372,27 +377,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def busy_us(events):
-    """Union of the device intervals of the kernels in ``events``."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
 def kernel_profile(fn):
-    """``fn`` once under ``torch.profiler``: ``(wall ms, the kernels' device
-    events, device busy ms)``.  The profiler slows the host, so the busy
-    share it gives is a lower bound of the unprofiled one."""
-    from torch.autograd import DeviceType
+    """``fn`` once under ``torch.profiler``: ``(wall ms, the device's
+    events (kernels, copies, fills) as ``portbench.yardstick.trace.Event``,
+    device busy ms)``.  The profiler slows the host, so the busy share it
+    gives is a lower bound of the unprofiled one."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -402,8 +391,10 @@ def kernel_profile(fn):
         fn()
         sync()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return wall * 1e3, kern, busy_us(kern) / 1e3
+    kern = [e for e in yard_trace.events_of(prof)
+            if e.kind in yard_trace.DEVICE_KINDS]
+    busy = yard_trace.busy_us(kern, yard_trace.extent(kern))
+    return wall * 1e3, kern, busy / 1e3
 
 
 def nvidia_smi_line():
@@ -440,7 +431,7 @@ def k1_bound_ms(n_rows, n_s, n_q):
     """Least time for the same work: each input byte read once and each
     output byte written once at the HBM rate, or the search compares plus
     the lerp's ~8 float32 operations per output at the FP32 peak."""
-    nbytes = 4 * n_rows * (n_s + n_q)
+    nbytes = yard_kernels.k1_bytes(n_rows, n_s, n_q)
     ops = n_rows * n_q * (math.ceil(math.log2(n_s)) + 8)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -3224,10 +3215,6 @@ COMPILED = {
 }
 COMPILED_Z = 0.3            # the merger's second redshift
 COMPILED_SEED = 100         # replay k draws from seed COMPILED_SEED + k
-# the CUDA runtime calls that put work on a stream, as the profiler names them
-HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
-                 "cudaMemsetAsync")
 
 
 def tree_diff(a, b, where="out"):
@@ -3266,8 +3253,9 @@ def host_diff(host, want):
 
 def host_launches(fn):
     """The calls that put work on a stream (kernels, graphs, copies) the
-    host makes in ``fn()``, from the profiler's CUDA runtime events (0:
-    the profiler recorded none)."""
+    host makes in ``fn()``, from the profiler's CUDA runtime events
+    (``portbench.yardstick.trace.host_launches``; 0: the profiler recorded
+    none)."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -3275,7 +3263,8 @@ def host_launches(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    return sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCHES)
+    events = yard_trace.events_of(prof)
+    return yard_trace.host_launches(events, (-math.inf, math.inf))
 
 
 def program_of(C, name, before):

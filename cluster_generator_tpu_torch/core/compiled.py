@@ -84,6 +84,13 @@ the card to another process.
 Kernel launches: a wrapper counts each launch with :func:`count_launch`.
 A launch recorded into a graph is counted on each replay instead, once
 per node, so a wrapper's ``launches`` counts the launches the card runs.
+
+Host spans (:func:`~.profiling.span`, recorded only while a profiler
+runs): a replay's copies into the static buffers (``cg.host.copy_in``),
+its uniforms (``cg.host.draw``), the graph's launch (``cg.launch``) and
+the copies handed out (``cg.host.hand_out``); a decorated function's
+packing of its inputs (``cg.host.inputs``); and the synchronisation of
+:func:`free_bytes` (``cg.wait.room``).
 """
 
 from __future__ import annotations
@@ -103,6 +110,7 @@ import torch
 
 from .config import cgparams
 from .device import host_to_device
+from .profiling import span
 
 __all__ = ["MAX_PROGRAMS", "Program", "run", "program", "programs",
            "clear", "config_key", "count_launch", "drawer", "tree_map",
@@ -427,16 +435,21 @@ class Program:
         self.static_bytes = sum(v for k, v in own.items() if k not in shared)
 
     def _replay(self, cur, inputs, draw):
-        for i, (buf, a) in enumerate(zip(self.inputs, inputs)):
-            if buf.shape != a.shape:
-                raise ValueError(f"input of shape {tuple(a.shape)} for a "
-                                 f"program captured at {tuple(buf.shape)}")
-            if i >= self.inplace:
-                buf.copy_(a)
-        draw(self.uniforms)
-        self.graph.replay()
-        shared = self._shared()
-        out = self._handed(self.outputs, lambda p: p not in shared)
+        with span("cg.host.copy_in"):
+            for i, (buf, a) in enumerate(zip(self.inputs, inputs)):
+                if buf.shape != a.shape:
+                    raise ValueError(
+                        f"input of shape {tuple(a.shape)} for a program "
+                        f"captured at {tuple(buf.shape)}")
+                if i >= self.inplace:
+                    buf.copy_(a)
+        with span("cg.host.draw"):
+            draw(self.uniforms)
+        with span("cg.launch"):
+            self.graph.replay()
+        with span("cg.host.hand_out"):
+            shared = self._shared()
+            out = self._handed(self.outputs, lambda p: p not in shared)
         for kernel, n in self.nodes.items():
             kernel.launches += n
         return out
@@ -621,8 +634,9 @@ def free_bytes(device, empty=True) -> int:
     with ``empty`` once the caching allocator has returned its unused
     blocks to the card (a synchronisation), else beside them."""
     if empty:
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
+        with span("cg.wait.room"):
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(device)
     cap = torch.cuda.get_per_process_memory_fraction(device) * total
     return int(min(free, cap - torch.cuda.memory_reserved(device)))
@@ -847,7 +861,8 @@ class _Function:
         global eager_calls
         if _INLINE:
             return self.fn(*args, **kwargs)
-        key, inputs, body, draw = self._call(args, kwargs)
+        with span("cg.host.inputs"):
+            key, inputs, body, draw = self._call(args, kwargs)
         if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
             eager_calls += 1
         elif not (_EAGER or inputs[0].device.type == "cpu"

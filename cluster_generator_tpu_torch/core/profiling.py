@@ -1,11 +1,22 @@
-"""Stage timers, profiler traces and allocator statistics.
+"""Stage timers, stage marks, host spans, profiler traces and allocator
+statistics.
 
-* :func:`stage`: a wall-clock timer around a stage that waits for the
-  tensors the stage produced, each on its own device, before it stops
+* :func:`stage`: a wall-clock timer around an eager stage that waits for
+  the tensors the stage produced, each on its own device, before it stops
   (CUDA work is asynchronous: without the wait the timer measures the
   enqueue);
+* :func:`device_stage`: marks where a stage of a program body begins and
+  ends on the card's stream, by an empty kernel named after the stage
+  (``cg_stage_models``, ``cg_stage_dfs``, ``cg_stage_tables``,
+  ``cg_stage_draws``, ``cg_stage_end``; ``ops/csrc/stage_marks.cu``).
+  Inside a captured program the marks are recorded into the graph, so a
+  device trace of a replay splits its kernels by stage, where
+  :func:`stage` sees only the whole replay;
+* :func:`span`: a named range of host work on the profiler's clock, the
+  timeline of the card's kernels and copies, recorded only while a
+  profiler runs (one flag check otherwise);
 * :func:`trace`: ``torch.profiler`` over CPU and CUDA activities, written
-  as a Chrome trace into a directory;
+  as a Chrome trace into a directory: kernels, marks and spans together;
 * :func:`device_memory_stats`: the caching allocator's statistics of
   every visible card.
 """
@@ -13,15 +24,24 @@
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .logging import mylog
 
-__all__ = ["stage", "StageTimes", "trace", "device_memory_stats"]
+__all__ = ["stage", "StageTimes", "device_stage", "STAGES", "span", "trace",
+           "device_memory_stats"]
+
+#: the stages a program body marks, in the order of the mark kernels'
+#: C entry point (``cg_stage_mark``), ``end`` last
+STAGES = ("models", "dfs", "tables", "draws", "end")
 
 
 @dataclass
@@ -63,7 +83,12 @@ def _wait_for(result_holder):
 @contextlib.contextmanager
 def stage(name: str, result_holder=None, accumulate: StageTimes | None = None,
           log: bool = True):
-    """Time a pipeline stage, waiting for its device work.
+    """Time an eager pipeline stage, waiting for its device work.
+
+    It times stages run eagerly, one call each.  Inside a captured
+    program (every main path on the card) the stages run as one graph
+    replay, which this cannot split: there :func:`device_stage` marks
+    each stage on the device, and a device trace of the replay times it.
 
     Usage::
 
@@ -88,10 +113,116 @@ def stage(name: str, result_holder=None, accumulate: StageTimes | None = None,
             mylog.info("stage %s: %.3f s", name, dt)
 
 
+_local = threading.local()
+
+
+def _open_stages() -> list:
+    """The stages open on this thread, outermost first."""
+    stack = getattr(_local, "stages", None)
+    if stack is None:
+        stack = _local.stages = []
+    return stack
+
+
+@functools.lru_cache(maxsize=None)
+def _mark_kernel():
+    """The mark kernels' C entry point, built and bound once."""
+    from ..ops.build import load_library
+
+    fn = load_library("stage_marks").cg_stage_mark
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _mark(name: str, device: torch.device) -> None:
+    """Launch the mark kernel of stage ``name`` on ``device``'s current
+    stream (recorded into the graph while one is captured there); on any
+    other device than a card, nothing."""
+    if device.type != "cuda":
+        return
+    fn = _mark_kernel()
+    which = STAGES.index(name)
+    with torch.cuda.device(device):
+        err = fn(which, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stage mark {name!r}: launch failed, "
+                           f"cudaError_t {err}")
+
+
+@contextlib.contextmanager
+def device_stage(name: str, like: torch.Tensor):
+    """Mark stage ``name`` (one of :data:`STAGES` but ``end``) of the work
+    enqueued inside, on the current stream of ``like``'s card.
+
+    Entering marks ``name``; leaving marks the enclosing stage again, or
+    ``end`` at the outermost level.  So a stage's device work is everything
+    on the stream from its mark to the next mark, and stages nest: a DF
+    computed inside the model build hands back to ``models`` afterwards.
+    Each mark is one empty one-thread kernel named ``cg_stage_<name>``;
+    inside a program's capture it becomes a node of the graph, which each
+    replay runs with no host call.  On the CPU nothing is launched.  A
+    stage left by an exception marks nothing more."""
+    if name not in STAGES[:-1]:
+        raise ValueError(f"stage must be one of {STAGES[:-1]}, got {name!r}")
+    device = like.device
+    stack = _open_stages()
+    _mark(name, device)
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+    _mark(stack[-1] if stack else "end", device)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    """A profiler range that is a leaf: none opens while another is open
+    on the same thread."""
+
+    __slots__ = ("name", "rf")
+
+    def __init__(self, name):
+        self.name = name
+        self.rf = None
+
+    def __enter__(self):
+        if getattr(_local, "span", False):
+            return self
+        _local.span = True
+        self.rf = _autograd_profiler.record_function(self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+            self.rf = None
+            _local.span = False
+        return False
+
+
+def span(name: str):
+    """A context manager naming the host work inside ``name`` on the
+    profiler's clock.  With no profiler recording it is one flag check and
+    a shared null context.  While one records it is a ``record_function``
+    range, so it lands on the timeline of the card's kernels and copies;
+    a span opened inside another is not recorded, so that the spans of a
+    trace never nest and each names the host work it holds alone."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
-    """``torch.profiler`` over CPU and (with a card) CUDA activities; on
-    exit the Chrome trace ``trace.json`` is written into ``logdir``
+    """``torch.profiler`` over CPU and (with a card) CUDA activities, with
+    the program's stage marks (:func:`device_stage`) among the kernels and
+    its host spans (:func:`span`) among the host's events; on exit the
+    Chrome trace ``trace.json`` is written into ``logdir``
     (created if needed; view it in ``chrome://tracing`` or Perfetto).
     Yields the profiler, whose ``key_averages()`` sums by op and kernel."""
     from torch.profiler import ProfilerActivity, profile

@@ -23,11 +23,18 @@ is enqueued once batch k+1 is, into the buffer of batch k-2, whose consumer
 has asked for batch k-1 by then.  So the consumer must be done with a
 batch's arrays when it asks for the next one.  Tensors on the CPU are
 handed over as numpy views with no stream and no copy.
+
+Host spans (:func:`~.profiling.span`, while a profiler runs): the copies
+enqueued with their buffer and events (``cg.host.stage_copy``), the wait
+for a copy (``cg.wait.copy``) and the numpy views made of the buffer
+(``cg.host.unpack``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .profiling import span
 
 __all__ = ["stream_to_host", "to_host"]
 
@@ -84,12 +91,14 @@ class _Ring:
         """Wait for one staged copy; the arrays as numpy views of the
         pinned buffer."""
         buf, spans, metas, done = staged
-        done.synchronize()
-        host = buf.numpy()
-        out = []
-        for (o, n), (dtype, shape) in zip(spans, metas):
-            dt = torch.empty((), dtype=dtype).numpy().dtype
-            out.append(host[o:o + n].view(dt).reshape(shape))
+        with span("cg.wait.copy"):
+            done.synchronize()
+        with span("cg.host.unpack"):
+            host = buf.numpy()
+            out = []
+            for (o, n), (dtype, shape) in zip(spans, metas):
+                dt = torch.empty((), dtype=dtype).numpy().dtype
+                out.append(host[o:o + n].view(dt).reshape(shape))
         return out
 
 
@@ -105,22 +114,28 @@ def stream_to_host(batches):
     ring = None
     items = []  # oldest first: [key, tensors, ready event, staged or None]
     for key, tensors in batches:
-        tensors = [t.detach().contiguous() for t in tensors]
-        if not tensors or tensors[0].device.type != "cuda":
+        with span("cg.host.stage_copy"):
+            tensors = [t.detach().contiguous() for t in tensors]
+            on_card = bool(tensors) and tensors[0].device.type == "cuda"
+            if on_card:
+                if ring is None:
+                    ring = _Ring(tensors[0].device)
+                items.append([key, tensors, ring.ready(), None])
+                if len(items) >= 2:
+                    # batch k-1 into the buffer of batch k-3, handed over
+                    # already
+                    items[-2][3] = ring.stage(items[-2][1], items[-2][2])
+        if not on_card:
             yield key, [t.numpy() for t in tensors]
             continue
-        if ring is None:
-            ring = _Ring(tensors[0].device)
-        items.append([key, tensors, ring.ready(), None])
-        if len(items) >= 2:
-            # batch k-1 into the buffer of batch k-3, handed over already
-            items[-2][3] = ring.stage(items[-2][1], items[-2][2])
         if len(items) == 3:
             key0, _, _, staged = items.pop(0)
             yield key0, ring.finish(staged)
-    for item in items:
-        if item[3] is None:
-            item[3] = ring.stage(item[1], item[2])
+    if items:
+        with span("cg.host.stage_copy"):
+            for item in items:
+                if item[3] is None:
+                    item[3] = ring.stage(item[1], item[2])
     for key0, _, _, staged in items:
         yield key0, ring.finish(staged)
 

@@ -4,7 +4,10 @@ Each ``csrc/*.cu`` file has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (named by a hash of the source and flags, so an edit
 rebuilds) and loaded with ``ctypes``.  :func:`build_all` starts one
-``nvcc`` per source at once.  Nothing here runs at import time.
+``nvcc`` per source at once; :func:`load_library` calls it for every
+source the first time it meets one not built.  The stage marks
+(``stage_marks.cu``) sit in every program body, so every path on a card
+needs ``nvcc``.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -93,10 +96,13 @@ def build_all(names=None) -> list[str]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded shared library of ``csrc/<name>.cu``.  The first load of
+    a library not yet built builds every source at once, so a process
+    pays one parallel ``nvcc`` pass whichever kernel it needs first."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
+        if not _target(name).exists():
+            build_all()
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib

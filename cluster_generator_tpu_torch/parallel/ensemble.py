@@ -42,6 +42,7 @@ from ..core.draws import (collisionless_uniforms, gas_uniforms, isotropic,
                           uniform)
 from ..core.grid import linspace, log_radius_grid
 from ..core.interp import _gather, interp_monotone, loguniform_lerp
+from ..core.profiling import device_stage, span
 from ..core.staging import stream_to_host, to_host
 from ..model.builders import build_from_dens_and_tden
 from ..model.gravity import get_gravity
@@ -102,7 +103,9 @@ def build_one_cluster(M200, conc, z=0.1, f_g=None, rmin=0.1, rmax=10000.0,
     if with_df:
         ee = -torch.flip(fields["gravitational_potential"], (-1,))
         pden = torch.flip(fields["dark_matter_density"], (-1,))
-        fields["dm_df"] = torch.flip(compute_df(ee, pden), (-1,))
+        with device_stage("dfs", ee):
+            dm_df = compute_df(ee, pden)
+        fields["dm_df"] = torch.flip(dm_df, (-1,))
     return fields
 
 
@@ -241,10 +244,11 @@ class _DatagenProgram:
         out = {}
         for sp in self._active():
             pden = torch.flip(f[self.species[sp][0]] * aug, (-1,))
-            if self.r_a is None:
-                out[sp] = (ee, compute_df(ee, pden))
-            else:
-                out[sp] = om_extended_df(ee, pden)
+            with device_stage("dfs", ee):
+                if self.r_a is None:
+                    out[sp] = (ee, compute_df(ee, pden))
+                else:
+                    out[sp] = om_extended_df(ee, pden)
         return out
 
     def speed_table_inputs(self, f, dfs):
@@ -389,14 +393,20 @@ class _DatagenProgram:
 
     def run(self, M200, conc, generator=None, uniforms=None):
         """The batch, eagerly: the program's body (the functions it calls
-        run inline, as in the program)."""
+        run inline, as in the program).  Its stage marks
+        (:func:`~..core.profiling.device_stage`), in order: models, dfs,
+        models, dfs, models (a DF per species), end; tables, end; draws,
+        end."""
         if generator is None and uniforms is None:
             generator = torch.Generator(device=M200.device).manual_seed(0)
         with compiled.inline():
-            f = self.models(M200, conc)
-            tabs = self.speed_tables(f, self.dfs(f))
-            return self.draws(f, self.draw_tables(f, tabs), generator,
-                              uniforms)
+            with device_stage("models", M200):
+                f = self.models(M200, conc)
+                dfs = self.dfs(f)
+            with device_stage("tables", M200):
+                dtabs = self.draw_tables(f, self.speed_tables(f, dfs))
+            with device_stage("draws", M200):
+                return self.draws(f, dtabs, generator, uniforms)
 
     def _body(self, M200, conc, uniforms):
         return self.run(M200, conc, None, uniforms)
@@ -597,12 +607,13 @@ def datagen_batches(M200, conc, n_particles_per_cluster, batch_size=256,
         lambda b0: _batch_generator(seed, b0, dev))
 
     def one(b0):
-        sl = slice(b0, b0 + batch_size)
-        out, rows = _mesh_call(batch_fn, mesh, (M200[sl], conc[sl]), (),
-                               make_gen(b0))
+        with span("cg.host.inputs"):
+            sl = slice(b0, b0 + batch_size)
+            rows_in, gen = (M200[sl], conc[sl]), make_gen(b0)
+        out, rows = _mesh_call(batch_fn, mesh, rows_in, (), gen)
         if mesh is None:
             return out
-        return _as_dtensors(mesh, out, rows, int(M200[sl].shape[0]))
+        return _as_dtensors(mesh, out, rows, int(rows_in[0].shape[0]))
 
     pending = None
     for b0 in range(0, int(M200.shape[0]), batch_size):

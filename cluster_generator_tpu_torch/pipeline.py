@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .core import compiled
+from .core.profiling import device_stage, span
 from .core.device import host_to_device, resolve_device
 from .core.draws import collisionless_uniforms, gas_uniforms, isotropic
 from .core.grid import linspace
@@ -91,17 +92,21 @@ def _build_merger_models(M200, conc, z, num_points, with_star_df, r_a,
     n = ee.shape[-1]
     aug = 1.0 if r_a is None else 1.0 + (fields["radius"] / r_a) ** 2
     if r_a is not None:
-        ee_ext, dm_ext = om_extended_df(
-            ee, torch.flip(fields["dark_matter_density"] * aug, (-1,)))
+        with device_stage("dfs", ee):
+            ee_ext, dm_ext = om_extended_df(
+                ee, torch.flip(fields["dark_matter_density"] * aug, (-1,)))
         fields["df_ee_ext"] = ee_ext
         fields["dm_df_ext"] = dm_ext
         fields["dm_df"] = torch.flip(dm_ext[..., -n:], (-1,))
     if with_star_df:
         sden = torch.flip(fields["stellar_density"] * aug, (-1,))
         if r_a is None:
-            fields["star_df"] = torch.flip(compute_df(ee, sden), (-1,))
+            with device_stage("dfs", ee):
+                star_df = compute_df(ee, sden)
+            fields["star_df"] = torch.flip(star_df, (-1,))
         else:
-            _, st_ext = om_extended_df(ee, sden)
+            with device_stage("dfs", ee):
+                _, st_ext = om_extended_df(ee, sden)
             fields["star_df_ext"] = st_ext
             fields["star_df"] = torch.flip(st_ext[..., -n:], (-1,))
     return fields
@@ -559,18 +564,24 @@ def _merger_ic(M200, conc, centers, velocities, r_max, z, uniforms, *,
     """The body of :func:`merger_ic_fused`'s program: the four stages on
     float64 tensors of one device (``M200``/``conc``/``r_max`` (H,),
     ``centers``/``velocities`` (H, 3), ``z`` 0-d) with every uniform
-    given, inline (the stages are part of this program)."""
+    given, inline (the stages are part of this program).  Its stage marks
+    (:func:`~.core.profiling.device_stage`), in order: models, dfs (the DM
+    DF), models, dfs (the stellar DF), models, end; tables, end; draws
+    (the gas mixing and the output assembly included), end."""
     with compiled.inline():
-        fields = build_merger_models(M200, conc, z=z, num_points=num_points,
-                                     r_a=r_a, gravity=gravity,
-                                     device=M200.device)
-        tables = build_speed_tables(fields)
-        tables["radius"] = build_radius_tables(fields, r_max)
-        parts = sample_merger_ic(fields, tables, centers, velocities, r_max,
-                                 n_gas, n_dm, n_star, n_tracer=n_tracer,
-                                 dtype=dtype,
-                                 compute_potential=compute_potential,
-                                 r_a=r_a, uniforms=uniforms)
+        with device_stage("models", M200):
+            fields = build_merger_models(M200, conc, z=z,
+                                         num_points=num_points, r_a=r_a,
+                                         gravity=gravity, device=M200.device)
+        with device_stage("tables", M200):
+            tables = build_speed_tables(fields)
+            tables["radius"] = build_radius_tables(fields, r_max)
+        with device_stage("draws", M200):
+            parts = sample_merger_ic(fields, tables, centers, velocities,
+                                     r_max, n_gas, n_dm, n_star,
+                                     n_tracer=n_tracer, dtype=dtype,
+                                     compute_potential=compute_potential,
+                                     r_a=r_a, uniforms=uniforms)
     return parts, fields
 
 
@@ -598,32 +609,36 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
     replay it (:mod:`.core.compiled`); the uniforms are drawn from
     ``generator`` before the replay, with the draws of the eager body.
     """
-    dev = resolve_device(device)
-    H = len(n_gas)
-    statics = dict(
-        n_gas=tuple(map(int, n_gas)), n_dm=tuple(map(int, n_dm)),
-        n_star=tuple(map(int, n_star)),
-        n_tracer=None if n_tracer is None else tuple(map(int, n_tracer)),
-        num_points=int(num_points), dtype=dtype,
-        compute_potential=bool(compute_potential),
-        r_a=None if r_a is None else float(r_a), gravity=str(gravity))
-    inputs = (_f64(M200, dev).reshape(H), _f64(conc, dev).reshape(H),
-              _f64(centers, dev).reshape(H, 3),
-              _f64(velocities, dev).reshape(H, 3),
-              _f64(r_max, dev).reshape(-1).expand(H),
-              _f64(z, dev).reshape(()))
-    sites = _merger_sites(statics["n_gas"], statics["n_dm"],
-                          statics["n_star"], statics["n_tracer"])
-    if uniforms is not None:
-        missing = {s for s, _, _ in sites} - set(uniforms)
-        if missing:
-            raise ValueError(f"uniforms lack the sites {sorted(missing)}")
-        uniforms = {s: uniforms[s] for s, _, _ in sites}
-    draw = compiled.drawer(uniforms, generator, dev, lambda gen, out: (
-        merger_uniforms(gen, (), statics["n_gas"], statics["n_dm"],
-                        statics["n_star"], statics["n_tracer"], dtype, dev,
-                        out=out)))
-    key = ("merger_ic_fused", tuple(statics.items()))
+    # the entry's own work before the program lookup
+    with span("cg.host.inputs"):
+        dev = resolve_device(device)
+        H = len(n_gas)
+        statics = dict(
+            n_gas=tuple(map(int, n_gas)), n_dm=tuple(map(int, n_dm)),
+            n_star=tuple(map(int, n_star)),
+            n_tracer=(None if n_tracer is None
+                      else tuple(map(int, n_tracer))),
+            num_points=int(num_points), dtype=dtype,
+            compute_potential=bool(compute_potential),
+            r_a=None if r_a is None else float(r_a), gravity=str(gravity))
+        inputs = (_f64(M200, dev).reshape(H), _f64(conc, dev).reshape(H),
+                  _f64(centers, dev).reshape(H, 3),
+                  _f64(velocities, dev).reshape(H, 3),
+                  _f64(r_max, dev).reshape(-1).expand(H),
+                  _f64(z, dev).reshape(()))
+        sites = _merger_sites(statics["n_gas"], statics["n_dm"],
+                              statics["n_star"], statics["n_tracer"])
+        if uniforms is not None:
+            missing = {s for s, _, _ in sites} - set(uniforms)
+            if missing:
+                raise ValueError(
+                    f"uniforms lack the sites {sorted(missing)}")
+            uniforms = {s: uniforms[s] for s, _, _ in sites}
+        draw = compiled.drawer(uniforms, generator, dev, lambda gen, out: (
+            merger_uniforms(gen, (), statics["n_gas"], statics["n_dm"],
+                            statics["n_star"], statics["n_tracer"], dtype,
+                            dev, out=out)))
+        key = ("merger_ic_fused", tuple(statics.items()))
     return compiled.run(key, lambda *a: _merger_ic(*a, **statics), inputs,
                         draw)
 

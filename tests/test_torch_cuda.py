@@ -708,3 +708,56 @@ def test_an_eager_site_after_a_release_equals_its_run_with_room(site,
             assert np.array_equal(g, w), site
     assert all(torch.equal(parts[k], v) for k, v in before.items())
     C.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["merger", "datagen"])
+def test_a_replay_marks_its_stages_in_order(program, monkeypatch):
+    """One replay under the profiler's device activity: the stage marks
+    the capture recorded, in the body's order; the stages hold at least
+    85% of the call's device work other than the copies to the host; the
+    outputs equal the eager body's run with no marks, bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cluster_generator_tpu_torch.core import profiling
+    from portbench.yardstick import stages as S
+    from portbench.yardstick import trace as T
+
+    _card()
+    dev = "cuda"
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    if program == "merger":
+        args = ([1.5e15, 1.0e15], [4.0, 5.0],
+                [[-1500.0, 0, 0], [1500.0, 0, 0]],
+                [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0, (30_000, 20_000),
+                (24_000, 16_000), (6_000, 4_000))
+
+        def call(k):
+            return P.merger_ic_fused(*args, generator=gen(k))
+    else:
+        M, c = E.sample_ensemble_params(gen(5), 32)
+        prog = E._datagen_full_batch_fn(512, 5000, 4000, 1000)
+
+        def call(k):
+            return prog(M, c, gen(k))
+    call(0)
+    call(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = call(2)
+        torch.cuda.synchronize()
+    ev = [e for e in T.events_of(prof) if e.kind in T.DEVICE_KINDS]
+    window = T.extent(ev)
+    assert [s for _, s in S.marks(ev, window)] == [
+        "models", "dfs", "models", "dfs", "models", "end", "tables", "end",
+        "draws", "end"]
+    stages = S.stage_us(ev, window)
+    assert set(stages) == {"models", "dfs", "tables", "draws"}
+    assert all(n == 1 for _, n in stages.values())
+    work = T.busy_us([e for e in ev if S.stage_of(e.name) is None and not (
+        e.kind == "gpu_memcpy" and "DtoH" in e.name)], window)
+    assert 0.85 * work <= sum(us for us, _ in stages.values()) <= work
+    monkeypatch.setattr(profiling, "_mark", lambda name, device: None)
+    with C.eager():
+        want = call(2)
+    assert _equal(got, want)
