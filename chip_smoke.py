@@ -230,6 +230,7 @@ from portbench.yardstick import trace as yard_trace
 # the memory rate from the benchmark's table of peaks
 HBM_BYTES_PER_S = yard_peaks.PEAKS["NVIDIA H100 80GB HBM3"]["hbm_bytes_per_s"]
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 
 # bench.py's workload: two halos, 1e7 particles in all
 M200 = (1.5e15, 1.0e15)
@@ -454,16 +455,13 @@ def class_cdf_cases(V, model):
     return cases
 
 
-def k1_path_cases(P, V, E):
-    """K1's inputs on the four main paths, built by the port on the card:
-    ``[(name, float32 CDF rows, n_q), ...]`` for the merger's DM and star
-    tables (two halos), the ensemble batch's (256 clusters), the class
-    path's (one cluster on a 4096-point grid, 256 rows per species) and
-    the scene batch's (64 scenes of two halos)."""
-    import cluster_generator_tpu_torch as cg
+def table_path_inputs(P, E):
+    """Arguments of ``virial.speed_inverse_cdf_table`` on three main paths,
+    built by the port on the card: ``{path: {species: kwargs}}`` for the
+    merger (two halos), the scene batch (64 scenes of two halos) and the
+    ensemble batch (256 clusters)."""
     from cluster_generator_tpu_torch.parallel import mergers as MG
 
-    cases = class_cdf_cases(V, build_class_model(cg))
     fields = P.build_merger_models(M200, CONC, device="cuda")
     inputs = {"merger": P.speed_table_inputs(fields)}
     prog = MG._merger_batch_fn(SCENE_POINTS, *SCENE_COUNTS.values())
@@ -476,7 +474,19 @@ def k1_path_cases(P, V, E):
         DATAGEN_BATCH)
     f = prog.models(M, c)
     inputs["datagen"] = prog.speed_table_inputs(f, prog.dfs(f))
-    for path, per_species in inputs.items():
+    return inputs
+
+
+def k1_path_cases(P, V, E):
+    """K1's inputs on the four main paths, built by the port on the card:
+    ``[(name, float32 CDF rows, n_q), ...]`` for the merger's DM and star
+    tables (two halos), the ensemble batch's (256 clusters), the class
+    path's (one cluster on a 4096-point grid, 256 rows per species) and
+    the scene batch's (64 scenes of two halos)."""
+    import cluster_generator_tpu_torch as cg
+
+    cases = class_cdf_cases(V, build_class_model(cg))
+    for path, per_species in table_path_inputs(P, E).items():
         for kind, kw in per_species.items():
             n_q = kw.pop("n_q")
             cdf = V.speed_cdf_rows(**kw)
@@ -576,6 +586,119 @@ def check_k1(P, K, V, E):
                       "max_abs_err": errs[name], "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound,
                       "bound_by": bound_by, "library_ms": lib_ms}
+    return rows, max(errs.values())
+
+
+def speed_cdf_path_cases(P, V, E):
+    """The speed-CDF kernel's arguments on the merger, scene-batch and
+    ensemble-batch paths, recorded from the port's own
+    ``virial.speed_cdf_rows`` calls on the card: ``[(name, args), ...]``."""
+    real, seen, cases = V.speed_cdf_rows_f32, [], []
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    V.speed_cdf_rows_f32 = record
+    try:
+        for path, per_species in table_path_inputs(P, E).items():
+            for kind, kw in per_species.items():
+                kw.pop("n_q")
+                V.speed_cdf_rows(**kw)
+                cases.append((f"{path}_{kind}", seen.pop()))
+    finally:
+        V.speed_cdf_rows_f32 = real
+    return cases
+
+
+def speed_cdf_edge_cases(dev):
+    """Arguments that probe the speed-CDF kernel's edges: a row at each
+    halo's e_max and one whose s = 0 query sits on the segment boundary b,
+    a halo whose f_E is all zero, one halo, no leading axis, widths that
+    are no multiple of 32, and rows of 8192 (above the default 48 KB of
+    shared memory)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def case(halos, rows, n_s, nf1=4096, nf2=4096, zero=None, lead=None):
+        e_top = 1e-2 + 1e2 * torch.rand(halos, generator=gen,
+                                         dtype=torch.float64, device=dev)
+        row_ee = (0.01 + 0.98 * torch.rand((halos, rows), generator=gen,
+                                           dtype=torch.float64, device=dev)
+                  ) * e_top[:, None]
+        row_ee[:, -1] = e_top
+        row_ee[:, 0] = 0.9 * e_top
+        fu = torch.rand((halos, nf1 + nf2), generator=gen, device=dev)
+        fu = torch.where(fu < 0.1, 0.0, fu)
+        if zero is not None:
+            fu[zero] = 0.0
+        lead = (halos,) if lead is None else lead
+        e_max = torch.amax(row_ee, dim=-1).reshape(lead)
+        return (row_ee.reshape(lead + (rows,)),
+                torch.linspace(0.0, 1.0, n_s, dtype=torch.float64,
+                               device=dev),
+                fu.reshape(lead + (nf1 + nf2,)), 0.9 * e_max, e_max, nf1,
+                nf2)
+
+    return [("e_max_and_b_rows", case(3, 8, 512)),
+            ("zero_f_halo", case(4, 5, 256, zero=2)),
+            ("one_halo", case(1, 16, 512)),
+            ("no_lead_axis", case(1, 16, 512, lead=())),
+            ("n_s_100", case(2, 7, 100, nf1=300, nf2=50)),
+            ("n_s_1000", case(2, 7, 1000)),
+            ("n_s_8192", case(1, 3, 8192))]
+
+
+def speed_cdf_bound_ms(args):
+    """Least time of the speed-CDF kernel's work: the node table and row
+    energies read once and the float32 rows written once at the HBM rate,
+    or its float64 operations (E, 3 a query, and the scan's adds) at the
+    card's float64 rate."""
+    row_ee, s, fu = args[:3]
+    rows, n_s = row_ee.numel(), s.shape[0]
+    nbytes = 4 * fu.numel() + 8 * rows + 4 * rows * n_s + 12 * n_s
+    ops = rows * (3 * n_s + (n_s - 1) * math.ceil(math.log2(n_s - 1)))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_speed_cdf(P, V, S, E):
+    """The speed-CDF kernel against its plain version on the card, bit for
+    bit, at the path shapes and the edge rows; returns ``(timing rows of
+    the path shapes by name, largest |kernel - plain|)``."""
+    dev = torch.device("cuda")
+    path_cases = speed_cdf_path_cases(P, V, E)
+    errs = {}
+    for name, args in path_cases + speed_cdf_edge_cases(dev):
+        got = S.speed_cdf_rows_f32(*args)
+        want = S.speed_cdf_rows_f32_plain(*args)
+        sync()
+        shape = tuple(args[0].shape) + (args[1].shape[0],)
+        check(got.shape == shape and got.dtype == torch.float32,
+              f"speed CDF {name}: shape {tuple(got.shape)} dtype {got.dtype}")
+        check(bool(torch.isfinite(got).all()),
+              f"speed CDF {name}: non-finite")
+        err = errs[name] = float((got - want).abs().max())
+        print(f"speed CDF {name}: {shape}  max|kernel - plain| = {err:.3e}")
+        check(torch.equal(got, want),
+              f"speed CDF {name}: kernel and plain version differ ({err})")
+    del got, want
+    rows = {}
+    for name, args in path_cases:
+        ms = cuda_ms(lambda: S.speed_cdf_rows_f32(*args), 200)
+        plain_ms = cuda_ms(lambda: S.speed_cdf_rows_f32_plain(*args), 5)
+        bound, bound_by = speed_cdf_bound_ms(args)
+        _, events, _ = kernel_profile(lambda: S.speed_cdf_rows_f32(*args))
+        dev_ms = sum(e.dur_us for e in events
+                     if "speed_cdf_rows_kernel" in e.name) / 1e3
+        shape = "x".join(map(str, tuple(args[0].shape) + (args[1].shape[0],)))
+        print(f"speed CDF {name}: {shape} kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms, {ms / bound:.1f}x bound), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+        rows[name] = {"path_shape": name, "shape": shape,
+                      "max_abs_err": errs[name], "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by}
     return rows, max(errs.values())
 
 
@@ -786,9 +909,10 @@ def datagen_qa(E, QA, M, c, out, r_a, label):
     print(f"{label}: QA", json.dumps(report))
 
 
-def run_datagen(E, K, QA, card):
+def run_datagen(E, K, S, QA, card):
     """The ensemble datagen path at full width; returns K1's launches on
-    each of its three runs."""
+    each of its three runs and the speed-CDF kernel's (one of each for
+    every float32 speed table)."""
     counts = DATAGEN_COUNTS
     per_cluster = sum(counts.values())
     M, c = E.sample_ensemble_params(
@@ -796,31 +920,36 @@ def run_datagen(E, K, QA, card):
         DATAGEN_CLUSTERS)
     kw = dict(batch_size=DATAGEN_BATCH, num_points=DATAGEN_POINTS,
               seed=DATAGEN_SEED, device="cuda")
-    launches = {}
+    launches, cdf = {}, {}
 
-    def stream(M, c, **extra):
-        """Consume ``datagen_batches``; seconds until every batch is done
-        and the batches' outputs."""
+    def stream(M, c, label, **extra):
+        """Consume ``datagen_batches``; seconds until every batch is done,
+        the batches' outputs and the peak memory; the launches of K1 and
+        of the speed-CDF kernel under ``label``."""
         torch.cuda.reset_peak_memory_stats()
-        K.invert_cdf_rows.launches = 0
+        K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
         sync()
         t0 = time.perf_counter()
         outs = list(E.datagen_batches(M, c, counts, **dict(kw, **extra)))
         sync()
-        return (time.perf_counter() - t0, outs, K.invert_cdf_rows.launches,
+        launches[label] = K.invert_cdf_rows.launches
+        cdf[label] = S.speed_cdf_rows_f32.launches
+        return (time.perf_counter() - t0, outs,
                 torch.cuda.max_memory_allocated() / 2**30)
 
     B = DATAGEN_BATCH
-    first_s, outs, launches["datagen_first"], peak = stream(M[:B], c[:B])
+    first_s, outs, peak = stream(M[:B], c[:B], "datagen_first")
     print(f"datagen first batch ({B} clusters x {per_cluster} particles): "
-          f"{first_s:.3f} s; K1 launches {launches['datagen_first']}; peak "
-          f"memory {peak:.2f} GiB [{card}]")
-    check(launches["datagen_first"] == 2,
-          f"K1 launches per batch {launches['datagen_first']}, want 2")
+          f"{first_s:.3f} s; K1 launches {launches['datagen_first']}, "
+          f"speed-CDF kernel {cdf['datagen_first']}; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    check(launches["datagen_first"] == 2 and cdf["datagen_first"] == 2,
+          f"launches per batch: K1 {launches['datagen_first']}, speed CDF "
+          f"{cdf['datagen_first']}, want 2 each")
     datagen_qa(E, QA, M[:B], c[:B], outs[0][1], None, "datagen batch 0")
     del outs
 
-    total_s, outs, launches["datagen"], peak = stream(M, c)
+    total_s, outs, peak = stream(M, c, "datagen")
     n_batches = len(outs)
     check([b0 for b0, _ in outs] == list(range(0, DATAGEN_CLUSTERS, B)),
           f"batch offsets {[b0 for b0, _ in outs]}")
@@ -831,8 +960,9 @@ def run_datagen(E, K, QA, card):
           f"launches {launches['datagen']} "
           f"({launches['datagen'] / n_batches:g} per batch); peak memory "
           f"{peak:.2f} GiB with {n_batches} batches of output held [{card}]")
-    check(launches["datagen"] == 2 * n_batches,
-          f"K1 launches {launches['datagen']}, want {2 * n_batches}")
+    check(launches["datagen"] == 2 * n_batches == cdf["datagen"],
+          f"launches: K1 {launches['datagen']}, speed CDF {cdf['datagen']}, "
+          f"want {2 * n_batches} each")
     for b0, out in outs:
         bad = E.nonfinite_counts(out)
         check(all(v == 0 for v in bad.values()),
@@ -843,16 +973,17 @@ def run_datagen(E, K, QA, card):
     del outs, out
 
     Bo = DATAGEN_OM_BATCH
-    om_s, outs, launches["datagen_om"], peak = stream(
-        M[:Bo], c[:Bo], batch_size=Bo, anisotropy_radius=DATAGEN_R_A)
+    om_s, outs, peak = stream(M[:Bo], c[:Bo], "datagen_om", batch_size=Bo,
+                              anisotropy_radius=DATAGEN_R_A)
     print(f"datagen Osipkov-Merritt batch (r_a = {DATAGEN_R_A:g} kpc, {Bo} "
           f"clusters): {om_s:.3f} s, {Bo / om_s:.1f} clusters/s; K1 launches "
           f"{launches['datagen_om']}; peak memory {peak:.2f} GiB [{card}]")
-    check(launches["datagen_om"] == 2,
-          f"K1 launches of the OM batch {launches['datagen_om']}, want 2")
+    check(launches["datagen_om"] == 2 and cdf["datagen_om"] == 2,
+          f"launches of the OM batch: K1 {launches['datagen_om']}, speed "
+          f"CDF {cdf['datagen_om']}, want 2 each")
     datagen_qa(E, QA, M[:Bo], c[:Bo], outs[0][1], DATAGEN_R_A,
                "datagen OM batch")
-    return launches
+    return launches, cdf
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1032,13 +1163,14 @@ def class_device_agreement(cg, m_gpu):
           f"class speed table: max {err}, {n_over} entries > {TABLE_TOL}")
 
 
-def run_class_path(cg, K, V, card):
+def run_class_path(cg, K, S, V, card):
     """The single-cluster class path at full width; returns K1's launches
-    over the phase (DM, stars, Osipkov-Merritt DM: 3)."""
+    over the phase (DM, stars, Osipkov-Merritt DM: 3) and the speed-CDF
+    kernel's (as many)."""
     n = CLASS_COUNTS
     r_max = R_MAX
     torch.cuda.reset_peak_memory_stats()
-    K.invert_cdf_rows.launches = 0
+    K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     r500, m500 = cg.find_radius_mass(
         cg.snfw_mass_profile(1.7e15, 560.0), z=CLASS_Z, delta=500.0)
     check(r500.is_cuda and m500.is_cuda and r500.ndim == 0
@@ -1104,9 +1236,10 @@ def run_class_path(cg, K, V, card):
     print(f"class draws ({sum(n.values())} particles), seconds:",
           json.dumps(times), f"[{card}]")
     print("class draws: QA", json.dumps(report))
-    check(K.invert_cdf_rows.launches == 2,
-          f"class path: K1 launches {K.invert_cdf_rows.launches}, want 2 "
-          "(one per species)")
+    check(K.invert_cdf_rows.launches == 2
+          and S.speed_cdf_rows_f32.launches == 2,
+          f"class path: K1 launches {K.invert_cdf_rows.launches}, speed CDF "
+          f"{S.speed_cdf_rows_f32.launches}, want 2 each (one per species)")
     check(m.dm_virial._speed_table()[1].shape == (256, 512),
           "class speed table shape")
     jeans_check(m, parts["dm"], sigma)
@@ -1129,8 +1262,10 @@ def run_class_path(cg, K, V, card):
     om, om_s = timed(lambda: V.VirialEquilibrium(m, r_a=CLASS_R_A))
     p_om, om_draw_s = timed(lambda: om.generate_particles(
         CLASS_OM_COUNT, r_max=r_max, prng=5))
-    check(K.invert_cdf_rows.launches == 3,
-          f"class OM: K1 launches {K.invert_cdf_rows.launches}, want 3")
+    check(K.invert_cdf_rows.launches == 3
+          and S.speed_cdf_rows_f32.launches == 3,
+          f"class OM: K1 launches {K.invert_cdf_rows.launches}, speed CDF "
+          f"{S.speed_cdf_rows_f32.launches}, want 3 each")
     rep = class_species_qa(m, p_om, "dm", CLASS_OM_COUNT, r_max)
     print(f"class Osipkov-Merritt (r_a = {CLASS_R_A:g} kpc): DF {om_s:.3f} s, "
           f"{CLASS_OM_COUNT} draws {om_draw_s:.3f} s; QA", json.dumps(rep))
@@ -1140,6 +1275,7 @@ def run_class_path(cg, K, V, card):
     check(len(beta) >= 4, "too few populated bins for the class OM beta")
     del p_om
     launches = K.invert_cdf_rows.launches
+    cdf = S.speed_cdf_rows_f32.launches
 
     # the other constructors and the MOND laws
     rhog, rhot = class_profiles(cg)
@@ -1185,7 +1321,7 @@ def run_class_path(cg, K, V, card):
     print(f"class path peak memory {peak:.2f} GiB; K1 launches {launches} "
           f"[{card}]")
     class_device_agreement(cg, m)
-    return launches
+    return launches, cdf
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1612,17 +1748,17 @@ def scene_params(MG, n):
         torch.Generator(device="cuda").manual_seed(SCENE_SEED), n)
 
 
-def run_scenes(MG, K, card):
+def run_scenes(MG, K, S, card):
     """The merger-scene batches at cfg6; returns K1's launches on each of
-    the three runs."""
+    the three runs and the speed-CDF kernel's."""
     p = scene_params(MG, SCENES)
     per_scene = sum(sum(v) for v in SCENE_COUNTS.values())
-    launches = {}
+    launches, cdf = {}, {}
 
-    def stream(n, **extra):
+    def stream(n, label, **extra):
         sub = {k: v[:n] for k, v in p.items()}
         torch.cuda.reset_peak_memory_stats()
-        K.invert_cdf_rows.launches = 0
+        K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
         sync()
         t0 = time.perf_counter()
         outs = list(MG.merger_scene_batches(
@@ -1630,7 +1766,9 @@ def run_scenes(MG, K, card):
             num_points=SCENE_POINTS, r_max=R_MAX, seed=SCENE_SEED,
             device="cuda", **extra))
         sync()
-        return (time.perf_counter() - t0, outs, K.invert_cdf_rows.launches,
+        launches[label] = K.invert_cdf_rows.launches
+        cdf[label] = S.speed_cdf_rows_f32.launches
+        return (time.perf_counter() - t0, outs,
                 torch.cuda.max_memory_allocated() / 2**30)
 
     def qa(b0, out, label, r_a=None):
@@ -1647,16 +1785,17 @@ def run_scenes(MG, K, card):
         check(not rep["violations"] and not any(bad.values()),
               f"{label}: {rep['violations'][:5]} {bad}")
 
-    first_s, outs, launches["scenes_first"], peak = stream(SCENE_BATCH)
+    first_s, outs, peak = stream(SCENE_BATCH, "scenes_first")
     print(f"scene batch first ({SCENE_BATCH} binary scenes x {per_scene} "
           f"particles): {first_s:.3f} s; K1 launches "
           f"{launches['scenes_first']}; peak memory {peak:.2f} GiB [{card}]")
-    check(launches["scenes_first"] == 2,
-          f"K1 launches per scene batch {launches['scenes_first']}, want 2")
+    check(launches["scenes_first"] == 2 and cdf["scenes_first"] == 2,
+          f"launches per scene batch: K1 {launches['scenes_first']}, speed "
+          f"CDF {cdf['scenes_first']}, want 2 each")
     qa(0, outs[0][1], "scene batch 0")
     del outs
 
-    total_s, outs, launches["scenes"], peak = stream(SCENES)
+    total_s, outs, peak = stream(SCENES, "scenes")
     n_b = len(outs)
     print(f"scene stream, warm: {n_b} batches in {total_s:.3f} s = "
           f"{total_s / n_b:.4f} s per batch, {SCENES / total_s:.1f} scenes/s, "
@@ -1664,21 +1803,23 @@ def run_scenes(MG, K, card):
           f"{launches['scenes']} ({launches['scenes'] / n_b:g} per batch); "
           f"peak memory {peak:.2f} GiB with {n_b} batches of output held "
           f"[{card}]")
-    check(launches["scenes"] == 2 * n_b,
-          f"K1 launches {launches['scenes']}, want {2 * n_b}")
+    check(launches["scenes"] == 2 * n_b == cdf["scenes"],
+          f"launches: K1 {launches['scenes']}, speed CDF {cdf['scenes']}, "
+          f"want {2 * n_b} each")
     for b0, out in outs:
         qa(b0, out, f"scene batch {b0}")
     del outs
 
-    om_s, outs, launches["scenes_om"], peak = stream(
-        SCENE_BATCH, anisotropy_radius=SCENE_R_A)
+    om_s, outs, peak = stream(SCENE_BATCH, "scenes_om",
+                              anisotropy_radius=SCENE_R_A)
     print(f"scene Osipkov-Merritt batch (r_a = {SCENE_R_A:g} kpc): "
           f"{om_s:.3f} s; K1 launches {launches['scenes_om']}; peak memory "
           f"{peak:.2f} GiB [{card}]")
-    check(launches["scenes_om"] == 2,
-          f"K1 launches of the OM batch {launches['scenes_om']}, want 2")
+    check(launches["scenes_om"] == 2 and cdf["scenes_om"] == 2,
+          f"launches of the OM batch: K1 {launches['scenes_om']}, speed CDF "
+          f"{cdf['scenes_om']}, want 2 each")
     qa(0, outs[0][1], "scene OM batch", r_a=SCENE_R_A)
-    return launches
+    return launches, cdf
 
 
 # ------------------------------------------------------------ phases 13, 14
@@ -2645,6 +2786,7 @@ def md_steps(rank, world, out, sz):
     from cluster_generator_tpu_torch import virial as V
     from cluster_generator_tpu_torch.core import compiled as C
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
+    from cluster_generator_tpu_torch.ops import speed_cdf as SC
     from cluster_generator_tpu_torch.parallel import dryrun as DR
     from cluster_generator_tpu_torch.parallel import ensemble as E
     from cluster_generator_tpu_torch.parallel import export as EX
@@ -2889,9 +3031,13 @@ def md_steps(rank, world, out, sz):
                "rows": [int(p.key[3][0][0][0]) for p in made],
                "capture_s": sum(p.capture_s or 0.0 for p in made),
                "pool_gib": sum(p.pool_bytes or 0 for p in made) / 2**30,
-               "k1_nodes": sum(sum(p.nodes.values()) for p in made)}
+               "k1_nodes": sum(p.nodes.get(K.invert_cdf_rows, 0)
+                                for p in made),
+               "cdf_nodes": sum(p.nodes.get(SC.speed_cdf_rows_f32, 0)
+                                for p in made)}
         check(rep["max_abs_diff"] == 0.0 and rep["first_max_abs_diff"] == 0.0
-              and len(made) == 1 and (not cuda or rep["k1_nodes"] == 2),
+              and len(made) == 1
+              and (not cuda or rep["k1_nodes"] == rep["cdf_nodes"] == 2),
               f"rank {rank}: mesh batch program vs eager {rep}")
         return out[0], rep
 
@@ -3288,32 +3434,40 @@ def compare_program(C, K, label, name, graph, eager, n_cases, card):
     """The common checks of phase 21 on one program: the first call (the
     eager warm-up, then the capture) and ``n_cases - 1`` replays, each
     against the eager body on the same inputs and seed, bit for bit, with
-    K1's launches counted per call; an earlier replay's outputs unchanged
+    the launches of K1 and of the speed-CDF kernel counted per call (two
+    of each, two graph nodes of each); an earlier replay's outputs unchanged
     after the later ones; the syncs of a warm call; eager and graph warm
     wall, host launches, device busy and the peak memory a warm call adds.  ``graph(k)`` / ``eager(k)`` run
     case k.  Returns the report."""
+    from cluster_generator_tpu_torch.ops import speed_cdf as S
+
     before = C.programs()
-    K.invert_cdf_rows.launches = 0
+    K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     first, first_s = timed(lambda: graph(0))
     first_k1 = K.invert_cdf_rows.launches
     prog = program_of(C, name, before)
-    check(first_k1 == 2, f"{label}: first call launched K1 {first_k1} times")
+    check(first_k1 == 2 and S.speed_cdf_rows_f32.launches == 2,
+          f"{label}: first call launched K1 {first_k1} times, the speed-CDF "
+          f"kernel {S.speed_cdf_rows_f32.launches}")
     rep = {"first_s": first_s, "capture_s": prog.capture_s, "k1": first_k1,
            "pool_bytes": prog.pool_bytes, "static_bytes": prog.static_bytes,
-           "k1_nodes": sum(prog.nodes.values()),
+           "k1_nodes": prog.nodes.get(K.invert_cdf_rows, 0),
+           "cdf_nodes": prog.nodes.get(S.speed_cdf_rows_f32, 0),
            "max_abs_diff": [tree_diff(first, eager(0), label)]}
-    check(prog.graph is not None and rep["k1_nodes"] == 2,
-          f"{label}: graph {prog.graph}, K1 nodes {prog.nodes}")
+    check(prog.graph is not None and rep["k1_nodes"] == rep["cdf_nodes"] == 2,
+          f"{label}: graph {prog.graph}, nodes {prog.nodes}")
     del first
     held, snap = None, None
     released = C.releases
     for k in range(1, n_cases):
-        K.invert_cdf_rows.launches = 0
+        K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
         out = graph(k)
         sync()
-        check(K.invert_cdf_rows.launches == 2,
+        check(K.invert_cdf_rows.launches == 2
+              and S.speed_cdf_rows_f32.launches == 2,
               f"{label}: replay {k} launched K1 "
-              f"{K.invert_cdf_rows.launches} times")
+              f"{K.invert_cdf_rows.launches} times, the speed-CDF kernel "
+              f"{S.speed_cdf_rows_f32.launches}")
         rep["k1"] += K.invert_cdf_rows.launches
         rep["max_abs_diff"].append(tree_diff(out, eager(k), label))
         if held is None:
@@ -3603,20 +3757,28 @@ def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
     with parameters of their own, each against ``eager`` (the same calls
     under ``compiled.eager()``) bit for bit; ``k1`` K1 launches per call,
     nodes of the programs the call used (with ``k1_program``: of that
-    program alone); no new program in a warm call; no sync in a warm call
+    program alone), and as many launches and nodes of the speed-CDF
+    kernel (one of each for every float32 speed table, in the same
+    program); no new program in a warm call; no sync in a warm call
     (with ``syncs_outside``: none under a program call, for a path whose
     host checks, logs and seeds sit between its programs; the others
     named); eager and graph warm wall, host launches, device busy; the
     programs used and made, their capture seconds, pool growth and static
     bytes.  Returns ``(report, the first call's output)``."""
+    from cluster_generator_tpu_torch.ops import speed_cdf as S
+
     stamp = next(C._STAMP)
     before = C.programs()
-    K.invert_cdf_rows.launches = 0
+    K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     first, first_s = timed(lambda: graph(0))
+    first_cdf = S.speed_cdf_rows_f32.launches
     used = programs_used(C, stamp)
     made = [p for p in used if all(p is not q for q in before)]
-    nodes = {p.key[0][0]: sum(p.nodes.values()) for p in used
-             if sum(p.nodes.values())}
+    nodes = {p.key[0][0]: p.nodes.get(K.invert_cdf_rows, 0) for p in used
+             if p.nodes.get(K.invert_cdf_rows, 0)}
+    unpaired = {p.key[0][0]: dict(p.nodes) for p in used
+                if p.nodes.get(K.invert_cdf_rows, 0)
+                != p.nodes.get(S.speed_cdf_rows_f32, 0)}
     rep = {"programs": sorted(p.key[0][0] for p in used),
            "made": sorted(p.key[0][0] for p in made),
            "first_s": first_s, "k1": K.invert_cdf_rows.launches,
@@ -3627,21 +3789,25 @@ def compare_programs(C, K, label, graph, eager, n_cases, k1, card,
            "max_abs_diff": [tree_diff(first, eager(0), label)]}
     # (programs of one key serve both species: the DM and stellar tables
     # of one model are one program, replayed for the second)
-    check(rep["k1"] == k1 and bool(nodes) == (k1 > 0)
+    check(rep["k1"] == k1 == first_cdf
+          and bool(nodes) == (k1 > 0) and not unpaired
           and (k1_program is None or set(nodes) <= {k1_program})
           and all(p.graph is not None for p in used),
-          f"{label}: first call K1 {rep['k1']}, nodes {nodes}, programs "
-          f"{rep['programs']}")
+          f"{label}: first call K1 {rep['k1']}, speed CDF {first_cdf}, "
+          f"K1 nodes {nodes}, programs "
+          f"{rep['programs']}, nodes unpaired {unpaired}")
     released = C.releases
     for k in range(1, n_cases):
-        K.invert_cdf_rows.launches = 0
+        K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
         before = C.programs()
         out = graph(k)
         sync()
         check(K.invert_cdf_rows.launches == k1
+              == S.speed_cdf_rows_f32.launches
               and not new_programs(C, before),
               f"{label}: warm call {k} launched K1 "
-              f"{K.invert_cdf_rows.launches} times, made "
+              f"{K.invert_cdf_rows.launches} times, the speed-CDF kernel "
+              f"{S.speed_cdf_rows_f32.launches}, made "
               f"{list(new_programs(C, before))}")
         rep["k1"] += K.invert_cdf_rows.launches
         rep["max_abs_diff"].append(tree_diff(out, eager(k), label))
@@ -4313,6 +4479,7 @@ def main() -> int:
     from cluster_generator_tpu_torch.core import compiled as C
     from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
+    from cluster_generator_tpu_torch.ops import speed_cdf as S
     from cluster_generator_tpu_torch.parallel import ensemble as E
     from cluster_generator_tpu_torch.parallel import mergers as MG
     from cluster_generator_tpu_torch.parallel.qa import QA_TOLERANCES as QA
@@ -4329,15 +4496,20 @@ def main() -> int:
     print(f"built {built} in {time.perf_counter() - t0:.1f} s")
 
     k1, k1_err = check_k1(P, K, V, E)
+    speed, speed_err = check_speed_cdf(P, V, S, E)
 
-    launches = {}
-    K.invert_cdf_rows.launches = 0
+    # launches of the speed-CDF kernel on the main paths, one beside each
+    # of K1's: each float32 speed table launches both once
+    launches, cdf_launches = {}, {}
+    K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     parts, _, first_s = run_main_path(P)
     launches["merger"] = K.invert_cdf_rows.launches
+    cdf_launches["merger"] = S.speed_cdf_rows_f32.launches
     print(f"main path first run: {first_s:.3f} s; K1 launches "
-          f"{launches['merger']}")
-    check(launches["merger"] == 2,
-          f"the merger path launched K1 {launches['merger']} times, want 2")
+          f"{launches['merger']}, speed-CDF kernel {cdf_launches['merger']}")
+    check(launches["merger"] == 2 and cdf_launches["merger"] == 2,
+          f"the merger path launched K1 {launches['merger']} times, the "
+          f"speed-CDF kernel {cdf_launches['merger']}, want 2 each")
     check_main_path(parts)
     del parts
     warm = []
@@ -4354,21 +4526,30 @@ def main() -> int:
     print("warm stage seconds:", json.dumps(
         {k: round(v, 4) for k, v in stages.items()}))
 
-    K.invert_cdf_rows.launches = 0
+    K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     parts, _, om_s = run_main_path(P, r_a=MERGER_R_A, n_tracer=N_TRACER,
                                    compute_potential=True)
     launches["merger_switches"] = K.invert_cdf_rows.launches
+    cdf_launches["merger_switches"] = S.speed_cdf_rows_f32.launches
     print(f"merger with r_a = {MERGER_R_A:g} kpc, {sum(N_TRACER)} tracers and "
           f"potentials: {om_s:.3f} s; K1 launches "
-          f"{launches['merger_switches']} [{card}]")
-    check(launches["merger_switches"] == 2,
-          f"K1 launches {launches['merger_switches']}, want 2")
+          f"{launches['merger_switches']}, speed-CDF kernel "
+          f"{cdf_launches['merger_switches']} [{card}]")
+    check(launches["merger_switches"] == 2
+          and cdf_launches["merger_switches"] == 2,
+          f"launches: K1 {launches['merger_switches']}, speed CDF "
+          f"{cdf_launches['merger_switches']}, want 2 each")
     check_merger_switches(parts)
     del parts
 
-    launches.update(run_datagen(E, K, QA, card))
-    launches["class"] = run_class_path(cg, K, V, card)
-    launches.update(run_scenes(MG, K, card))
+    k1_by, cdf_by = run_datagen(E, K, S, QA, card)
+    launches.update(k1_by)
+    cdf_launches.update(cdf_by)
+    launches["class"], cdf_launches["class"] = run_class_path(cg, K, S, V,
+                                                              card)
+    k1_by, cdf_by = run_scenes(MG, K, S, card)
+    launches.update(k1_by)
+    cdf_launches.update(cdf_by)
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 
@@ -4400,12 +4581,14 @@ def main() -> int:
 
     run_cli(card)
     run_native_grid(cg, DS, card)
-    K.invert_cdf_rows.launches = 0
+    K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     run_tooling(P, E, card)
     launches["tooling"] = K.invert_cdf_rows.launches
-    check(launches["tooling"] == 4,
-          f"the tooling phase launched K1 {launches['tooling']} times, "
-          "want 4 (merger IC 2, datagen batch 2)")
+    cdf_launches["tooling"] = S.speed_cdf_rows_f32.launches
+    check(launches["tooling"] == 4 and cdf_launches["tooling"] == 4,
+          f"the tooling phase launched K1 {launches['tooling']} times, the "
+          f"speed-CDF kernel {cdf_launches['tooling']}, want 4 each (merger "
+          "IC 2, datagen batch 2)")
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 
@@ -4428,7 +4611,8 @@ def main() -> int:
     # bound by bytes (the ensemble batch's DM rows), every path shape is in
     # "shapes", and "launches" sums the runs of the main paths (the scene
     # batches' DM rows have the same shape, the IC scenes' rows the class
-    # path's)
+    # path's): K1's of every phase, the speed-CDF kernel's of phases 4-7,
+    # 12 and 18, where each is checked against K1's
     top = k1["datagen_dm"]
     kernels = [{
         "name": "invert_cdf_rows",
@@ -4442,6 +4626,17 @@ def main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
         "shape": top["shape"], "shapes": list(k1.values()),
+    }, {
+        "name": "speed_cdf_rows",
+        "route": "cuda",
+        "source": "cluster_generator_tpu_torch/ops/csrc/speed_cdf_rows.cu",
+        "replaces": None,
+        "launches": sum(cdf_launches.values()),
+        "launches_by_path": cdf_launches,
+        "max_abs_err": speed_err,
+        **{k: speed["datagen_dm"][k] for k in
+           ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "shapes": list(speed.values()),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,8 @@ compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (named by a hash of the source and flags, so an edit
 rebuilds) and loaded with ``ctypes``.  :func:`build_all` starts one
 ``nvcc`` per source at once; :func:`load_library` calls it for every
-source the first time it meets one not built.  The stage marks
+source the first time it meets one not built.  :func:`launch` calls a
+kernel's C entry point on PyTorch's current stream.  The stage marks
 (``stage_marks.cu``) sit in every program body, so every path on a card
 needs ``nvcc``.  Nothing here runs at import time.
 """
@@ -13,20 +14,31 @@ needs ``nvcc``.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build_all",
-           "load_library"]
+import torch
+
+from ..core.compiled import count_launch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SMEM_OPTIN_BYTES",
+           "nvcc_path", "build_all", "load_library", "entry_point", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no --use_fast_math: denormals are kept and divisions are IEEE
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# The shared memory a block may opt in to on an H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin), which bounds the rows the
+# kernels take; each C entry point queries its own card's limit again and
+# refuses a launch that does not fit.
+SMEM_OPTIN_BYTES = 232448
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -106,3 +118,30 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry_point(name: str, argtypes: tuple):
+    """``cg_<name>`` of ``csrc/<name>.cu``, bound once: it takes
+    ``argtypes`` and then a stream, and returns a ``cudaError_t``."""
+    fn = getattr(load_library(name), f"cg_{name}")
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(kernel, name: str, argtypes: tuple, device: torch.device,
+           *args) -> None:
+    """Run ``cg_<name>(*args, stream)`` on ``device``'s current stream (the
+    C functions launch on the current device), raise on a non-zero
+    ``cudaError_t`` and count one launch of ``kernel``, the kernel's
+    Python wrapper (:func:`..core.compiled.count_launch`)."""
+    fn = entry_point(name, argtypes)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    count_launch(kernel)

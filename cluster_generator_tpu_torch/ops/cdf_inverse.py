@@ -23,15 +23,20 @@ import functools
 import numpy as np
 import torch
 
-from ..core.compiled import count_launch
+from .build import SMEM_OPTIN_BYTES, launch
 
 __all__ = ["invert_cdf_rows", "invert_cdf_rows_plain", "MAX_N_S"]
 
 # The kernel keeps two input rows and one output row of a team in shared
 # memory, and a block may opt in to 227 KB of it on the card:
 # 2 n_s + n_q floats (each rounded up to a multiple of 4) must fit.
-_SMEM_FLOATS = 232448 // 4
+_SMEM_FLOATS = SMEM_OPTIN_BYTES // 4
 MAX_N_S = (_SMEM_FLOATS - 4) // 2
+
+# the C entry point's arguments before the stream: cdf, out, n_rows, n_s,
+# n_q, ds, dq
+ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float)
 
 # elements of one (rows, n_q, n_s) chunk of the plain version's mask
 _PLAIN_CHUNK = 1 << 22
@@ -98,36 +103,12 @@ def invert_cdf_rows_plain(cdf: torch.Tensor, n_q: int) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The kernel's C entry point, built and bound once."""
-    from .build import load_library
-
-    fn = load_library("invert_cdf_rows").cg_invert_cdf_rows
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(cdf: torch.Tensor, n_q: int) -> torch.Tensor:
-    fn = _kernel()
     n_rows, n_s = cdf.shape
     ds, dq = _steps(n_s, n_q)
     out = torch.empty((n_rows, n_q), dtype=torch.float32, device=cdf.device)
-    # the C function launches on the current device
-    if cdf.device.index == torch.cuda.current_device():
-        err = fn(cdf.data_ptr(), out.data_ptr(), n_rows, n_s, n_q, ds, dq,
-                 torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(cdf.device):
-            err = fn(cdf.data_ptr(), out.data_ptr(), n_rows, n_s, n_q, ds,
-                     dq, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"invert_cdf_rows kernel launch failed: "
-                           f"cudaError_t {err}")
-    count_launch(invert_cdf_rows)
+    launch(invert_cdf_rows, "invert_cdf_rows", ARGTYPES, cdf.device,
+           cdf.data_ptr(), out.data_ptr(), n_rows, n_s, n_q, ds, dq)
     return out
 
 

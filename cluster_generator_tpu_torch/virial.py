@@ -39,8 +39,8 @@ from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
 from .core.logging import mylog
-from .core.quadrature import cumsum
 from .ops.cdf_inverse import invert_cdf_rows
+from .ops.speed_cdf import speed_cdf_rows_f32, trapezoid_cdf
 
 __all__ = ["VirialEquilibrium", "sample_speeds", "compute_df", "om_extended_df", "compute_df_truncated",
            "check_virial_density", "speed_cdf_rows",
@@ -203,69 +203,40 @@ def speed_cdf_rows(ee, f_vals, n_s: int = 1024, table_dtype=None,
     row energies (default ``ee``).  ``table_dtype=torch.float32`` evaluates
     f(E) through a node table (the exact float64 spline at NF1 uniform
     nodes over [0, 0.9 e_max) and NF2 over [0.9 e_max, e_max], then one
-    lerp per query) and builds the CDF in float32; ``None`` evaluates the
-    spline at every query in the input precision.
+    lerp per query) and builds the CDF in float32, on a card by one launch
+    of a hand-written kernel (:func:`.ops.speed_cdf.speed_cdf_rows_f32`);
+    its row energies are taken in float64 whatever their dtype.  ``None``
+    evaluates the spline at every query in the input precision.  No other
+    ``table_dtype`` is taken.
     """
     f_sp = cubic_spline(ee, f_vals)
     if row_ee is None:
         row_ee = ee
-    dev = ee.device
-    s = linspace(0.0, 1.0, n_s, device=dev)
-    E = row_ee[..., :, None] * (1.0 - (s * s))  # (..., rows, n_s)
+    s = linspace(0.0, 1.0, n_s, device=ee.device)
     if table_dtype is not None:
-        NF1, NF2 = nf1, nf2
-        if NF1 < 2 or NF2 < 2:
+        if table_dtype != torch.float32:
+            raise ValueError(f"table_dtype must be torch.float32 or None, "
+                             f"got {table_dtype}")
+        if nf1 < 2 or nf2 < 2:
             raise ValueError(
                 f"df node grids need >= 2 nodes per segment (got "
-                f"nf1={NF1}, nf2={NF2})")
+                f"nf1={nf1}, nf2={nf2})")
         fmax = torch.amax(torch.abs(f_vals), dim=-1, keepdim=True)
+        # the kernel's energies are float64 (E, b and e_max as below)
+        row_ee = row_ee.to(torch.float64)
         e_max = torch.amax(row_ee, dim=-1)
         b = 0.9 * e_max
-        step1 = b / NF1
-        step2 = (e_max - b) / (NF2 - 1)
+        step1 = b / nf1
+        step2 = (e_max - b) / (nf2 - 1)
         fu = torch.cat([
-            spline_eval_uniform(f_sp, torch.zeros_like(b), step1, NF1),
-            spline_eval_uniform(f_sp, b, step2, NF2)], dim=-1)
+            spline_eval_uniform(f_sp, torch.zeros_like(b), step1, nf1),
+            spline_eval_uniform(f_sp, b, step2, nf2)], dim=-1)
         # scaled into float32 range (f ~ 1e12 in galactic DF units)
-        fu = torch.clamp_min(fu / fmax, 0.0).to(table_dtype)
-        s = s.to(table_dtype)
-        Ef = E.to(table_dtype).reshape(E.shape[:-2] + (-1,))
-        bt = b.to(table_dtype)[..., None]
-        et = e_max.to(table_dtype)[..., None]
-        # segment 1: interval k covers [k, k+1) * b/NF1; its last interval
-        # ends at b, the first segment-2 node
-        x1 = torch.clamp(Ef / bt * NF1, 0.0, NF1 - 1e-4)
-        k1 = torch.clamp_max(x1.to(torch.int64), NF1 - 1)
-        w1 = x1 - k1.to(table_dtype)
-        x2 = torch.clamp((Ef - bt) / (et - bt) * (NF2 - 1), 0.0,
-                         NF2 - 1 - 1e-4)
-        k2 = torch.clamp_max(x2.to(torch.int64), NF2 - 2)
-        w2 = x2 - k2.to(table_dtype)
-        in1 = Ef < bt
-        k = torch.where(in1, k1, NF1 + k2)
-        w = torch.where(in1, w1, w2)
-        f_lo = torch.gather(fu, -1, k)
-        f_hi = torch.gather(fu, -1, k + 1)
-        f_E = ((1.0 - w) * f_lo + w * f_hi).reshape(E.shape)
-        pdf = (s * s) * f_E
-        pdf = pdf / torch.clamp_min(torch.amax(pdf, dim=-1, keepdim=True),
-                                    1e-30)
-    else:
-        pdf = (s * s) * torch.clamp_min(spline_eval(f_sp, E), 0.0)
-    ds = s[1] - s[0]
-    # the trapezoid increments are summed in float64 and rounded once: the
-    # card's float32 scan and the CPU's sum in another order differ by
-    # ~1e-6 at the top of a row, which a flat CDF stretches to ~1e-4 in s
-    inc = 0.5 * (pdf[..., 1:] + pdf[..., :-1]) * ds
-    cdf = torch.cat([torch.zeros_like(pdf[..., :1]),
-                     cumsum(inc.to(torch.float64)).to(pdf.dtype)], dim=-1)
-    total = cdf[..., -1:]
-    cdf = cdf / torch.where(total > 0.0, total, torch.ones_like(total))
-    # a strictly increasing ramp keeps every bin invertible
-    eps_val = 1e-12 if cdf.dtype == torch.float64 else 1e-7
-    eps = torch.arange(n_s, dtype=cdf.dtype, device=dev) * eps_val
-    cdf = cdf + eps
-    return cdf / cdf[..., -1:]
+        fu = torch.clamp_min(fu / fmax, 0.0).to(torch.float32)
+        return speed_cdf_rows_f32(row_ee, s, fu, b, e_max, nf1, nf2)
+    E = row_ee[..., :, None] * (1.0 - (s * s))  # (..., rows, n_s)
+    pdf = (s * s) * torch.clamp_min(spline_eval(f_sp, E), 0.0)
+    return trapezoid_cdf(pdf, s)
 
 
 @compiled.function(static=("n_s", "n_q", "table_dtype", "nf1", "nf2"))

@@ -115,12 +115,13 @@ def main() -> int:
         return 1
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
+    from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
     from cluster_generator_tpu_torch.parallel import ensemble as E
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = nvidia_smi_line()
-    this = K._kernel()
+    this = build.entry_point("invert_cdf_rows", K.ARGTYPES)
     # every source timed beside the current one, by label
     others = {"other": build_other(args.other)} if args.other else {}
     others.update((name, build_variant(name)) for name in args.variant)

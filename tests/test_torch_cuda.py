@@ -23,6 +23,11 @@ from cluster_generator_tpu_torch.ops.cdf_inverse import (
     invert_cdf_rows,
     invert_cdf_rows_plain,
 )
+from cluster_generator_tpu_torch.ops.speed_cdf import (
+    MAX_N_S,
+    speed_cdf_rows_f32,
+    speed_cdf_rows_f32_plain,
+)
 from cluster_generator_tpu_torch.parallel import ensemble as E
 from cluster_generator_tpu_torch.parallel import mergers as MG
 
@@ -84,9 +89,56 @@ def test_k1_is_bit_identical_at_the_path_shapes_and_edge_rows():
 
 
 @pytest.mark.cuda
+def test_speed_cdf_kernel_is_bit_identical_at_the_path_shapes():
+    """The kernel's arguments as the port builds them on the card (the
+    merger's, the scene batch's and the 256-cluster ensemble batch's DM
+    and star rows), one launch each, equal to the plain version."""
+    _card()
+    cases = chip_smoke.speed_cdf_path_cases(P, V, E)
+    shapes = {(name, tuple(a[0].shape) + (a[1].shape[0],))
+              for name, a in cases}
+    assert {("merger_dm", (2, 256, 512)), ("merger_star", (2, 64, 256)),
+            ("datagen_dm", (256, 128, 512)),
+            ("datagen_star", (256, 64, 256))} <= shapes
+    for name, args in cases:
+        before = speed_cdf_rows_f32.launches
+        got = speed_cdf_rows_f32(*args)
+        want = speed_cdf_rows_f32_plain(*args)
+        torch.cuda.synchronize()
+        assert speed_cdf_rows_f32.launches == before + 1, name
+        assert got.shape == want.shape and got.is_cuda, name
+        assert torch.equal(got, want), name  # the same operations, in order
+
+
+@pytest.mark.cuda
+def test_speed_cdf_kernel_is_bit_identical_at_the_edge_rows():
+    """Rows at e_max and on the segment boundary b, a halo whose f_E is
+    all zero, one halo, no leading axis, n_s of 100, 1000 and 8192."""
+    _card()
+    for name, args in chip_smoke.speed_cdf_edge_cases(torch.device("cuda")):
+        got = speed_cdf_rows_f32(*args)
+        want = speed_cdf_rows_f32_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_speed_cdf_wrapper_refuses_rows_above_its_limit():
+    _card()
+    args = chip_smoke.speed_cdf_edge_cases(torch.device("cuda"))[0][1]
+    wide = torch.linspace(0.0, 1.0, MAX_N_S + 1, dtype=torch.float64,
+                          device="cuda")
+    before = speed_cdf_rows_f32.launches
+    with pytest.raises(ValueError, match="n_s must be in"):
+        speed_cdf_rows_f32(args[0], wide, *args[2:])
+    assert speed_cdf_rows_f32.launches == before
+
+
+@pytest.mark.cuda
 def test_main_path_launches_k1_and_stays_finite():
     _card()
     before = invert_cdf_rows.launches
+    before_cdf = speed_cdf_rows_f32.launches
     parts, _ = P.merger_ic_fused(
         [1.5e15, 1.0e15], [4.0, 5.0], [[-1500.0, 0, 0], [1500.0, 0, 0]],
         [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0, (30_000, 20_000),
@@ -94,6 +146,7 @@ def test_main_path_launches_k1_and_stays_finite():
         generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     assert invert_cdf_rows.launches == before + 2  # DM and stars
+    assert speed_cdf_rows_f32.launches == before_cdf + 2
     for v in parts.values():
         assert v.is_cuda and bool(torch.isfinite(v).all())
 
@@ -104,11 +157,13 @@ def test_datagen_batch_launches_k1_twice_and_stays_finite():
     gen = torch.Generator("cuda").manual_seed(3)
     M200, conc = E.sample_ensemble_params(gen, 64)
     before = invert_cdf_rows.launches
+    before_cdf = speed_cdf_rows_f32.launches
     (b0, out), = E.datagen_batches(
         M200, conc, {"dm": 5000, "gas": 4000, "star": 1000}, batch_size=64,
         seed=3)
     torch.cuda.synchronize()
     assert b0 == 0 and invert_cdf_rows.launches == before + 2
+    assert speed_cdf_rows_f32.launches == before_cdf + 2
     assert out["dm"][1].shape == (64, 5000, 3) and out["dm"][1].is_cuda
     assert sum(E.nonfinite_counts(out).values()) == 0
 
@@ -302,8 +357,9 @@ def _equal(a, b):
 @pytest.mark.parametrize("program", ["merger", "datagen", "scenes"])
 def test_capture_and_replays_equal_the_eager_body(program):
     """First call (eager warm-up, capture) and two replays with new inputs
-    and seeds, each equal to the eager body bit for bit; K1 counted twice
-    per call, from the graph's two nodes on a replay."""
+    and seeds, each equal to the eager body bit for bit; K1 and the
+    speed-CDF kernel counted twice per call each, from the graph's two
+    nodes of each on a replay."""
     _card()
     dev = "cuda"
     gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
@@ -357,14 +413,17 @@ def test_capture_and_replays_equal_the_eager_body(program):
     held = None
     for k in range(3):
         before = invert_cdf_rows.launches
+        before_cdf = speed_cdf_rows_f32.launches
         out = graph(k)
         torch.cuda.synchronize()
         assert invert_cdf_rows.launches == before + 2
+        assert speed_cdf_rows_f32.launches == before_cdf + 2
         if k == 1:
             held, snap = out, C.tree_map(torch.clone, out)
         assert _equal(out, eager(k)), k
     prog_ = C.programs()[-1]
-    assert prog_.graph is not None and sum(prog_.nodes.values()) == 2
+    assert prog_.graph is not None
+    assert prog_.nodes == {invert_cdf_rows: 2, speed_cdf_rows_f32: 2}
     assert _equal(held, snap)
 
 
