@@ -2008,10 +2008,10 @@ def run_ic_scene(cg, I, PA, CO, K, card, n_halos):
 
     _, times["background_first"] = timed(background)
     (bg, full), times["background_warm"] = timed(background)
-    _, times["gadget_blocks_first"] = timed(lambda: PA._gadget_blocks(
-        full, IC_BOX, code="arepo"))
+    _, times["gadget_blocks_first"] = timed(lambda: full.gadget_blocks(
+        IC_BOX, code="arepo"))
     (blocks, n_in, table), times["gadget_blocks_warm"] = timed(
-        lambda: PA._gadget_blocks(full, IC_BOX, code="arepo"))
+        lambda: full.gadget_blocks(IC_BOX, code="arepo"))
     rep.update(ic_gadget_qa(full, blocks, n_in, table, bg, centers, label))
     rep["gadget_bytes"] = sum(a.nbytes for b in blocks.values()
                               for a in b.values())
@@ -2868,7 +2868,7 @@ def md_steps(rank, world, out, sz):
     n_files, total, plan = EX._export_plan(parts, IC_BOX, [IC_BOX / 2] * 3)
     check(n_files == world and len(plan) == 1, f"rank {rank}: {n_files}")
     (shard, sp, id_offset, expect), = plan
-    blocks, n_in, table = PA._gadget_blocks(sp, IC_BOX, id_offset=id_offset)
+    blocks, n_in, table = sp.gadget_blocks(IC_BOX, id_offset=id_offset)
     check(n_in == expect, f"rank {rank}: blocks {n_in} vs {expect}")
     res["npart_total"] = [int(x) for x in total]
     if world > 1:
@@ -3186,7 +3186,7 @@ def md_gadget_union(PA, EX, out, world, dev):
         whole.fields[sp, "particle_position"] = (
             whole.fields[sp, "particle_position"]
             + whole._coerce((sp, "particle_position"), [IC_BOX / 2] * 3))
-    one, n_one, table = PA._gadget_blocks(whole, IC_BOX, id_offset=0)
+    one, n_one, table = whole.gadget_blocks(IC_BOX, id_offset=0)
     ids = []
     for sp in species:
         for name, want in one[sp].items():
@@ -4154,6 +4154,43 @@ def offsets_and_sum(PA, halos, centers, velocities):
     return total
 
 
+def in_class(C, n):
+    """A count other than ``n`` in ``n``'s capacity class."""
+    m = n - 1 if n > 1 and C.capacity(n - 1) == C.capacity(n) else n + 1
+    check(C.capacity(m) == C.capacity(n), f"no other count in {n}'s class")
+    return m
+
+
+def ic_classes_check(I, PA, models, counts, centers, velocities, label):
+    """A warm scene whose counts are new but inside the classes captured
+    (draws and combine): no capture; and, with the classes off, the
+    exact-count programs give its particles bit for bit."""
+    from cluster_generator_tpu_torch.core import compiled as C
+
+    moved = {sp: [in_class(C, n) for n in v] for sp, v in counts.items()}
+
+    def scene():
+        halos = ic_draws(I, models, moved, DRAWS_SEED + 50)
+        return ic_combine(PA, halos, models, centers, velocities)
+
+    before = C.captures
+    warm = scene()
+    sync()
+    captured = C.captures - before
+    classes, C.CAPACITY_CLASSES = C.CAPACITY_CLASSES, 0
+    try:
+        exact = scene()
+    finally:
+        C.CAPACITY_CLASSES = classes
+    diff = tree_diff(warm, exact, f"{label}: classes against exact counts")
+    rep = {"counts": moved, "captured": captured, "max_abs_diff": diff}
+    print(f"{label}: a warm scene of counts new inside their classes "
+          f"captured {captured} programs; against the exact-count programs "
+          f"max |diff| {diff}")
+    check(captured == 0 and diff == 0.0, f"{label}: classes {rep}")
+    return rep
+
+
 def run_ic_programs(cg, I, PA, V, compare, card, n_halos, n_cases, totals,
                     dev):
     """The IC scene of ``n_halos`` halos in phase 23 (``compare``: its
@@ -4204,6 +4241,8 @@ def run_ic_programs(cg, I, PA, V, compare, card, n_halos, n_cases, totals,
     check(rep["density_max_rel_err"] < IC_DENSITY_RTOL,
           f"{label}: mixed density vs scipy {rep['density_max_rel_err']}")
     del first, scene
+    reports["classes"] = ic_classes_check(I, PA, cases[1], counts, centers,
+                                          velocities, label)
     drawn = [ic_draws(I, cases[k], counts, DRAWS_SEED + k)
              for k in range(n_cases)]
 

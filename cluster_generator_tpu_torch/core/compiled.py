@@ -53,8 +53,9 @@ its own.
 Memory: each program captures into a memory pool of its own, so that
 releasing it returns its memory to the card.  Each program's name (the
 first entry of its key: one decorated function, one batch program) has a
-memo of at most :data:`MAX_PROGRAMS` programs, the least recently used
-goes first, as each jitted JAX function has a cache of its own.  What a
+memo of at most :data:`MAX_PROGRAMS` programs (a decorated function may
+ask for more), the least recently used goes first, as each jitted JAX
+function has a cache of its own.  What a
 card keeps between calls (:func:`held`) is what the caller keeps plus the
 memoized programs and workspaces, these only while the next call fits
 beside them, as an XLA executable keeps only its outputs: before a
@@ -117,7 +118,8 @@ __all__ = ["MAX_PROGRAMS", "Program", "run", "program", "programs",
            "function", "Workspace", "workspace", "workspaces",
            "register_node", "flatten", "unflatten", "signature", "inline",
            "is_inline", "eager", "eager_calls", "Held", "held", "free_bytes",
-           "make_room", "room_for", "card", "retrying", "releases", "retries"]
+           "make_room", "room_for", "card", "retrying", "releases", "retries",
+           "captures", "CAPACITY_CLASSES", "capacity", "padded"]
 
 MAX_PROGRAMS = 8
 
@@ -145,6 +147,44 @@ eager_calls = 0
 releases = 0
 #: calls run once more after running out of memory (:func:`retrying`)
 retries = 0
+#: programs captured (one per capture that succeeds, a program captured
+#: again after a release included): a reader takes it before and after
+#: the calls it watches
+captures = 0
+#: seconds a reading of a card's free memory stands for the eager steps'
+#: room (:func:`room_for`)
+READING_SECONDS = 1.0
+# device -> (time, its free and total memory, this process's reserved
+# memory) at the last reading of free_bytes
+_READINGS: dict = {}
+#: capacity classes per octave of a particle count (:func:`capacity`); 0
+#: runs every count at itself
+CAPACITY_CLASSES = 16
+
+
+def capacity(num: int) -> int:
+    """The capacity class a program of ``num`` particles runs at, so that
+    counts that change from call to call (an IC scene's, split by its
+    halos' masses) replay a few programs: ``num`` rounded up to a multiple
+    of 1/:data:`CAPACITY_CLASSES` of its octave (the power of two at or
+    below it), at most 6.25% more at 16; a count below
+    :data:`CAPACITY_CLASSES` is its own class.  The caller pads its inputs
+    to the class (:func:`padded`, :func:`drawer`'s ``count``) and slices
+    the outputs back; work per particle is the same at any length."""
+    num = int(num)
+    if CAPACITY_CLASSES <= 0 or num <= CAPACITY_CLASSES:
+        return num
+    step = (1 << (num.bit_length() - 1)) // CAPACITY_CLASSES
+    return -(-num // step) * step
+
+
+def padded(tensor, size: int):
+    """``tensor`` with its leading axis padded with zeros to ``size`` (the
+    tensor itself when it has that length)."""
+    extra = size - tensor.shape[0]
+    if extra == 0:
+        return tensor
+    return torch.cat([tensor, tensor.new_zeros((extra,) + tensor.shape[1:])])
 
 
 def tree_map(fn, tree):
@@ -182,12 +222,25 @@ def _copy(dst, src):
         dst.copy_(src)
 
 
-def drawer(uniforms, generator, device, draw):
+def drawer(uniforms, generator, device, draw, count=None, size=None):
     """The ``draw`` of a program call: the caller's ``uniforms`` (copied
     into the static buffers, or cloned when there are none yet), else
     ``draw(generator, out)`` with ``generator`` (default: one on
     ``device`` seeded with 0), which is the draw's ``generator``
-    attribute."""
+    attribute.  With ``size`` (a capacity class, :func:`capacity`) the
+    program's uniforms are ``size`` long and the ``count`` a draw takes,
+    in the same order, fill their front: the same numbers as a draw at
+    ``count``; the rest is zeros, or what an earlier call left there."""
+    if size is not None and size != count:
+        inner = drawer(uniforms, generator, device, draw)
+
+        def front(out):
+            if out is None:
+                return tree_map(lambda t: padded(t, size), inner(None))
+            inner(tree_map(lambda t: t[:count], out))
+            return out
+        front.generator = getattr(inner, "generator", None)
+        return front
     if uniforms is not None:
         def given(out):
             if out is None:
@@ -410,8 +463,9 @@ class Program:
 
     def _capture(self, side):
         """The body captured on ``side`` into a graph with a pool of its
-        own, from the static buffers and uniforms of the warm-up."""
-        global _TALLY
+        own, from the static buffers and uniforms of the warm-up (counted
+        in :data:`captures`)."""
+        global _TALLY, captures
         dev = self.device
         # the capture empties the allocator's cache as it begins: its pool
         # is what the reserved memory grows from there
@@ -429,6 +483,7 @@ class Program:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph, self.nodes, self.outputs = graph, nodes, outputs
+        captures += 1
         shared = self._shared()
         own = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
                for t in _leaves((self.inputs[self.inplace:], self.uniforms))}
@@ -490,17 +545,17 @@ def run(key, body, inputs, draw=None):
     return program(key, body, inputs)(inputs, draw)
 
 
-def program(key, body, inputs) -> Program:
+def program(key, body, inputs, size=MAX_PROGRAMS) -> Program:
     """The memoized program of ``key`` under the configuration and at the
     device, shapes and types of ``inputs`` (:func:`_memo_key`); made with
     ``body`` when the memo of the key's name (``key[0]``) has none (past
-    :data:`MAX_PROGRAMS` that memo's least recently used program goes)."""
+    ``size`` programs that memo's least recently used program goes)."""
     memo = _MEMOS.setdefault(key[0], OrderedDict())
     key = _memo_key(key, inputs)
     prog = memo.get(key)
     if prog is None:
         prog = memo[key] = Program(key, body)
-        while len(memo) > MAX_PROGRAMS:
+        while len(memo) > size:
             memo.popitem(last=False)
     else:
         memo.move_to_end(key)
@@ -638,8 +693,10 @@ def free_bytes(device, empty=True) -> int:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(device)
+    reserved = torch.cuda.memory_reserved(device)
+    _READINGS[device] = (time.monotonic(), free, total, reserved)
     cap = torch.cuda.get_per_process_memory_fraction(device) * total
-    return int(min(free, cap - torch.cuda.memory_reserved(device)))
+    return int(min(free, cap - reserved))
 
 
 def make_room(need, device, keep=(), free=None) -> int:
@@ -670,14 +727,37 @@ def room_for(device, *sizes) -> int:
     (:func:`make_room`) for the new tensors it allocates, one per entry of
     ``sizes``: a tensor (a new one of its bytes) or ``(numel, dtype)``.
     On a card a need that fits beside the allocator's cache returns at
-    once, with no synchronisation and no release; anywhere else nothing is
-    done.  Returns how many programs and workspaces were released."""
+    once, with no synchronisation and no release, and by a reading of the
+    card's free memory under a second old (:func:`_free_unread`) without
+    reading it again: ``cudaMemGetInfo`` can stall for tens of
+    milliseconds behind the card's work, and an IC scene makes ~9 such
+    steps a call.  Anywhere else nothing is done.  Returns how many
+    programs and workspaces were released."""
     dev = card(device)
     need = sum(s.numel() * s.element_size() if isinstance(s, torch.Tensor)
                else s[0] * s[1].itemsize for s in sizes)
     if dev.type != "cuda" or not need:
         return 0
+    free = _free_unread(dev)
+    if free is not None and free >= need:
+        return 0
     return make_room(need, dev)
+
+
+def _free_unread(device):
+    """:func:`free_bytes` beside the cache without reading the card: from
+    its last reading on ``device`` if that is under
+    :data:`READING_SECONDS` old, the card's free memory then less what
+    this process has reserved since, within the memory fraction now;
+    ``None`` without such a reading.  Only another process's allocations
+    since the reading escape it."""
+    seen = _READINGS.get(device)
+    if seen is None or time.monotonic() - seen[0] > READING_SECONDS:
+        return None
+    _, free, total, reserved_then = seen
+    reserved = torch.cuda.memory_reserved(device)
+    cap = torch.cuda.get_per_process_memory_fraction(device) * total
+    return int(min(free - (reserved - reserved_then), cap - reserved))
 
 
 def retrying(fn, device, keep=()):
@@ -706,6 +786,7 @@ def clear() -> None:
     _MEMOS.clear()
     _NEEDS.clear()
     _WORKSPACES.clear()
+    _READINGS.clear()
     _DEVICES.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -800,11 +881,12 @@ def _struct_key(struct):
 class _Function:
     """A function run as memoized programs (see :func:`function`)."""
 
-    def __init__(self, fn, static, random, name):
+    def __init__(self, fn, static, random, name, memo):
         self.fn = fn
         self.static = frozenset(static)
         self.random = random
         self.name = name or fn.__name__
+        self.memo = memo
         self.sig = inspect.signature(fn)
         if any(p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
                for p in self.sig.parameters.values()):
@@ -867,7 +949,7 @@ class _Function:
             eager_calls += 1
         elif not (_EAGER or inputs[0].device.type == "cpu"
                   or any(t.device != inputs[0].device for t in inputs)):
-            return program(key, body, inputs)(inputs, draw)
+            return program(key, body, inputs, self.memo)(inputs, draw)
         # the eager body: on the CPU (the plain version, no program), for
         # grad, as the reference of a replay (:func:`eager`), or with
         # inputs on two devices, where the body raises with its own
@@ -881,7 +963,7 @@ def _no_draw(out):
     return None
 
 
-def function(static=(), random=None, name=None):
+def function(static=(), random=None, name=None, memo=MAX_PROGRAMS):
     """Decorator: the counterpart of ``partial(jax.jit,
     static_argnames=static)``.  On the card each call of the function runs
     as the memoized :class:`Program` of its key, a CUDA graph; on the CPU
@@ -905,7 +987,11 @@ def function(static=(), random=None, name=None):
     :data:`eager_calls`.  Inside a program's body (:func:`inline`) the
     function runs its plain body, as part of that program; under
     :func:`eager` it runs its eager body with the program's inputs.
+
+    ``memo``: the programs its memo holds (a function keyed by the
+    capacity class of a count, :func:`capacity`, may need more than
+    :data:`MAX_PROGRAMS`).
     """
     def wrap(fn):
-        return _Function(fn, static, random, name)
+        return _Function(fn, static, random, name, memo)
     return wrap

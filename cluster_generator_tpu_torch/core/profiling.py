@@ -8,10 +8,13 @@ statistics.
 * :func:`device_stage`: marks where a stage of a program body begins and
   ends on the card's stream, by an empty kernel named after the stage
   (``cg_stage_models``, ``cg_stage_dfs``, ``cg_stage_tables``,
-  ``cg_stage_draws``, ``cg_stage_end``; ``ops/csrc/stage_marks.cu``).
-  Inside a captured program the marks are recorded into the graph, so a
-  device trace of a replay splits its kernels by stage, where
-  :func:`stage` sees only the whole replay;
+  ``cg_stage_draws``, ``cg_stage_mix``, ``cg_stage_export``,
+  ``cg_stage_end``; ``ops/csrc/stage_marks.cu``).  Inside a captured
+  program the marks are recorded into the graph, so a device trace of a
+  replay splits its kernels by stage, where :func:`stage` sees only the
+  whole replay; eager paths (the class path, an IC scene) mark the same
+  way around their program calls, and :func:`device_sequence` makes the
+  stages of a whole product (one IC) one sequence closed by one ``end``;
 * :func:`span`: a named range of host work on the profiler's clock, the
   timeline of the card's kernels and copies, recorded only while a
   profiler runs (one flag check otherwise);
@@ -36,12 +39,12 @@ import torch.autograd.profiler as _autograd_profiler
 
 from .logging import mylog
 
-__all__ = ["stage", "StageTimes", "device_stage", "STAGES", "span", "trace",
-           "device_memory_stats"]
+__all__ = ["stage", "StageTimes", "device_stage", "device_sequence",
+           "STAGES", "span", "trace", "device_memory_stats"]
 
-#: the stages a program body marks, in the order of the mark kernels'
-#: C entry point (``cg_stage_mark``), ``end`` last
-STAGES = ("models", "dfs", "tables", "draws", "end")
+#: the stages a program body or an eager path marks, in the order of the
+#: mark kernels' C entry point (``cg_stage_mark``), ``end`` last
+STAGES = ("models", "dfs", "tables", "draws", "mix", "export", "end")
 
 
 @dataclass
@@ -117,7 +120,8 @@ _local = threading.local()
 
 
 def _open_stages() -> list:
-    """The stages open on this thread, outermost first."""
+    """The stages open on this thread, outermost first; ``None`` for an
+    open :func:`device_sequence`."""
     stack = getattr(_local, "stages", None)
     if stack is None:
         stack = _local.stages = []
@@ -155,10 +159,12 @@ def device_stage(name: str, like: torch.Tensor):
     """Mark stage ``name`` (one of :data:`STAGES` but ``end``) of the work
     enqueued inside, on the current stream of ``like``'s card.
 
-    Entering marks ``name``; leaving marks the enclosing stage again, or
-    ``end`` at the outermost level.  So a stage's device work is everything
-    on the stream from its mark to the next mark, and stages nest: a DF
-    computed inside the model build hands back to ``models`` afterwards.
+    Entering marks ``name``; leaving marks the enclosing stage again,
+    nothing directly inside a :func:`device_sequence` (the next stage's
+    mark, or the sequence's ``end``, closes it), or ``end`` at the
+    outermost level.  So a stage's device work is everything on the stream
+    from its mark to the next mark, and stages nest: a DF computed inside
+    the model build hands back to ``models`` afterwards.
     Each mark is one empty one-thread kernel named ``cg_stage_<name>``;
     inside a program's capture it becomes a node of the graph, which each
     replay runs with no host call.  On the CPU nothing is launched.  A
@@ -173,7 +179,35 @@ def device_stage(name: str, like: torch.Tensor):
         yield
     finally:
         stack.pop()
-    _mark(stack[-1] if stack else "end", device)
+    _close(stack, device)
+
+
+def _close(stack, device):
+    """The mark that hands back from a stage or sequence just left."""
+    outer = stack[-1] if stack else "end"
+    if outer is not None:
+        _mark(outer, device)
+
+
+@contextlib.contextmanager
+def device_sequence(device):
+    """Make the stages marked inside (:func:`device_stage`) one sequence on
+    ``device``'s current stream, closed by one ``end`` when it is left:
+    a stage left directly inside it marks nothing, so the next stage's
+    mark closes it.  For a product made by several eager calls, each of
+    which marks its own stages (an IC scene: the models and DFs of each
+    halo, the draw tables and draws of each species, the gas mixing, the
+    Gadget blocks), so that a device trace reads each stage once per
+    product.  Inside a stage it hands back to that stage.  On the CPU
+    nothing is launched; left by an exception it marks nothing more."""
+    device = torch.device(device)
+    stack = _open_stages()
+    stack.append(None)
+    try:
+        yield
+    finally:
+        stack.pop()
+    _close(stack, device)
 
 
 _NO_SPAN = contextlib.nullcontext()

@@ -2,12 +2,14 @@
 velocities, on one device.
 
 :class:`ClusterICs` keeps the JAX package's file-level flow (model HDF5
-files in, per-halo particle files cached, a YAML scene description).  Its
-compute lives in module functions over :class:`ClusterModel` objects,
-which need no file: :func:`halo_particle_counts` pro-rates the total
-counts by the halos' masses, :func:`draw_halo_particles` draws one halo's
-species on the models' device, and the combine/resample functions of
-:mod:`.particles` mix the gas.
+files in, per-halo particle files cached, a YAML scene description), and
+takes :class:`ClusterModel` objects in place of model files, which needs
+no file at all (``h5py`` is then never imported). Its compute lives in
+module functions over :class:`ClusterModel` objects:
+:func:`halo_particle_counts` pro-rates the total counts by the halos'
+masses, :func:`draw_halo_particles` draws one halo's species on the
+models' device, and the combine/resample functions of :mod:`.particles`
+mix the gas.
 
 Random numbers: ``prng`` (as :func:`~.sampling.parse_prng` takes it)
 becomes one generator on the scene's device.  Each halo that is drawn
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .core.profiling import span
 from .model import ClusterModel
 from .particles import (
     ClusterParticles,
@@ -101,7 +104,9 @@ def halo_generators(base):
     by the next four 62-bit integers ``base`` gives (one read from the
     device: the seeds fix every stream of the scene)."""
     seeds = torch.randint(0, 2**62, (len(SPECIES),), generator=base,
-                          device=base.device).tolist()
+                          device=base.device)
+    with span("cg.wait.read"):
+        seeds = seeds.tolist()
     return {sp: torch.Generator(device=base.device).manual_seed(s)
             for sp, s in zip(SPECIES, seeds)}
 
@@ -131,9 +136,13 @@ def draw_halo_particles(model, counts, r_max, r_max_tracer=None,
 
 
 class ClusterICs:
-    """A scene of one to three halos, each a model HDF5 file with a center
-    and a bulk velocity.  ``device``: where models and particles live (the
-    card unless ``"cpu"`` is asked for).  On the card its compute runs as
+    """A scene of one to three halos, each a model HDF5 file or a
+    :class:`ClusterModel` with a center and a bulk velocity.  A scene with
+    a model in memory writes no per-halo particle file unless
+    ``setup_particle_ics`` is given an ``output_directory``, and has no
+    scene description to write (:meth:`to_file` raises).  ``device``:
+    where models and particles live (the card unless ``"cpu"`` is asked
+    for).  On the card its compute runs as
     captured programs (:mod:`.core.compiled`): each species' draw tables
     and draw (:mod:`.sampling`), the gas mixing of the combine and the
     resample (:mod:`.particles`); the counts come from the host copies of
@@ -176,12 +185,19 @@ class ClusterICs:
 
     def load_model(self, i):
         """The i-th profile as a :class:`ClusterModel` on the scene's
-        device, read once and kept: the returned instance is the one every
-        later call uses, so changing it changes the scene."""
+        device: a model given as such, or the file read once and kept; the
+        returned instance is the one every later call uses, so changing it
+        changes the scene."""
+        if isinstance(self.profiles[i], ClusterModel):
+            return self.profiles[i]
         if i not in self._models:
             self._models[i] = ClusterModel.from_h5_file(self.profiles[i],
                                                         device=self.device)
         return self._models[i]
+
+    def _in_memory(self):
+        """Whether a profile of the scene is a model, not a file."""
+        return any(isinstance(p, ClusterModel) for p in self.profiles)
 
     def _determine_num_particles(self):
         """Pro-rate the total particle counts by the halos' masses."""
@@ -192,8 +208,10 @@ class ClusterICs:
     def _generate_particles(self, output_directory=None,
                             regenerate_particles=False, prng=None):
         """Each halo's particles, drawn and written to
-        ``{basename}_{i}_particles.h5`` in ``output_directory``, or read
+        ``{basename}_{i}_particles.h5`` in ``output_directory`` (a scene
+        with a model in memory writes none unless it is given), or read
         back from the particle file it already has."""
+        write = output_directory is not None or not self._in_memory()
         if output_directory is None:
             output_directory = ""
         base = parse_prng(prng, self.device)
@@ -206,10 +224,11 @@ class ClusterICs:
                     self.r_max[i], self.r_max_tracer[i],
                     halo_generators(base))
                 parts.append(p)
-                outfile = os.path.join(output_directory,
-                                       f"{self.basename}_{i}_particles.h5")
-                p.write_particles(outfile, overwrite=True)
-                self.particle_files[i] = outfile
+                if write:
+                    outfile = os.path.join(
+                        output_directory, f"{self.basename}_{i}_particles.h5")
+                    p.write_particles(outfile, overwrite=True)
+                    self.particle_files[i] = outfile
             else:
                 parts.append(ClusterParticles.from_file(
                     self.particle_files[i], device=self.device))
@@ -218,7 +237,13 @@ class ClusterICs:
     # ----------------------------------------------------------------- I/O
     def to_file(self, filename, overwrite=False):
         """Write the scene description as YAML: one key per line with a
-        comment, sequences inline; any YAML 1.1 loader reads it."""
+        comment, sequences inline; any YAML 1.1 loader reads it.  A scene
+        with a model in memory has no file to name for it: it raises."""
+        if self._in_memory():
+            raise ValueError(
+                "this scene holds a ClusterModel in memory, not a model "
+                "file: write each model with write_model_to_h5 and build "
+                "the scene from the files to describe it in YAML")
         if os.path.exists(filename) and not overwrite:
             raise RuntimeError(f"{filename} exists and overwrite=False!")
         import yaml

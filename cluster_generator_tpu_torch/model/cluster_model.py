@@ -6,13 +6,16 @@ units (keV for temperature, gauss for B) on one device, given by
 ``device=`` on every constructor (the card unless ``"cpu"`` is asked for);
 unit strings live in :data:`..core.units.FIELD_UNITS` and are applied
 only at the I/O boundary.  The writers copy the fields to the host;
-nothing else does.
+besides them only :meth:`ClusterModel._host_field` does, once per field
+(a ``cg.wait.read`` span).  The builders' program calls are the stage
+``models`` (:func:`~..core.profiling.device_stage`).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -23,6 +26,7 @@ from ..core.device import resolve_device
 from ..core.grid import log_radius_grid
 from ..core.interp import cubic_spline, interp, spline_eval
 from ..core.logging import mylog
+from ..core.profiling import device_stage, span
 from ..core.quadrature import integrate_from
 from .builders import (build_from_dens_and_tden, build_from_dens_and_temp,
                        build_no_gas)
@@ -71,8 +75,9 @@ class ClusterModel:
         # which gravity law produced these fields; informational, since
         # the fields already encode it
         self.gravity = gravity
-        self._dm_virial = None
-        self._star_virial = None
+        # ptype -> (weak reference to its virial object, the object's
+        # state): see _virial
+        self._virials = {}
         # the gas draws' tables (sampling._draw_tables)
         self._draw_tables = None
         # host copies of fields (see _host_field)
@@ -111,26 +116,64 @@ class ClusterModel:
         t = self.fields[name]
         held = self._host_fields.get(name)
         if held is None or held[0] is not t or held[1] != t._version:
-            held = (t, t._version, t.detach().cpu().numpy())
+            with span("cg.wait.read"):
+                held = (t, t._version, t.detach().cpu().numpy())
             self._host_fields[name] = held
         return held[2]
 
     # ------------------------------------------------------- lazy virials
+    # A virial object refers to its model; the model keeps the object's
+    # state (``VirialEquilibrium.__dict__``: the DF, the speed and draw
+    # tables) and the object itself only weakly, so that a model and its
+    # virials are no reference cycle.  They go, with their tables on the
+    # card, when the last reference to the model (or to one of its
+    # virials) goes, and not at the cyclic collector's next full pass,
+    # which a stream of IC scenes meets seldom.  A virial asked for again
+    # while nothing holds one is a new object on the same state.
+    def _virial(self, ptype):
+        held = self._virials.get(ptype)
+        if held is None:
+            return None
+        virial = held[0]()
+        if virial is None:
+            from ..virial import VirialEquilibrium
+
+            virial = object.__new__(VirialEquilibrium)
+            virial.model = self
+            virial.__dict__ = held[1]
+            self._virials[ptype] = (weakref.ref(virial), held[1])
+        return virial
+
+    def _keep_virial(self, ptype, virial):
+        if virial is None:
+            self._virials.pop(ptype, None)
+        else:
+            self._virials[ptype] = (weakref.ref(virial), virial.__dict__)
+
+    _dm_virial = property(
+        lambda self: self._virial("dark_matter"),
+        lambda self, v: self._keep_virial("dark_matter", v))
+    _star_virial = property(
+        lambda self: self._virial("stellar"),
+        lambda self, v: self._keep_virial("stellar", v))
+
     @property
     def dm_virial(self):
         from ..virial import VirialEquilibrium
 
-        if self._dm_virial is None:
-            self._dm_virial = VirialEquilibrium(self, "dark_matter")
-        return self._dm_virial
+        virial = self._dm_virial
+        if virial is None:
+            virial = self._dm_virial = VirialEquilibrium(self, "dark_matter")
+        return virial
 
     @property
     def star_virial(self):
         from ..virial import VirialEquilibrium
 
-        if self._star_virial is None and "stellar_density" in self:
-            self._star_virial = VirialEquilibrium(self, "stellar")
-        return self._star_virial
+        virial = self._star_virial
+        if virial is None and "stellar_density" in self:
+            virial = self._star_virial = VirialEquilibrium(self, "stellar")
+        return virial
 
     # --------------------------------------------------------- constructors
     @classmethod
@@ -152,9 +195,10 @@ class ClusterModel:
         mylog.info("Computing the profiles from density and total density.")
         rr = log_radius_grid(rmin, rmax, num_points,
                              device=resolve_device(device))
-        fields = build_from_dens_and_tden(rr, density, total_density,
-                                          stellar_density, gravity=gravity,
-                                          gravity_params=gravity_params)
+        with device_stage("models", rr):
+            fields = build_from_dens_and_tden(
+                rr, density, total_density, stellar_density,
+                gravity=gravity, gravity_params=gravity_params)
         return cls(num_points, fields, gravity=gravity)
 
     @classmethod
@@ -169,9 +213,10 @@ class ClusterModel:
         mylog.info("Computing the profiles from density and temperature.")
         rr = log_radius_grid(rmin, rmax, num_points,
                              device=resolve_device(device))
-        fields = build_from_dens_and_temp(rr, density, temperature,
-                                          stellar_density, gravity=gravity,
-                                          gravity_params=gravity_params)
+        with device_stage("models", rr):
+            fields = build_from_dens_and_temp(
+                rr, density, temperature, stellar_density, gravity=gravity,
+                gravity_params=gravity_params)
         return cls(num_points, fields, gravity=gravity)
 
     @classmethod
@@ -196,8 +241,10 @@ class ClusterModel:
         """Model without a gas component."""
         rr = log_radius_grid(rmin, rmax, num_points,
                              device=resolve_device(device))
-        fields = build_no_gas(rr, total_density, stellar_density,
-                              gravity=gravity, gravity_params=gravity_params)
+        with device_stage("models", rr):
+            fields = build_no_gas(
+                rr, total_density, stellar_density, gravity=gravity,
+                gravity_params=gravity_params)
         return cls(num_points, fields, gravity=gravity)
 
     # ----------------------------------------------------------------- I/O

@@ -17,9 +17,12 @@ extern "C" __global__ void cg_stage_models() {}
 extern "C" __global__ void cg_stage_dfs() {}
 extern "C" __global__ void cg_stage_tables() {}
 extern "C" __global__ void cg_stage_draws() {}
+extern "C" __global__ void cg_stage_mix() {}
+extern "C" __global__ void cg_stage_export() {}
 extern "C" __global__ void cg_stage_end() {}
 
-// Launch the mark `which` (0 models, 1 dfs, 2 tables, 3 draws, 4 end) on
+// Launch the mark `which` (0 models, 1 dfs, 2 tables, 3 draws, 4 mix,
+// 5 export, 6 end; core/profiling.STAGES) on
 // `stream` of the current device; returns the cudaError_t of the launch.
 extern "C" int cg_stage_mark(int which, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -28,7 +31,9 @@ extern "C" int cg_stage_mark(int which, void* stream) {
     case 1: cg_stage_dfs<<<1, 1, 0, s>>>(); break;
     case 2: cg_stage_tables<<<1, 1, 0, s>>>(); break;
     case 3: cg_stage_draws<<<1, 1, 0, s>>>(); break;
-    case 4: cg_stage_end<<<1, 1, 0, s>>>(); break;
+    case 4: cg_stage_mix<<<1, 1, 0, s>>>(); break;
+    case 5: cg_stage_export<<<1, 1, 0, s>>>(); break;
+    case 6: cg_stage_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

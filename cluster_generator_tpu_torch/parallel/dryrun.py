@@ -144,13 +144,11 @@ def dryrun_step(mesh, workdir=None):
         re = ClusterParticles.from_gadget_files(base + ".0.h5", device=dev)
         _check(re.num_particles["dm"] == 2 * per, re.num_particles)
     else:
-        from ..particles import _gadget_blocks
-
         n_files, npart_total, plan = _export_plan(parts, box, [box / 2] * 3)
         _check(n_files == n_part and int(npart_total[1]) == 2 * per,
                f"{n_files} files, totals {npart_total}")
         for _, sp, id_offset, expect in plan:
-            _, counts, _ = _gadget_blocks(sp, box, id_offset=id_offset)
+            _, counts, _ = sp.gadget_blocks(box, id_offset=id_offset)
             _check(counts == expect, f"blocks {counts} != {expect}")
     lap("export")
 

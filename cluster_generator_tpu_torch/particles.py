@@ -2,23 +2,25 @@
 
 :class:`ClusterParticles` is a (ptype, field)-keyed dict of tensors in
 galactic units on one device: float64, except ``particle_index``, which
-keeps its integer dtype.  The gas mixing of :func:`combine_two_clusters`,
+keeps its integer dtype. The gas mixing of :func:`combine_two_clusters`,
 :func:`combine_three_clusters` and the ``resample_*`` functions runs on
 the particles' device, one halo at a time (halo models may sit on grids of
-different sizes), as one program (:func:`~.core.compiled.function`; on
-the card a memoized CUDA graph, replayed for halos of other parameters on
-grids of the same sizes); the moves to the halos' centers and the sum of
-the containers before it run op by op.  Each eager step here that
+different sizes), as one program (:func:`~.core.compiled.function`; on the
+card a memoized CUDA graph, replayed for halos of other parameters on
+grids of the same sizes, at the capacity class of the gas count,
+:func:`~.core.compiled.capacity`); the moves to the halos' centers and the
+sum of the containers before it run op by op, marked as the stage ``mix``
+(:func:`~.core.profiling.device_stage`). Each eager step here that
 allocates on a card in proportion to the particles (a container's
-conversions, the sum, the moves, the radial cut, the Gadget blocks)
-first makes room for what it reckons from its inputs' sizes among the
-memoized programs the card holds (:func:`~.core.compiled.room_for`).
-Nothing here copies a field to the host but the writers,
+conversions, the sum, the moves, the radial cut, the Gadget blocks) first
+makes room for what it reckons from its inputs' sizes among the memoized
+programs the card holds (:func:`~.core.compiled.room_for`). Nothing here
+copies a field to the host but the writers,
 :meth:`ClusterParticles.to_numpy` and
 :meth:`ClusterParticles.to_yt_dataset`; the Gadget writer assembles its
 blocks on the device and copies them to the host at once
-(:func:`_gadget_blocks`).  ``h5py`` and ``yt`` are imported inside the
-functions that need them.
+(:meth:`ClusterParticles.gadget_blocks`, the stage ``export``). ``h5py``
+and ``yt`` are imported inside the functions that need them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .core import constants as C
 from .core.device import host_to_device, resolve_device
 from .core.interp import bracket_for_spline, cubic_spline, spline_eval_at
 from .core.logging import mylog
+from .core.profiling import device_stage, span
 from .core.staging import to_host
 
 __all__ = [
@@ -206,16 +209,23 @@ class ClusterParticles:
         must be offset (centres near box_size/2) before writing; a large
         drop is logged, because an origin-centred scene loses 7/8 of its
         particles to the positive octant."""
+        keep = self._box_mask(ptype, box_size)
+        self._log_dropped(ptype, int(keep.sum()), keep.numel(), box_size)
+        return keep
+
+    def _box_mask(self, ptype, box_size):
         pos = self.fields[ptype, "particle_position"]
-        keep = ~torch.logical_or((pos < 0.0).any(dim=1),
+        return ~torch.logical_or((pos < 0.0).any(dim=1),
                                  (pos > box_size).any(dim=1))
-        dropped = keep.numel() - int(keep.sum())
-        if dropped > 0.05 * keep.numel():
+
+    @staticmethod
+    def _log_dropped(ptype, kept, total, box_size):
+        dropped = total - kept
+        if dropped > 0.05 * total:
             mylog.warning(
                 "dropping %d/%d %s particles outside the box [0, %g]^3: "
                 "centre the scene inside the box (centres near box_size/2)",
-                dropped, keep.numel(), ptype, box_size)
-        return keep
+                dropped, total, ptype, box_size)
 
     def __add__(self, other):
         """Concatenate two containers (the result lives on this one's
@@ -543,7 +553,7 @@ class ClusterParticles:
                               ).to(dtype)
 
     def _gadget_room(self, ptype, dtype, code):
-        """Room for the Gadget blocks of ``ptype`` (:func:`_gadget_blocks`),
+        """Room for the Gadget blocks of ``ptype`` (:meth:`gadget_blocks`),
         as if every particle were in the box: the in-box masks, the index,
         each block in ``dtype`` (the passive scalars stacked, then
         selected, in float64), the selected and scaled float64 values of
@@ -595,8 +605,8 @@ class ClusterParticles:
         if Path(ic_filename).exists() and not overwrite:
             raise IOError(f"Cannot create {ic_filename}. "
                           "It exists and overwrite=False.")
-        blocks, num_particles, mass_table = _gadget_blocks(
-            self, box_size, dtype=dtype, code=code, id_offset=id_offset)
+        blocks, num_particles, mass_table = self.gadget_blocks(
+            box_size, dtype=dtype, code=code, id_offset=id_offset)
         with h5py.File(ic_filename, "w") as f:
             raw = RawWriter(f)  # pwrite at each dataset's offset
             for ptype, arrays in blocks.items():
@@ -630,6 +640,55 @@ class ClusterParticles:
                 cg = f.create_group("Config")
                 cg.attrs["VORONOI"] = 1
         return num_particles
+
+    def gadget_blocks(self, box_size, dtype="float32", code=None,
+                      id_offset=0):
+        """Everything a Gadget file holds but its header's constants, built
+        on the particles' device and staged to the host in one copy (into
+        pinned memory, ``core.staging.to_host``): per type, in
+        ``particle_types`` order, the particles inside the box [0,
+        box_size]^3, their fields in file units (``gadget_field_factors``)
+        cast to ``dtype`` (``code``'s fields added: ``"arepo"`` stacks the
+        passive scalars, in float64), the IDs ``id_offset + 1, ...``
+        running on from type to type (uint32 in the file), and the
+        ``MassTable`` entry, which is the first cast mass, as the file
+        gives it back.  Returns ``(blocks, counts, mass_table)``:
+        ``blocks[ptype]`` maps each Gadget name to a numpy array, in file
+        order with ``ParticleIDs`` last; ``counts[ptype]`` the particles in
+        the box.  The host reads each type's in-box count (the one read
+        before the copy); the work is the stage ``export``."""
+        tdtype = _torch_dtype(dtype)
+        names, tensors, counts = [], [], {}
+        npart = id_offset
+        first = self.fields[self.particle_types[0], "particle_position"]
+        with device_stage("export", first):
+            for ptype in self.particle_types:
+                self._gadget_room(ptype, tdtype, code)
+                keep = self._box_mask(ptype, box_size)
+                with span("cg.wait.read"):
+                    index = torch.nonzero(keep).squeeze(1)
+                n = counts[ptype] = int(index.numel())
+                self._log_dropped(ptype, n, keep.numel(), box_size)
+                for field, block in self._gadget_field_blocks(ptype, index,
+                                                              tdtype, code):
+                    names.append((ptype, field))
+                    tensors.append(block)
+                ids = torch.arange(npart + 1, npart + 1 + n,
+                                   dtype=torch.int64, device=self.device)
+                names.append((ptype, "ParticleIDs"))
+                tensors.append(ids.to(torch.int32))  # two's complement
+                npart += n
+            host = _to_host(tensors)
+        blocks = OrderedDict((ptype, OrderedDict())
+                             for ptype in self.particle_types)
+        for (ptype, field), arr in zip(names, host):
+            blocks[ptype][field] = arr
+        mass_table = np.zeros(6)
+        for ptype in ("star", "dm", "black_hole"):
+            if counts.get(ptype, 0) > 0:
+                mass_table[int(rptype_map[ptype][-1])] = \
+                    blocks[ptype]["Masses"][0]
+        return blocks, counts, mass_table
 
     def to_yt_dataset(self, box_size, ptypes=None):
         """In-memory yt particle dataset of the fields (copied to the
@@ -673,44 +732,6 @@ def _to_host(tensors):
 
 _NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64,
              torch.int32: np.uint32}  # IDs: int32 bits read as uint32
-
-
-def _gadget_blocks(particles, box_size, dtype="float32", code=None,
-                   id_offset=0):
-    """Everything a Gadget file holds but its header's constants, built on
-    the particles' device: per type the in-box selection, the unit scaling,
-    the cast to ``dtype``, the IDs ``id_offset + 1, ...`` (uint32 in the
-    file) and the ``MassTable`` entry, which is the first cast mass, as
-    the file gives it back.  Returns ``(blocks, counts, mass_table)``:
-    ``blocks[ptype]`` maps each Gadget name to a numpy array, in file
-    order with ``ParticleIDs`` last; one copy brings them to the host."""
-    tdtype = _torch_dtype(dtype)
-    names, tensors, counts = [], [], {}
-    npart = id_offset
-    for ptype in particles.particle_types:
-        particles._gadget_room(ptype, tdtype, code)
-        index = torch.nonzero(particles._clip_to_box(ptype,
-                                                     box_size)).squeeze(1)
-        n = counts[ptype] = int(index.numel())
-        for field, block in particles._gadget_field_blocks(ptype, index,
-                                                           tdtype, code):
-            names.append((ptype, field))
-            tensors.append(block)
-        ids = torch.arange(npart + 1, npart + 1 + n, dtype=torch.int64,
-                           device=particles.device)
-        names.append((ptype, "ParticleIDs"))
-        tensors.append(ids.to(torch.int32))  # two's complement = uint32
-        npart += n
-    blocks = OrderedDict((ptype, OrderedDict())
-                         for ptype in particles.particle_types)
-    for (ptype, field), arr in zip(names, _to_host(tensors)):
-        blocks[ptype][field] = arr
-    mass_table = np.zeros(6)
-    for ptype in ("star", "dm", "black_hole"):
-        if counts.get(ptype, 0) > 0:
-            mass_table[int(rptype_map[ptype][-1])] = \
-                blocks[ptype]["Masses"][0]
-    return blocks, counts, mass_table
 
 
 # ----------------------------------------------------------- cluster mixing
@@ -801,9 +822,12 @@ def _sample_clusters(particles, hses, center, velocity, radii=None,
 
     One program (:func:`_mix_gas`), keyed by the number of halos, which
     of them have gas, their grids' sizes, ``resample``, whether ``radii``
-    are given and the scalars' names; the centers, velocities and radii
-    are inputs.  It returns the new columns, written here into the
-    particles' tensors.
+    are given, the scalars' names and the capacity class of the gas count
+    (:func:`~.core.compiled.capacity`: its inputs padded to the class, its
+    outputs sliced back, the same values as at the count); the centers,
+    velocities and radii are inputs.  It takes the old columns only where
+    it keeps or reads them (outside ``radii``, or to resample).  It
+    returns the new columns, written here into the particles' tensors.
     """
     scalars = list(passive_scalars) if passive_scalars else []
     dev = particles.device
@@ -824,32 +848,45 @@ def _sample_clusters(particles, hses, center, velocity, radii=None,
             f"field; none of the {len(hses)} provided models has one.")
     names = (["particle_mass"] if resample else []) + [
         "density", "thermal_energy", "particle_velocity"] + scalars
-    columns = {name: particles["gas", name] for name in names}
-    new = _mix_gas(particles["gas", "particle_position"], columns, halos,
+    pos = particles["gas", "particle_position"]
+    num = pos.shape[0]
+    size = compiled.capacity(num)
+    read = resample or radii is not None
+    if size > num:
+        compiled.room_for(dev, *[
+            (size * t[:1].numel(), t.dtype) for t in [pos] + [
+                particles["gas", n] for n in (names if read else [])]])
+    columns = {name: compiled.padded(particles["gas", name], size)
+               for name in (names if read else [])}
+    new = _mix_gas(compiled.padded(pos, size), columns, halos,
                    _f64(center, dev), _f64(velocity, dev),
                    None if radii is None else _f64(radii, dev),
                    resample=bool(resample))
-    for name, value in new.items():
-        columns[name].copy_(value)
+    for name in names:
+        particles["gas", name].copy_(new[name][:num])
     return particles
 
 
 def _combine(parts, hses, centers, velocities):
     """Every species moved to its halo's center, the collisionless ones
-    given its bulk velocity, the containers summed, the gas mixed."""
+    given its bulk velocity, the containers summed, the gas mixed: the
+    stage ``mix``."""
     centers = [np.asarray(c, dtype=np.float64) for c in centers]
     velocities = [np.asarray(v, dtype=np.float64) for v in velocities]
-    for particles, center in zip(parts, centers):
+    first = next(iter(parts[0].fields.values()))
+    with device_stage("mix", first):
+        for particles, center in zip(parts, centers):
+            if "gas" in particles.particle_types:
+                particles.add_offsets(center, [0.0] * 3, ptypes=["gas"])
+        for particles, center, velocity in zip(parts, centers, velocities):
+            ptypes = [p for p in particles.particle_types if p != "gas"]
+            particles.add_offsets(center, velocity, ptypes=ptypes)
+        particles = parts[0]
+        for p in parts[1:]:
+            particles = particles + p
         if "gas" in particles.particle_types:
-            particles.add_offsets(center, [0.0] * 3, ptypes=["gas"])
-    for particles, center, velocity in zip(parts, centers, velocities):
-        ptypes = [p for p in particles.particle_types if p != "gas"]
-        particles.add_offsets(center, velocity, ptypes=ptypes)
-    particles = parts[0]
-    for p in parts[1:]:
-        particles = particles + p
-    if "gas" in particles.particle_types:
-        particles = _sample_clusters(particles, hses, centers, velocities)
+            particles = _sample_clusters(particles, hses, centers,
+                                         velocities)
     return particles
 
 
@@ -888,16 +925,18 @@ def resample_one_cluster(particles, hse, center, velocity):
     """One halo's profiles resampled onto relaxed gas particles: density
     and thermal energy splined at each particle's radius, masses scaled by
     the new density at fixed volume, velocities set to ``velocity``.  One
-    program (:func:`_resample_one`); the velocities are written in place
-    after it."""
+    program (:func:`_resample_one`, the stage ``mix``); the velocities are
+    written in place after it."""
     if "gas" not in particles.particle_types:
         return particles
     dev = particles.device
-    new = _resample_one(
-        particles["gas", "particle_position"],
-        particles["gas", "particle_mass"], particles["gas", "density"],
-        _halo_field(hse, "radius", dev), _halo_field(hse, "density", dev),
-        _halo_field(hse, "pressure", dev), _f64(center, dev))
+    pos = particles["gas", "particle_position"]
+    with device_stage("mix", pos):
+        new = _resample_one(
+            pos, particles["gas", "particle_mass"],
+            particles["gas", "density"], _halo_field(hse, "radius", dev),
+            _halo_field(hse, "density", dev),
+            _halo_field(hse, "pressure", dev), _f64(center, dev))
     particles["gas", "thermal_energy"] = new["thermal_energy"]
     particles["gas", "particle_mass"] = new["particle_mass"]
     particles["gas", "particle_velocity"][:, :] = _f64(velocity, dev)
@@ -910,16 +949,20 @@ def resample_two_clusters(particles, hse1, hse2, center1, center2, velocity1,
     """Two halos' profiles resampled onto relaxed gas particles within
     ``radii`` of their centers, mixed as in :func:`combine_two_clusters`,
     masses scaled by the new density at fixed volume."""
-    return _sample_clusters(particles, [hse1, hse2], [center1, center2],
-                            [velocity1, velocity2], radii=radii,
-                            resample=True, passive_scalars=passive_scalars)
+    with device_stage("mix", particles["gas", "particle_position"]):
+        return _sample_clusters(particles, [hse1, hse2], [center1, center2],
+                                [velocity1, velocity2], radii=radii,
+                                resample=True,
+                                passive_scalars=passive_scalars)
 
 
 def resample_three_clusters(particles, hse1, hse2, hse3, center1, center2,
                             center3, velocity1, velocity2, velocity3, radii,
                             passive_scalars=None):
     """:func:`resample_two_clusters` for three halos."""
-    return _sample_clusters(particles, [hse1, hse2, hse3],
-                            [center1, center2, center3],
-                            [velocity1, velocity2, velocity3], radii=radii,
-                            resample=True, passive_scalars=passive_scalars)
+    with device_stage("mix", particles["gas", "particle_position"]):
+        return _sample_clusters(particles, [hse1, hse2, hse3],
+                                [center1, center2, center3],
+                                [velocity1, velocity2, velocity3],
+                                radii=radii, resample=True,
+                                passive_scalars=passive_scalars)

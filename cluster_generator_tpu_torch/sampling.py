@@ -26,7 +26,13 @@ is the per-particle work alone.  The tables and the draw are programs
 (:func:`~.core.compiled.function`; on the card memoized CUDA graphs, the
 counterparts of the JAX package's jitted draw functions): a model of other
 parameters on a grid of the same shape replays them, and a warm draw makes
-no host sync.
+no host sync.  A draw without sub-sampling runs at the capacity class of
+its count (:func:`~.core.compiled.capacity`), its uniforms drawn at the
+count into the front of the class's buffers and its outputs sliced back
+to the count, so a stream of draws whose counts change (an IC scene's)
+replays one program per class and gives, bit for bit, the particles of a
+draw at the count.  Marks (:func:`~.core.profiling.device_stage`):
+``tables`` around a tables program, ``draws`` around a draw.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from .core.grid import linspace
 from .core.interp import (cubic_spline, interp, is_loguniform, spline_eval,
                           spline_eval_loguniform)
 from .core.logging import mylog
+from .core.profiling import device_stage, span
 from .particles import ClusterParticles
 
 __all__ = ["parse_prng", "generate_particle_radii", "generate_gas_particles",
@@ -121,7 +128,8 @@ def _truncated_cdf(r, m, dens=None, r_max=None, r_host=None):
     if r_host is None:
         r_host = r.detach().cpu().numpy()
     P, rr, mtot = _cdf(r, m, dens, _grid_index(r_host, r_max))
-    return P, rr, float(mtot)
+    with span("cg.wait.read"):
+        return P, rr, float(mtot)
 
 
 # radius-quantile table resolution of the generators: a draw is a
@@ -262,12 +270,14 @@ def _gas_tables(model, r_max):
 
     def build():
         ridx, loguniform = _grid_statics(model, r_max)
-        tables = _gas_tables_program(
-            model["radius"], model["gas_mass"],
-            model["density"] if "pressure" in model else None,
-            model["pressure"] if "pressure" in model else None,
-            (model["gravitational_potential"]
-             if "gravitational_potential" in model else None), ridx=ridx)
+        with device_stage("tables", model["radius"]):
+            tables = _gas_tables_program(
+                model["radius"], model["gas_mass"],
+                model["density"] if "pressure" in model else None,
+                model["pressure"] if "pressure" in model else None,
+                (model["gravitational_potential"]
+                 if "gravitational_potential" in model else None),
+                ridx=ridx)
         return dict(tables, loguniform=loguniform)
 
     return _draw_tables(model, r_max, sources, build)
@@ -282,6 +292,12 @@ def _gas_uniforms(gen, num, num_sub, device, out=None):
             isotropic_uniforms(gen, num, torch.float64, device, out=out[1]))
 
 
+# the draws' memo: each holds a program per capacity class in use, and an
+# IC scene's two halos at three mass ratios use about a dozen classes of
+# DM and stars (whose draws share one memo)
+DRAW_PROGRAMS = 24
+
+
 def _drawn_positions(r_q, u_radius, u_dir, num, sub_sample):
     """``(radius_sub, kq, wq, radius, rhat)`` of ``num`` particles:
     ``num // sub_sample`` radii from the quantile nodes, tiled, and their
@@ -292,9 +308,11 @@ def _drawn_positions(r_q, u_radius, u_dir, num, sub_sample):
     return radius_sub, kq, wq, radius, rhat
 
 
-@compiled.function(static=("num", "sub_sample"), random="uniforms")
+@compiled.function(static=("num", "sub_sample"), random="uniforms",
+                   memo=DRAW_PROGRAMS)
 def _draw_tracers(r_q, uniforms, num, sub_sample):
-    """The tracer draw after the tables (one program)."""
+    """The tracer draw after the tables (one program) at ``num``, the
+    count or its capacity class (:func:`_sized`)."""
     _, _, _, radius, rhat = _drawn_positions(r_q, *uniforms, num, sub_sample)
     pos = radius[:, None] * rhat
     return {("tracer", "particle_position"): pos,
@@ -303,9 +321,11 @@ def _draw_tracers(r_q, uniforms, num, sub_sample):
 
 
 @compiled.function(static=("num", "sub_sample", "compute_potential"),
-                   random="uniforms")
-def _draw_gas(tables, uniforms, num, sub_sample, compute_potential):
-    """The gas draw after the tables (one program)."""
+                   random="uniforms", memo=DRAW_PROGRAMS)
+def _draw_gas(tables, count, uniforms, num, sub_sample, compute_potential):
+    """The gas draw after the tables (one program) at ``num``, the count or
+    its capacity class (:func:`_sized`); ``count`` (a float) the count,
+    which divides the mass."""
     radius_sub, _, _, radius, rhat = _drawn_positions(
         tables["r_q"], *uniforms, num, sub_sample)
     pos = radius[:, None] * rhat
@@ -321,7 +341,7 @@ def _draw_gas(tables, uniforms, num, sub_sample, compute_potential):
     fields = OrderedDict()
     fields["gas", "particle_position"] = pos
     fields["gas", "thermal_energy"] = field_at("energy")
-    fields["gas", "particle_mass"] = (tables["mtot"] / num).expand(
+    fields["gas", "particle_mass"] = (tables["mtot"] / count).expand(
         num).contiguous()
     fields["gas", "density"] = field_at("density")
     fields["gas", "particle_velocity"] = torch.zeros_like(pos)
@@ -340,6 +360,25 @@ def _device_and_generator(model, ptype, num_particles, prng, uniforms):
     return dev, gen
 
 
+def _sized(num, sub):
+    """The length a draw of ``num`` particles runs at: the capacity class
+    of ``num`` (:func:`~.core.compiled.capacity`), or ``num`` itself with
+    sub-sampling, whose tiling depends on the count."""
+    return compiled.capacity(num) if sub == 1 else num
+
+
+def _front(fields, num):
+    """The first ``num`` particles of a draw's outputs, each in a tensor of
+    its own where the draw ran at a larger class: a view would keep the
+    class's padding alive, so that what a scene holds would follow its
+    counts' classes rather than its counts."""
+    if all(v.shape[0] == num for v in fields.values()):
+        return fields
+    compiled.room_for(next(iter(fields.values())).device, *[
+        (num * v[:1].numel(), v.dtype) for v in fields.values()])
+    return OrderedDict((k, v[:num].clone()) for k, v in fields.items())
+
+
 def generate_tracer_particles(model, num_particles, r_max=None, sub_sample=1,
                               prng=None, uniforms=None):
     """Massless tracers at rest that follow the gas.  ``uniforms``:
@@ -352,10 +391,12 @@ def generate_tracer_particles(model, num_particles, r_max=None, sub_sample=1,
     num, sub = int(num_particles), int(sub_sample)
     dev, gen = _device_and_generator(model, "tracer", num, prng, uniforms)
     tables = _gas_tables(model, r_max)
+    size = _sized(num, sub)
     draw = compiled.drawer(uniforms, gen, dev, lambda g, out: _gas_uniforms(
-        g, num, num // sub, dev, out))
-    return ClusterParticles("tracer", _draw_tracers(
-        tables["r_q"], draw, num=num, sub_sample=sub), device=dev)
+        g, num, num // sub, dev, out), count=num, size=size)
+    with device_stage("draws", tables["r_q"]):
+        out = _draw_tracers(tables["r_q"], draw, num=size, sub_sample=sub)
+    return ClusterParticles("tracer", _front(out, num), device=dev)
 
 
 def generate_gas_particles(model, num_particles, r_max=None, sub_sample=1,
@@ -368,11 +409,13 @@ def generate_gas_particles(model, num_particles, r_max=None, sub_sample=1,
     num, sub = int(num_particles), int(sub_sample)
     dev, gen = _device_and_generator(model, "gas", num, prng, uniforms)
     tables = _gas_tables(model, r_max)
+    size = _sized(num, sub)
     draw = compiled.drawer(uniforms, gen, dev, lambda g, out: _gas_uniforms(
-        g, num, num // sub, dev, out))
-    return ClusterParticles("gas", _draw_gas(
-        tables, draw, num=num, sub_sample=sub,
-        compute_potential=bool(compute_potential)), device=dev)
+        g, num, num // sub, dev, out), count=num, size=size)
+    with device_stage("draws", tables["r_q"]):
+        out = _draw_gas(tables, float(num), draw, num=size, sub_sample=sub,
+                        compute_potential=bool(compute_potential))
+    return ClusterParticles("gas", _front(out, num), device=dev)
 
 
 @compiled.function(static=("ridx",))
@@ -420,10 +463,11 @@ def _collisionless_tables(virial, r_max, n_rows=256):
         held = virial._s_inv.get(n_rows)
         speed = (virial._speed_table_inputs(n_rows) if held is None
                  else {"row_ee": held[0], "s_inv": held[1]})
-        tables = _collisionless_tables_program(
-            model["radius"], model[f"{ptype}_mass"],
-            model[f"{ptype}_density"], model["gravitational_potential"],
-            speed, ridx=ridx)
+        with device_stage("tables", model["radius"]):
+            tables = _collisionless_tables_program(
+                model["radius"], model[f"{ptype}_mass"],
+                model[f"{ptype}_density"], model["gravitational_potential"],
+                speed, ridx=ridx)
         if held is None:
             virial._s_inv[n_rows] = (speed["row_ee"], tables.pop("s_inv"))
         return dict(tables, loguniform=loguniform)
@@ -446,11 +490,14 @@ def _collisionless_uniforms(gen, num, num_sub, dtype, device, out=None):
 
 
 @compiled.function(static=("num", "sub_sample", "compute_potential",
-                           "short"), random="uniforms")
-def _draw_collisionless(tables, r_a, uniforms, num, sub_sample,
+                           "short"), random="uniforms",
+                   memo=DRAW_PROGRAMS)
+def _draw_collisionless(tables, r_a, count, uniforms, num, sub_sample,
                         compute_potential, short):
-    """The DM or star draw after the tables (one program); ``r_a`` the
-    Osipkov-Merritt radius or ``None`` (isotropic)."""
+    """The DM or star draw after the tables (one program) at ``num``, the
+    count or its capacity class (:func:`_sized`); ``r_a`` the
+    Osipkov-Merritt radius or ``None`` (isotropic); ``count`` (a float)
+    the count, which divides the mass."""
     from .virial import sample_speeds_joint
 
     u_r, u_pos, u_speed, u_vel = uniforms
@@ -484,7 +531,7 @@ def _draw_collisionless(tables, r_a, uniforms, num, sub_sample,
     fields = OrderedDict()
     fields[short, "particle_position"] = pos
     fields[short, "particle_velocity"] = vel
-    fields[short, "particle_mass"] = (tables["mtot"] / num).expand(
+    fields[short, "particle_mass"] = (tables["mtot"] / count).expand(
         num).contiguous()
     if compute_potential:
         # exact-radius evaluation for the OUTPUT potential (the lerped
@@ -528,8 +575,12 @@ def generate_collisionless_particles(virial, num_particles, r_max=None,
                                      uniforms)
     tables = _collisionless_tables(virial, r_max)
     dtype = tables["joint"].dtype
+    size = _sized(num, sub)
     draw = compiled.drawer(uniforms, gen, dev, lambda g, out: (
-        _collisionless_uniforms(g, num, num // sub, dtype, dev, out)))
-    return ClusterParticles(short, _draw_collisionless(
-        tables, virial.r_a, draw, num=num, sub_sample=sub,
-        compute_potential=bool(compute_potential), short=short), device=dev)
+        _collisionless_uniforms(g, num, num // sub, dtype, dev, out)),
+        count=num, size=size)
+    with device_stage("draws", tables["r_q"]):
+        out = _draw_collisionless(
+            tables, virial.r_a, float(num), draw, num=size, sub_sample=sub,
+            compute_potential=bool(compute_potential), short=short)
+    return ClusterParticles(short, _front(out, num), device=dev)

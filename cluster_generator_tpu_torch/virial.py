@@ -21,7 +21,8 @@
 The functions work along the last axis with leading batch axes (one per
 halo); the class holds one model.  The DFs, the virial check and the speed
 table are captured programs (:func:`.core.compiled.function`), as the JAX
-package jits them, with the same static arguments.
+package jits them, with the same static arguments; the class's DF build is
+the stage ``dfs`` (:func:`~.core.profiling.device_stage`).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
 from .core.logging import mylog
+from .core.profiling import device_stage
 from .ops.cdf_inverse import invert_cdf_rows
 from .ops.speed_cdf import speed_cdf_rows_f32, trapezoid_cdf
 
@@ -381,7 +383,14 @@ class VirialEquilibrium:
     The DF and the cached speed tables are float64 and float32 tensors on
     the model's device.  The inverse speed-CDF table is kept per
     ``n_rows`` (it does not depend on ``r_max``); what a draw folds it
-    into for one ``r_max`` is kept beside it, one entry at a time."""
+    into for one ``r_max`` is kept beside it, one entry at a time.
+
+    ``model`` is a slot, the rest of the state is the instance's
+    ``__dict__``: a model keeps the state of its own virial objects and
+    the objects only weakly (``ClusterModel._virial``), so that the two
+    make no reference cycle."""
+
+    __slots__ = ("model", "__dict__", "__weakref__")
 
     def __init__(self, model, ptype: str = "dark_matter", df=None,
                  r_a=None):
@@ -440,15 +449,16 @@ class VirialEquilibrium:
         mylog.info("Computing the %s particle DF%s.", self.ptype,
                    "" if self.r_a is None
                    else f" (Osipkov-Merritt, r_a={self.r_a:g} kpc)")
-        if self.r_a is None:
-            f = compute_df(self.ee,
-                           torch.flip(self._augmented_density(), (0,)))
-        else:
-            # OM: rho_Q's non-zero boundary slope needs the power-law
-            # continuation below the grid
-            self._ext = None
-            ee_ext, f_ext = self._df_grid
-            f = f_ext[ee_ext.shape[0] - self.num_elements:]
+        with device_stage("dfs", self.model["radius"]):
+            if self.r_a is None:
+                f = compute_df(self.ee,
+                               torch.flip(self._augmented_density(), (0,)))
+            else:
+                # OM: rho_Q's non-zero boundary slope needs the power-law
+                # continuation below the grid
+                self._ext = None
+                ee_ext, f_ext = self._df_grid
+                f = f_ext[ee_ext.shape[0] - self.num_elements:]
         # stored reversed (radially increasing)
         self.df = torch.flip(f, (0,))
         if self.r_a is not None:

@@ -19,7 +19,7 @@ The steps, each at full width and with seeds of its own:
    particles joined :data:`JOIN_REPEATS` times by
    ``ClusterParticles.__add__`` (9.5e7 particles), the sum moved into a
    Gadget box by ``add_offsets``, and its Gadget blocks
-   (``particles._gadget_blocks``, the device half of
+   (``ClusterParticles.gadget_blocks``, the device half of
    ``write_to_gadget_file``);
 9. ``datagen again`` and ``merger again``: steps 3 and 2 with their seeds.
 
@@ -228,7 +228,7 @@ def eager_step(cg, kept, repeats=JOIN_REPEATS, box=GADGET_BOX):
     sum moved to the centre of a Gadget box of side ``box``, and its
     Gadget blocks.  Returns the sum and the blocks' bytes (one host
     tensor)."""
-    from cluster_generator_tpu_torch.particles import _gadget_blocks
+    from cluster_generator_tpu_torch import particles
 
     _, dm, gas = kept["class"]
     parts, _ = kept["merger"]
@@ -238,7 +238,10 @@ def eager_step(cg, kept, repeats=JOIN_REPEATS, box=GADGET_BOX):
     for _ in range(repeats - 1):
         total = total + one
     total.add_offsets([box / 2.0] * 3, [0.0] * 3)
-    blocks, _, _ = _gadget_blocks(total, box)
+    # a checkout before the public method has the module function
+    blocks, _, _ = (total.gadget_blocks(box)
+                    if hasattr(total, "gadget_blocks")
+                    else particles._gadget_blocks(total, box))
     return total, torch.from_numpy(np.concatenate([
         np.ascontiguousarray(a).view(np.uint8).reshape(-1)
         for arrays in blocks.values() for a in arrays.values()]))

@@ -236,8 +236,8 @@ def ics_stages():
         ("resample", lambda: ic_resample(PA, state["scene"], models,
                                          centers, velocities)),
         ("background", background),
-        ("gadget_blocks", lambda: PA._gadget_blocks(state["full"], IC_BOX,
-                                                    code="arepo")),
+        ("gadget_blocks", lambda: state["full"].gadget_blocks(
+            IC_BOX, code="arepo")),
         ("fortran_dm", fortran_dm),
     ]
 

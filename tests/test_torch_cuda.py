@@ -655,7 +655,7 @@ def _eager_site_cases():
             mine[0][1])
 
     def blocks(parts):
-        b, _, _ = PA._gadget_blocks(container(parts), 200.0)
+        b, _, _ = container(parts).gadget_blocks(200.0)
         return [a for arrays in b.values() for a in arrays.values()]
 
     def moved(parts):

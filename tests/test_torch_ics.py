@@ -430,8 +430,8 @@ def test_gadget_blocks_on_the_device(scene_files):
          + m.generate_star_particles(500, prng=6))
     p.add_offsets([2000.0] * 3, [0.0] * 3)
     for dtype in ("float32", "float64"):
-        blocks, counts, table = TP._gadget_blocks(p, 4000.0, dtype=dtype,
-                                                  id_offset=7)
+        blocks, counts, table = p.gadget_blocks(4000.0, dtype=dtype,
+                                                id_offset=7)
         inside = {sp: int(p._clip_to_box(sp, 4000.0).sum())
                   for sp in p.particle_types}
         assert counts == inside and 0 < counts["dm"] < 3000
@@ -517,7 +517,7 @@ SUM_PROGRAM = """
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from cluster_generator_tpu_torch.particles import ClusterParticles, _gadget_blocks
+from cluster_generator_tpu_torch.particles import ClusterParticles
 rng = np.random.RandomState(0)
 
 def part(types):
@@ -529,7 +529,7 @@ def part(types):
     return ClusterParticles.from_fields(f, device="cpu")
 
 p = part(["dm", "star", "gas", "tracer"]) + part(["dm", "star", "gas"])
-blocks, counts, _ = _gadget_blocks(p, 1000.0)
+blocks, counts, _ = p.gadget_blocks(1000.0)
 ids = {t: (int(b["ParticleIDs"][0]), int(b["ParticleIDs"][-1]))
        for t, b in blocks.items()}
 print("ORDER", p.particle_types, ids)

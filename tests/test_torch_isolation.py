@@ -208,7 +208,7 @@ for m in models:
 scene = particles.resample_two_clusters(scene, *models, c1, c2, [0.3, 0, 0],
                                         [-0.45, 0, 0], [3000.0] * 2,
                                         passive_scalars=["metallicity"])
-blocks, n, table = particles._gadget_blocks(scene, 14000.0, code="arepo")
+blocks, n, table = scene.gadget_blocks(14000.0, code="arepo")
 assert sum(n.values()) == sum(scene.num_particles.values())
 bg = codes._arepo_background([c1, c2], [3000.0] * 2, 14000.0, 16, scene)
 with tempfile.TemporaryDirectory() as d:

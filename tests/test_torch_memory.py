@@ -403,7 +403,7 @@ def _on_card(monkeypatch, free, log=None):
 
 
 def _gadget_need(p, dtype=torch.float32):
-    """What ``_gadget_blocks`` reckons per type, every particle in the box:
+    """What ``gadget_blocks`` reckons per type, every particle in the box:
     masks, index, the blocks, the two float64 temporaries of the largest,
     the IDs (int64, int32)."""
     out = []
@@ -445,7 +445,7 @@ def _site_radial_cut():
 
 def _site_gadget_blocks():
     p = _container(5)
-    return lambda: TP._gadget_blocks(p, 100.0), _gadget_need(p)
+    return lambda: p.gadget_blocks(100.0), _gadget_need(p)
 
 
 def _site_conversions():
@@ -573,15 +573,48 @@ def test_an_eager_step_that_fits_makes_no_sync_and_releases_nothing(
     before = C.releases
     joined = a + b
     joined.add_offsets([1.0] * 3, [0.0] * 3)
-    TP._gadget_blocks(joined, 200.0)
+    joined.gadget_blocks(200.0)
     assert synced == [] and C.releases == before
     assert len(C.held(CARD0)) == 1
-    # the same join where it does not fit beside the cache: one sync and
-    # empty per reading, and the program goes
+    # the same join where it does not fit beside the cache (read anew: the
+    # last reading has expired): one sync and empty per reading, and the
+    # program goes
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda d: (1024, 100 * MIB))
+    C._READINGS.clear()
     a + b
     assert synced and C.releases == before + 1
+
+
+def test_a_recent_reading_spares_the_eager_steps_a_read(monkeypatch):
+    """An eager step reads the card's free memory (``cudaMemGetInfo``)
+    only when no reading under ``READING_SECONDS`` old covers its need,
+    less what this process reserved since and within the memory fraction
+    now; each reading is recorded."""
+    read, reserved, now = [], [30 * MIB], [100.0]
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: read.append(1) or (60 * MIB, 100 * MIB))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda d: reserved[0])
+    monkeypatch.setattr(torch.cuda, "get_per_process_memory_fraction",
+                        lambda d: 1.0)
+    monkeypatch.setattr(C.time, "monotonic", lambda: now[0])
+
+    def step(nbytes):
+        return C.room_for(CARD0, (nbytes, torch.uint8))
+
+    assert step(10 * MIB) == 0 and read == [1]       # no reading yet
+    assert step(50 * MIB) == 0 and read == [1]       # 60 MiB free, read
+    reserved[0] = 45 * MIB                           # 45 left by estimate
+    assert step(50 * MIB) == 0 and read == [1, 1]    # not covered: read
+    assert step(10 * MIB) == 0 and len(read) == 2
+    now[0] += 2 * C.READING_SECONDS                  # the reading expired
+    assert step(10 * MIB) == 0 and len(read) == 3
+    monkeypatch.setattr(torch.cuda, "get_per_process_memory_fraction",
+                        lambda d: 0.5)               # 5 MiB under the cap
+    assert step(10 * MIB) == 0 and len(read) > 3     # nothing to release
 
 
 def _hses():
@@ -626,7 +659,7 @@ def test_combine_moves_the_particles_once_when_room_is_made_midway(
 
 
 def _export(p, box=200.0):
-    blocks, _, _ = TP._gadget_blocks(p, box)
+    blocks, _, _ = p.gadget_blocks(box)
     return [a for arrays in blocks.values() for a in arrays.values()]
 
 

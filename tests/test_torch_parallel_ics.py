@@ -185,7 +185,6 @@ _EXPORT = """
 from cluster_generator_tpu_torch.parallel.export import (
     _export_plan, write_sharded_gadget_files)
 from cluster_generator_tpu_torch.parallel.mesh import make_mesh, sharded
-from cluster_generator_tpu_torch.particles import _gadget_blocks
 parts = torch.load(ARGS["parts"], weights_only=False)
 
 def split(mesh, axis, k):
@@ -210,7 +209,7 @@ n_files, total, plan = _export_plan(split(mesh, "part", 2), ARGS["box"],
                                     [ARGS["box"] / 2] * 3)
 RESULT["plan_total"] = total
 for rank, sp, id_offset, expect in plan:
-    blocks, counts, _ = _gadget_blocks(sp, ARGS["box"], id_offset=id_offset)
+    blocks, counts, _ = sp.gadget_blocks(ARGS["box"], id_offset=id_offset)
     RESULT["block_rank"] = np.asarray(rank)
     for ptype, arrays in blocks.items():
         for name, arr in arrays.items():
