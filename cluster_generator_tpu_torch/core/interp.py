@@ -247,14 +247,22 @@ def interp(xq, x, y, left=None, right=None):
 def bracket_indices(grid, queries):
     """Bracketing interval of each query in an ascending ``grid`` (last
     axis): ``grid[j] <= q < grid[j+1]``, i.e. ``searchsorted(side='right')
-    - 1`` clipped to valid intervals, by one comparison matrix."""
-    j = torch.sum(grid[..., None, :] <= queries[..., :, None], dim=-1) - 1
+    - 1`` clipped to valid intervals, by a binary search of each query in
+    its grid row.  A 1-D grid takes queries of any shape; a batched grid
+    takes queries of its leading axes, or that broadcast to them.  Equal
+    to counting ``grid <= q`` for every query that is not NaN (a NaN query
+    takes some valid interval)."""
+    if grid.ndim > 1:
+        queries = queries.expand(grid.shape[:-1] + queries.shape[-1:])
+    j = torch.searchsorted(grid.contiguous(), queries.contiguous(),
+                           right=True) - 1
     return torch.clamp(j, 0, grid.shape[-1] - 2)
 
 
 def interp_monotone(xq, x, y):
-    """``interp`` on an ascending grid via :func:`bracket_indices`, for
-    table-sized query counts.  Flat intervals take the left value."""
+    """``interp`` on an ascending grid via :func:`bracket_indices`: one
+    search, two gathers and a lerp per query.  Flat intervals take the
+    left value."""
     j = bracket_indices(x, xq)
     x0, x1 = _gather(x, j), _gather(x, j + 1)
     dx = x1 - x0

@@ -9,6 +9,9 @@ another summation order in the cumulative sums and other libm calls).
 """
 
 import importlib
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -271,3 +274,102 @@ def test_interp_bracket_indices_and_interp_monotone():
     out = TI.interp_monotone(_t([1.0]), _t([0.0, 1.0, 1.0, 2.0]),
                              _t([0.0, 10.0, 20.0, 30.0]))
     assert torch.isfinite(out).all()
+
+
+def _matrix_brackets(grid, queries):
+    """The comparison-matrix definition of the bracket: count the nodes at
+    or below each query."""
+    j = torch.sum(grid[..., None, :] <= queries[..., :, None], dim=-1) - 1
+    return torch.clamp(j, 0, grid.shape[-1] - 2)
+
+
+def _bracket_case(case, dtype, rng):
+    """(grid, queries) of one shape case; queries below the first node,
+    above the last, on nodes, infinite and in between."""
+    n = 37
+    if case == "1d-grid":
+        grid = np.sort(rng.uniform(0.5, 9.0, n))
+    else:
+        grid = np.sort(rng.uniform(0.5, 9.0, (3, n)), axis=-1)
+    if case == "repeated-nodes":
+        # flat runs inside each row, one three nodes long
+        grid[:, [5, 6, 20, 21, 22]] = grid[:, [4, 4, 19, 19, 19]]
+    g = grid.reshape(-1, n)
+    q = np.concatenate([rng.uniform(-1.0, 10.0, (g.shape[0], 60)),
+                        g[:, rng.integers(0, n, 15)], g[:, :1], g[:, -1:],
+                        np.tile([-5.0, 50.0, -np.inf, np.inf],
+                                (g.shape[0], 1))], axis=-1)
+    if case == "1d-grid":
+        q = q.reshape(3, 3, -1)
+    return (torch.tensor(grid, dtype=dtype), torch.tensor(q, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["1d-grid", "batched-grid",
+                                  "repeated-nodes"])
+def test_searched_brackets_equal_the_comparison_matrix(case, dtype,
+                                                       monkeypatch):
+    """The searched brackets equal the comparison-matrix count at every
+    query that is not NaN, and ``interp_monotone`` and
+    ``build_joint_speed_pairs`` built on them equal, bit for bit, the same
+    functions run on the matrix brackets; a NaN query still gives NaN."""
+    import cluster_generator_tpu_torch.virial as TV
+
+    rng = np.random.default_rng(23)
+    grid, q = _bracket_case(case, dtype, rng)
+    j = TI.bracket_indices(grid, q)
+    assert j.dtype == torch.int64
+    assert torch.equal(j, _matrix_brackets(grid, q))
+    y = torch.tensor(rng.standard_normal(grid.shape), dtype=dtype)
+    qn = q.clone()
+    qn.view(-1)[::7] = float("nan")
+    searched = TI.interp_monotone(qn, grid, y)
+
+    # the joint fold: psi falls with radius, its energy rows ascend
+    B, N, rows, n_q, rq = 3, 64, 16, 12, 20
+    rr = torch.tensor(np.logspace(0.0, 3.0, N), dtype=torch.float64)
+    rr = rr * torch.tensor(rng.uniform(0.8, 1.2, (B, 1)))
+    psi = 1.0 / (1.0 + rr) + torch.tensor(rng.uniform(0.0, 0.1, (B, 1)))
+    row_ee = torch.flip(psi, (-1,))[..., ::N // rows]
+    s_inv = torch.sort(torch.tensor(rng.uniform(0.0, 1.0, (B, rows, n_q))),
+                       dim=-1).values
+    r_q = torch.cat([torch.tensor(rng.uniform(0.5, 1200.0, (B, rq - 4))),
+                     rr[:, :1], rr[:, -1:], rr[:, 7:9]], dim=-1)
+    r_q[1, 3] = float("nan")
+    # queries on the energy rows themselves too
+    psi_q = torch.cat([TI.interp_monotone(r_q, rr, psi), row_ee[:, 2:5]],
+                      dim=-1)
+    joint = TV.build_joint_speed_pairs(rr, psi, row_ee, s_inv, r_q,
+                                       dtype=dtype)
+    joint_q = TV.build_joint_speed_pairs(rr, psi, row_ee, s_inv, None,
+                                         dtype=dtype, psi_q=psi_q)
+
+    monkeypatch.setattr(TI, "bracket_indices", _matrix_brackets)
+    monkeypatch.setattr(TV, "bracket_indices", _matrix_brackets)
+    matrix = TI.interp_monotone(qn, grid, y)
+    ok = ~torch.isnan(qn)
+    assert torch.equal(searched[ok], matrix[ok])
+    assert torch.isnan(searched[~ok]).all() and torch.isnan(matrix[~ok]).all()
+    for got, want in [(joint, TV.build_joint_speed_pairs(
+            rr, psi, row_ee, s_inv, r_q, dtype=dtype)),
+            (joint_q, TV.build_joint_speed_pairs(
+                rr, psi, row_ee, s_inv, None, dtype=dtype, psi_q=psi_q))]:
+        assert got.dtype == dtype
+        assert torch.isnan(got[1, 3]).all() and torch.isnan(want[1, 3]).all()
+        got[1, 3] = want[1, 3] = 0.0
+        assert torch.equal(got, want)
+
+
+def test_a_first_bracket_imports_no_sympy():
+    """The brackets' first call in a process imports nothing beyond what
+    the port's import did: ``torch.broadcast_shapes`` imports sympy at its
+    first call, which is seconds of a program's set-up."""
+    code = ("import sys, torch\n"
+            "from cluster_generator_tpu_torch.core.interp import (\n"
+            "    bracket_indices, interp_monotone)\n"
+            "g = torch.sort(torch.rand(3, 9, dtype=torch.float64), -1).values\n"
+            "bracket_indices(g, torch.rand(5, dtype=torch.float64))\n"
+            "interp_monotone(torch.rand(3, 4, dtype=torch.float64), g, g)\n"
+            "assert 'sympy' not in sys.modules\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root)

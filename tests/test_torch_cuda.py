@@ -820,3 +820,78 @@ def test_a_replay_marks_its_stages_in_order(program, monkeypatch):
     with C.eager():
         want = call(2)
     assert _equal(got, want)
+
+
+def _matrix_brackets(grid, queries):
+    """The comparison-matrix bracket: count the nodes at or below each
+    query."""
+    j = torch.sum(grid[..., None, :] <= queries[..., :, None], dim=-1) - 1
+    return torch.clamp(j, 0, grid.shape[-1] - 2)
+
+
+@pytest.mark.cuda
+def test_searched_brackets_leave_the_datagen_tables_bit_for_bit(monkeypatch):
+    """cfg5c's table shapes (512-point models; DM 128 speed rows and 2048
+    radius nodes, stars 64 and 512, gas 2048) at B = 4: the draw tables,
+    eager, at the capture and replayed, equal bit for bit those built on
+    the comparison-matrix brackets; a replay's tables stage launches no
+    int64 reduction, which the matrix brackets' replay does (their count
+    of ``grid <= q``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cluster_generator_tpu_torch.core import interp as I
+    from cluster_generator_tpu_torch.core.profiling import device_stage
+    from portbench.yardstick import stages as S
+    from portbench.yardstick import trace as T
+
+    _card()
+    dev = "cuda"
+    prog = E._DatagenProgram(512, 5000, 4000, 1000)
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device=dev).manual_seed(7), 12)
+
+    def body(M200, conc, _):
+        with device_stage("models", M200):
+            f = prog.models(M200, conc)
+            dfs = prog.dfs(f)
+        with device_stage("tables", M200):
+            tabs = prog.draw_tables(f, prog.speed_tables(f, dfs))
+        return {sp: {k: t[k] for k in ("r_q", "v_esc", "joint") if k in t}
+                for sp, t in tabs.items()}
+
+    def eager(k):
+        with C.inline():
+            return body(M[4 * k:4 * k + 4], c[4 * k:4 * k + 4], None)
+
+    def calls(key):
+        """Three calls of the program of ``key`` (a capture, then two
+        replays, the last under the profiler): their outputs, and the
+        names of the kernels in the last one's tables stage."""
+        outs = [C.run(key, body, (M[4 * k:4 * k + 4], c[4 * k:4 * k + 4]))
+                for k in range(2)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs.append(C.run(key, body, (M[8:], c[8:])))
+            torch.cuda.synchronize()
+        ev = [e for e in T.events_of(prof) if e.kind in T.DEVICE_KINDS]
+        (_, _, a, b), = [s for s in S.stretches(ev, T.extent(ev))
+                         if s[1] == "tables"]
+        return outs, [e.name for e in ev
+                      if e.kind == "kernel" and a <= e.start_us < b]
+
+    monkeypatch.setattr(I, "bracket_indices", _matrix_brackets)
+    monkeypatch.setattr(V, "bracket_indices", _matrix_brackets)
+    want = [eager(k) for k in range(3)]
+    outs, names = calls(("brackets", "matrix"))
+    assert all(_equal(o, w) for o, w in zip(outs, want))
+    assert any("ReduceOp<long" in n for n in names)
+    monkeypatch.undo()
+    assert sorted(want[0]) == ["dm", "gas", "star"]
+    assert set(want[0]["dm"]) == {"r_q", "v_esc", "joint"}
+    for k in range(3):
+        assert _equal(eager(k), want[k]), k
+    outs, names = calls(("brackets", "search"))
+    for k in range(3):
+        assert _equal(outs[k], want[k]), k
+    assert names and not any("ReduceOp<long" in n for n in names)
+    C.clear()
