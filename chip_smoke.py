@@ -114,12 +114,10 @@ Phases, in order; any failure exits non-zero before the last line:
     the dry run's steps; (c) a world of four on NCCL where the machine has
     four cards, else a line saying why not.  K1 against its plain version
     on each rank's first batch; its launches per rank;
-20. the entry scripts over the port: ``bench_torch.py`` at full size in a
-    process of its own (its one JSON line printed; on the card, a finite
-    warm median under 5 s, K1 8 launches, its peak memory), then where
-    ``h5py`` imports the five ``examples_torch/`` scripts at
-    ``CG_EXAMPLE_SCALE=1`` (``multichip_export`` as a world of one on
-    NCCL) with the checks of the CPU tests, else one line saying why not;
+20. the entry scripts over the port: where ``h5py`` imports, the five
+    ``examples_torch/`` scripts at ``CG_EXAMPLE_SCALE=1``
+    (``multichip_export`` as a world of one on NCCL) with the checks of
+    the CPU tests, else one line saying why not;
 21. the three batch programs as captured CUDA graphs at full width
     (bench2h-1e7, the cfg5c batch of 256, the cfg6 batch of 64): for each
     the first call (eager warm-up, then the capture) and three replays
@@ -129,8 +127,7 @@ Phases, in order; any failure exits non-zero before the last line:
     batch of a stream with a remainder batch (``datagen_batches``,
     ``merger_scene_batches``) and of the catalogs' ``stream_to_host``
     stage against its eager body after the later batches replayed; no
-    sync in a warm call; eager and graph warm wall, first call and
-    capture, host launches per warm call, peak memory and pool size;
+    sync and no release in a warm call;
 22. the class path and the staged merger path as captured programs (the
     bisection, the builders, the DFs, the speed tables with K1 inside,
     the four merger stages): the class set-up (profiles, the model at
@@ -201,8 +198,9 @@ workspace that does not fit releases the least recently used ones
 (phase 25, and each warm call of phases 21-24 checks that it released
 none).  The memoized programs are dropped before phase 19, whose ranks
 are other processes on the card, at the start of phases 21-24 and each
-IC scene of phase 23, whose first calls are measured captures, and
-before phase 10's 1024^3 field, whose held memory is measured.
+IC scene of phase 23, whose first calls are captures (measured in phases
+22-24), and before phase 10's 1024^3 field, whose held memory is
+measured.
 
 It needs ``torch`` with CUDA and ``nvcc``; it imports no JAX.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -3258,38 +3256,8 @@ def run_multidevice(card, sz=MD):
 
 
 # ----------------------------------------------------------------- phase 20
-BENCH_LIMIT_S = 5.0         # BASELINE.md's wall-time limit of the workload
-BENCH_K1 = 8                # 2 per IC, one first run and three warm runs
-BENCH_TIMEOUT = 600.0
 EXAMPLE_TIMEOUT = 900.0     # seconds for one example
 EXAMPLE_RESIDUAL = 1e-4     # single_cluster's HSE and virial residuals
-
-
-def run_bench(card, root, dev="cuda"):
-    """Phase 20 (a): ``bench_torch.py`` in a process of its own on ``dev``
-    (the kernel is built by then, so ``first_run_s`` holds no build); its
-    one JSON line, checked.  Returns its K1 launches."""
-    res = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py"),
-                          "--device", dev], cwd=root, capture_output=True,
-                         text=True, timeout=BENCH_TIMEOUT)
-    check(res.returncode == 0,
-          f"bench_torch.py exited {res.returncode}: {res.stderr[-3000:]}")
-    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
-    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines")
-    print(f"bench_torch.py [{card}]:")
-    print(lines[0])
-    rec = json.loads(lines[0])
-    check(rec["backend"] == torch.device(dev).type,
-          f"bench_torch.py ran on {rec['backend']}")
-    check(math.isfinite(rec["value"]) and 0 < rec["value"] < BENCH_LIMIT_S,
-          f"bench_torch.py warm {rec['value']} s, limit {BENCH_LIMIT_S} s")
-    want = BENCH_K1 if rec["backend"] == "cuda" else 0
-    check(rec["k1_launches"] == want,
-          f"bench_torch.py launched K1 {rec['k1_launches']} times, want "
-          f"{want}")
-    check(rec["backend"] != "cuda" or math.isfinite(rec["peak_mem_gib"]),
-          f"bench_torch.py peak memory {rec['peak_mem_gib']}")
-    return rec["k1_launches"]
 
 
 def run_example(root, cwd, name, dev, scale, ranks=None):
@@ -3435,22 +3403,21 @@ def compare_program(C, K, label, name, graph, eager, n_cases, card):
     eager warm-up, then the capture) and ``n_cases - 1`` replays, each
     against the eager body on the same inputs and seed, bit for bit, with
     the launches of K1 and of the speed-CDF kernel counted per call (two
-    of each, two graph nodes of each); an earlier replay's outputs unchanged
-    after the later ones; the syncs of a warm call; eager and graph warm
-    wall, host launches, device busy and the peak memory a warm call adds.  ``graph(k)`` / ``eager(k)`` run
-    case k.  Returns the report."""
+    of each, two graph nodes of each); an earlier replay's outputs
+    unchanged after the later ones; no sync in a warm call and no program
+    released by the warm calls.  ``graph(k)`` / ``eager(k)`` run case k.
+    Returns the report."""
     from cluster_generator_tpu_torch.ops import speed_cdf as S
 
     before = C.programs()
     K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
-    first, first_s = timed(lambda: graph(0))
+    first = graph(0)
     first_k1 = K.invert_cdf_rows.launches
     prog = program_of(C, name, before)
     check(first_k1 == 2 and S.speed_cdf_rows_f32.launches == 2,
           f"{label}: first call launched K1 {first_k1} times, the speed-CDF "
           f"kernel {S.speed_cdf_rows_f32.launches}")
-    rep = {"first_s": first_s, "capture_s": prog.capture_s, "k1": first_k1,
-           "pool_bytes": prog.pool_bytes, "static_bytes": prog.static_bytes,
+    rep = {"k1": first_k1,
            "k1_nodes": prog.nodes.get(K.invert_cdf_rows, 0),
            "cdf_nodes": prog.nodes.get(S.speed_cdf_rows_f32, 0),
            "max_abs_diff": [tree_diff(first, eager(0), label)]}
@@ -3481,34 +3448,13 @@ def compare_program(C, K, label, name, graph, eager, n_cases, card):
     rep["syncs_warm_call"] = count_syncs(lambda: graph(1))
     check(rep["syncs_warm_call"] == {},
           f"{label}: a warm call synchronized: {rep['syncs_warm_call']}")
-    for side, fn in (("eager", eager), ("graph", graph)):
-        walls = [timed(lambda: fn(1))[1] for _ in range(3)]
-        rep[f"{side}_warm_s"] = statistics.median(walls)
-        rep[f"{side}_host_launches"] = host_launches(lambda: fn(1))
-        _, kern, rep[f"{side}_busy_ms"] = kernel_profile(lambda: fn(1))
-        rep[f"{side}_kernels"] = len(kern)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        timed(lambda: fn(1))
-        rep[f"{side}_peak_gib"] = (torch.cuda.max_memory_allocated()
-                                   - base) / 2**30
     # a warm replay that fits releases nothing
     rep["releases_warm"] = C.releases - released
     check(rep["releases_warm"] == 0,
           f"{label}: warm calls released {rep['releases_warm']} programs")
-    print(f"{label}: first call {first_s:.3f} s (capture "
-          f"{prog.capture_s:.3f} s), warm eager {rep['eager_warm_s']:.4f} s "
-          f"/ graph {rep['graph_warm_s']:.4f} s, host launches per warm call "
-          f"{rep['eager_host_launches']} / {rep['graph_host_launches']}, "
-          f"device busy (profiled) {rep['eager_busy_ms']:.2f} / "
-          f"{rep['graph_busy_ms']:.2f} ms in {rep['eager_kernels']} / "
-          f"{rep['graph_kernels']} kernels, "
-          f"peak added by a warm call {rep['eager_peak_gib']:.2f} / "
-          f"{rep['graph_peak_gib']:.2f} GiB, pool growth at capture "
-          f"{prog.pool_bytes / 2**30:.2f} GiB, "
-          f"static buffers {prog.static_bytes / 2**30:.3f} GiB; "
-          f"max |graph - eager| over {n_cases} calls "
-          f"{max(rep['max_abs_diff'])}; K1 nodes {rep['k1_nodes']} [{card}]")
+    print(f"{label}: max |graph - eager| over {n_cases} calls "
+          f"{max(rep['max_abs_diff'])}; K1 nodes {rep['k1_nodes']}; no "
+          f"sync and no release in a warm call [{card}]")
     return rep
 
 
@@ -3528,7 +3474,7 @@ def run_compiled(P, E, MG, K, card, dev="cuda", sz=COMPILED):
     from cluster_generator_tpu_torch.core import compiled as C
 
     # a clean memo: each program's first call in this phase is its
-    # capture, whose seconds and pool are measured
+    # capture
     C.clear()
     n_cases = sz["replays"] + 1
     f64 = dict(dtype=torch.float64, device=dev)
@@ -4638,7 +4584,6 @@ def main() -> int:
     launches.update(md_launches)
 
     root = os.path.dirname(os.path.abspath(__file__))
-    launches["bench"] = run_bench(card, root)
     run_examples(card, root)
     launches.update(run_compiled(P, E, MG, K, card))
     launches.update(run_class_programs(cg, P, V, E, K, card, grad))

@@ -37,3 +37,13 @@ def host_to_device(value, device, dtype=None) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def f64_on(value, device) -> torch.Tensor:
+    """``value`` as a float64 tensor on ``device``: a tensor by a cast
+    (and a move, when it lives elsewhere); a host value (a float, a list,
+    a numpy array) through :func:`host_to_device`, so the copy makes no
+    sync."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float64)
+    return host_to_device(np.asarray(value, dtype=np.float64), device)

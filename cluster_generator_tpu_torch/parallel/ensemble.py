@@ -37,11 +37,11 @@ import numpy as np
 import torch
 
 from ..core import compiled
-from ..core.device import host_to_device, resolve_device
-from ..core.draws import (collisionless_uniforms, gas_uniforms, isotropic,
-                          uniform)
+from ..core.device import f64_on, host_to_device, resolve_device
+from ..core.draws import (collisionless_uniforms, gas_uniforms, node_lerp,
+                          radial_draw, uniform, velocity_draw)
 from ..core.grid import linspace, log_radius_grid
-from ..core.interp import _gather, interp_monotone, loguniform_lerp
+from ..core.interp import interp_monotone, loguniform_lerp
 from ..core.profiling import device_stage, span
 from ..core.staging import stream_to_host, to_host
 from ..model.builders import build_from_dens_and_tden
@@ -62,14 +62,6 @@ __all__ = ["build_one_cluster", "build_ensemble", "sample_ensemble_params",
            "datagen_batches", "prorate_species_counts", "nonfinite_counts",
            "ensemble_datagen", "ensemble_datagen_multihost", "read_catalog",
            "catalog_batches", "verify_catalog", "catalog_to_particles"]
-
-
-def _f64(x, device):
-    """``x`` as float64 on ``device``; a host value through pinned memory
-    (:func:`~..core.device.host_to_device`), so the copy makes no sync."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float64)
-    return host_to_device(np.asarray(x, dtype=np.float64), device)
 
 
 def build_one_cluster(M200, conc, z=0.1, f_g=None, rmin=0.1, rmax=10000.0,
@@ -113,7 +105,7 @@ def build_ensemble(M200, conc, z=0.1, num_points=1000, with_df: bool = True,
                    device="cuda"):
     """A batch of clusters: (B,) M200 and conc -> fields of (B, num_points)."""
     dev = resolve_device(device)
-    return build_one_cluster(_f64(M200, dev), _f64(conc, dev), z=z,
+    return build_one_cluster(f64_on(M200, dev), f64_on(conc, dev), z=z,
                              num_points=num_points, with_df=with_df)
 
 
@@ -300,63 +292,34 @@ class _DatagenProgram:
                           "mtot": f["gas_mass"][..., -1]}
         return out
 
-    @staticmethod
-    def _draw_quantiles(u, rq):
-        x = torch.clamp(u * (rq - 1), 0.0, rq - 1 - 1e-6)
-        kq = torch.clamp_max(x.to(torch.int64), rq - 2)  # float32 ulp guard
-        return kq, x - kq.to(torch.float32)
-
     def _collisionless(self, t, n, gen, uniforms):
-        dev = t["r_q"].device
-        f32 = torch.float32
-        B = t["r_q"].shape[0]
-        shape = (B, n)
+        shape = (t["r_q"].shape[0], n)
         if uniforms is None:
-            uniforms = collisionless_uniforms(gen, shape, f32, dev)
+            uniforms = collisionless_uniforms(gen, shape, torch.float32,
+                                              t["r_q"].device)
         u_r, u_q, u_b, pos_dir, vel_dir = uniforms
-        u_speed = (u_q, u_b)
-        kq, wq = self._draw_quantiles(u_r, t["r_q"].shape[-1])
-        radius = ((1.0 - wq) * _gather(t["r_q"], kq)
-                  + wq * _gather(t["r_q"], kq + 1))
-        v_esc = ((1.0 - wq) * _gather(t["v_esc"], kq)
-                 + wq * _gather(t["v_esc"], kq + 1))
-        speed = sample_speeds_joint(t["joint"], kq, wq, uniforms=u_speed)
+        kq, wq, radius, rhat = radial_draw(t["r_q"], u_r, pos_dir)
+        speed = sample_speeds_joint(t["joint"], kq, wq, uniforms=(u_q, u_b))
         # the Bernoulli row pick can exceed the LOCAL escape speed by the
         # inter-node v_esc difference
+        v_esc = node_lerp(t["v_esc"], kq, wq)
         speed = torch.minimum(speed, v_esc.to(speed.dtype))
-        rhat = isotropic(shape, f32, dev, uniforms=pos_dir)
-        pos = radius[..., None] * rhat
-        u = isotropic(shape, f32, dev, uniforms=vel_dir)
-        speed = speed[..., None].to(f32)
-        if self.r_a is None:
-            vel = speed * u
-        else:
-            # Osipkov-Merritt: the table holds the AUGMENTED density's
-            # f(Q), isotropic in (v_r, gamma v_t); map back by dividing
-            # the tangential components by gamma(r)
-            mu = torch.sum(u * rhat, dim=-1, keepdim=True)
-            gamma = torch.sqrt(1.0 + (radius / self.r_a) ** 2)[..., None]
-            vel = speed * (mu * rhat + (u - mu * rhat) / gamma)
-        return pos, vel, (t["mtot"] / n).to(f32)
+        vel = velocity_draw(speed, vel_dir, rhat, radius, self.r_a)
+        return (radius[..., None] * rhat, vel,
+                (t["mtot"] / n).to(torch.float32))
 
     def _gas(self, f, t, n, gen, uniforms):
-        dev = t["r_q"].device
         f32 = torch.float32
         shape = (t["r_q"].shape[0], n)
         if uniforms is None:
-            uniforms = gas_uniforms(gen, shape, f32, dev)
-        u_r, direction = uniforms
-        kq, wq = self._draw_quantiles(u_r, t["r_q"].shape[-1])
-        radius = ((1.0 - wq) * _gather(t["r_q"], kq)
-                  + wq * _gather(t["r_q"], kq + 1))
+            uniforms = gas_uniforms(gen, shape, f32, t["r_q"].device)
+        _, _, radius, rhat = radial_draw(t["r_q"], *uniforms)
         # thermal energy at the DRAWN radius on the log-uniform model
         # grid: a lerp of e between radius-quantile nodes is off by up to
         # ~60% across the wide innermost mass bin
         e_grid = (1.5 * f["pressure"] / f["density"]).to(f32)
         energy = loguniform_lerp(radius, f["radius"], e_grid)
-        pos = radius[..., None] * isotropic(shape, f32, dev,
-                                            uniforms=direction)
-        return pos, energy, (t["mtot"] / n).to(f32)
+        return radius[..., None] * rhat, energy, (t["mtot"] / n).to(f32)
 
     def draws(self, f, dtabs, generator=None, uniforms=None):
         """Every species' particles.  ``uniforms`` (optional) maps a
@@ -476,7 +439,7 @@ def prorate_species_counts(n_total, M200=1.5e15, conc=4.0, num_points=512,
     per-species counts).  Returns ``{"dm": n, "gas": n, "star": n}``
     summing to ``n_total``."""
     dev = resolve_device(device)
-    f = build_one_cluster(_f64([M200], dev), _f64([conc], dev),
+    f = build_one_cluster(f64_on([M200], dev), f64_on([conc], dev),
                           num_points=num_points, with_df=False)
     m_dm = float(f["dark_matter_mass"][0, -1])
     m_gas = float(f["gas_mass"][0, -1])
@@ -598,8 +561,8 @@ def datagen_batches(M200, conc, n_particles_per_cluster, batch_size=256,
     not depend on how many rows it runs on.
     """
     dev = resolve_device(device) if mesh is None else mesh_device(mesh)
-    M200 = _f64(M200, dev)
-    conc = _f64(conc, dev)
+    M200 = f64_on(M200, dev)
+    conc = f64_on(conc, dev)
     _, _, batch_fn = _resolve_batch_fn(n_particles_per_cluster, num_points,
                                        r_a=anisotropy_radius,
                                        gravity=gravity)
@@ -802,8 +765,8 @@ def ensemble_datagen(M200, conc, filename, n_particles_per_cluster,
     from ..core.logging import mylog
 
     dev = resolve_device(device) if mesh is None else mesh_device(mesh)
-    M200 = _f64(M200, dev)
-    conc = _f64(conc, dev)
+    M200 = f64_on(M200, dev)
+    conc = f64_on(conc, dev)
     n_cl = int(M200.shape[0])
     full, counts, batch_fn = _resolve_batch_fn(n_particles_per_cluster,
                                                num_points,
@@ -1205,7 +1168,7 @@ def _rebuild_fields(M200, conc, num_points, gravity, device):
     and brought to the host in one copy: ``{name: (B, num_points)}``
     float64 numpy for the fields of ``_QA_FIELDS``."""
     dev = resolve_device(device)
-    f = build_one_cluster(_f64(M200, dev), _f64(conc, dev),
+    f = build_one_cluster(f64_on(M200, dev), f64_on(conc, dev),
                           num_points=num_points, with_df=False,
                           gravity=gravity)
     return dict(zip(_QA_FIELDS, to_host([f[k] for k in _QA_FIELDS])))

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..core import compiled
-from ..core.device import resolve_device
+from ..core.device import f64_on, resolve_device
 from ..core.draws import uniform
 from ..core.interp import interp
 from ..core.staging import stream_to_host
@@ -42,7 +42,7 @@ from ..model.gravity import get_gravity
 from ..pipeline import (build_merger_models, build_radius_tables,
                         build_speed_tables, merger_uniforms, sample_merger_ic)
 from .ensemble import (_PORT_DRAWS, _SPECIES_MASS, _batch_generator,
-                       _catalog_filenames, _check_r_a, _f64,
+                       _catalog_filenames, _check_r_a,
                        _gathered, _mesh_call, _mesh_ens, _mesh_shard,
                        _open_catalog, _read_cluster, _rebuild_fields,
                        _shard_plan, _stream_batched_catalog,
@@ -68,7 +68,7 @@ def _draws(generator, n, k, device, given=None):
     """``k`` float64 uniform vectors of length ``n`` in [0, 1): ``given``
     or drawn from ``generator`` in order."""
     if given is not None:
-        return [_f64(u, device) for u in given]
+        return [f64_on(u, device) for u in given]
     return [uniform(generator, n, torch.float64, device) for _ in range(k)]
 
 
@@ -84,7 +84,7 @@ def _concentrations(M200, conc_range, generator, device, normals):
         normals = torch.randn(M200.shape, generator=generator,
                               dtype=torch.float64, device=device)
     c_mean = 5.0 * (M200 / 1.0e15) ** (-0.1)
-    return torch.clamp(c_mean * torch.exp(_f64(normals, device) * 0.3),
+    return torch.clamp(c_mean * torch.exp(f64_on(normals, device) * 0.3),
                        *conc_range)
 
 
@@ -227,8 +227,8 @@ def sample_triple_scene_params(generator, n, logM_range=(14.2, 15.3),
     centers, velocities = triple_scene_geometry(
         M200, d12, d12 * _scale(u[4], b_frac_range), _scale(u[5], v_rel_range),
         d3, d3 * _scale(u[7], b_frac_range), _scale(u[8], v3_range))
-    return {"M200": M200, "conc": conc, "centers": _f64(centers, dev),
-            "velocities": _f64(velocities, dev)}
+    return {"M200": M200, "conc": conc, "centers": f64_on(centers, dev),
+            "velocities": f64_on(velocities, dev)}
 
 
 def _split_by_weights(total, weights):
@@ -381,8 +381,8 @@ class _SceneBatch:
 
     def _inputs(self, M200, conc, centers, velocities, r_max):
         dev = self.device
-        return (_f64(M200, dev), _f64(conc, dev), _f64(centers, dev),
-                _f64(velocities, dev), _f64(r_max, dev).reshape(-1))
+        return (f64_on(M200, dev), f64_on(conc, dev), f64_on(centers, dev),
+                f64_on(velocities, dev), f64_on(r_max, dev).reshape(-1))
 
     def run(self, M200, conc, centers, velocities, r_max, generator=None,
             uniforms=None):
@@ -437,8 +437,8 @@ def _scene_inputs(params, device):
     """``(M200, conc, centers, velocities)`` float64 tensors on ``device``
     from a params dict with explicit ``centers``/``velocities`` or the
     binary geometry inputs ``d``, ``b``, ``v_rel``."""
-    M200 = _f64(params["M200"], device)
-    conc = _f64(params["conc"], device)
+    M200 = f64_on(params["M200"], device)
+    conc = f64_on(params["conc"], device)
     if M200.ndim != 2 or M200.shape != conc.shape:
         raise ValueError("params['M200'] and params['conc'] must both be "
                          f"(n_scenes, n_halos); got {tuple(M200.shape)} and "
@@ -453,7 +453,7 @@ def _scene_inputs(params, device):
                              "(triple_scene_geometry builds 3-halo scenes)")
         centers, velocities = binary_scene_geometry(
             M200, params["d"], params["b"], params["v_rel"])
-    centers, velocities = _f64(centers, device), _f64(velocities, device)
+    centers, velocities = f64_on(centers, device), f64_on(velocities, device)
     if (tuple(centers.shape) != (n_sc, H, 3)
             or tuple(velocities.shape) != (n_sc, H, 3)):
         raise ValueError("centers/velocities must be (n_scenes, n_halos, "
@@ -484,7 +484,7 @@ def merger_scene_batches(params, counts, batch_size=64, num_points=512,
     H = M200.shape[1]
     counts = _normalize_counts(
         counts, H, weights=halo_mass_weights(M200) if prorate else None)
-    r_max = _f64(r_max, dev).reshape(-1).expand(H).contiguous()
+    r_max = f64_on(r_max, dev).reshape(-1).expand(H).contiguous()
     batch_fn = _merger_batch_fn(num_points, counts["gas"], counts["dm"],
                                 counts["star"], r_a=anisotropy_radius,
                                 gravity=gravity, device=dev)
@@ -540,10 +540,10 @@ def verify_scene_batch(out, M200, conc, centers, velocities, r_max, counts,
     ``strict`` raises ``ValueError`` on any violation.
     """
     dev = out[next(iter(out))].device
-    M200, conc = _f64(M200, dev), _f64(conc, dev)
-    centers, velocities = _f64(centers, dev), _f64(velocities, dev)
+    M200, conc = f64_on(M200, dev), f64_on(conc, dev)
+    centers, velocities = f64_on(centers, dev), f64_on(velocities, dev)
     B, H = M200.shape
-    r_max = _f64(r_max, dev).reshape(-1).expand(H)
+    r_max = f64_on(r_max, dev).reshape(-1).expand(H)
     f = build_one_cluster(M200.reshape(-1), conc.reshape(-1),
                           num_points=num_points, with_df=False,
                           gravity=gravity)
@@ -756,7 +756,7 @@ def merger_datagen(params, filename, counts, batch_size=64, num_points=512,
     n_sc, H = M200.shape
     counts = _normalize_counts(
         counts, H, weights=halo_mass_weights(M200) if prorate else None)
-    r_max = _f64(r_max, dev).reshape(-1).expand(H).contiguous()
+    r_max = f64_on(r_max, dev).reshape(-1).expand(H).contiguous()
     batch_fn = _merger_batch_fn(num_points, counts["gas"], counts["dm"],
                                 counts["star"], r_a=anisotropy_radius,
                                 gravity=gravity, device=dev)

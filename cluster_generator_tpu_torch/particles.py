@@ -34,7 +34,7 @@ import torch
 
 from .core import compiled
 from .core import constants as C
-from .core.device import host_to_device, resolve_device
+from .core.device import f64_on, resolve_device
 from .core.interp import bracket_for_spline, cubic_spline, spline_eval_at
 from .core.logging import mylog
 from .core.profiling import device_stage, span
@@ -505,8 +505,9 @@ class ClusterParticles:
         the device through pinned memory: no host sync)."""
         if ptypes is None:
             ptypes = self.particle_types
-        r_ctr, v_ctr = (self._coerce(("", ""), x) if isinstance(
-            x, torch.Tensor) else _f64(x, self.device) for x in (r_ctr, v_ctr))
+        r_ctr, v_ctr = (self._coerce(("", ""), x)
+                        if isinstance(x, torch.Tensor)
+                        else f64_on(x, self.device) for x in (r_ctr, v_ctr))
         ptypes = _ensure_list(ptypes)
         compiled.room_for(self.device, *(
             self.fields[p, f] for p in ptypes
@@ -741,12 +742,6 @@ def _halo_field(h, name, device):
     return torch.as_tensor(h[name], dtype=torch.float64, device=device)
 
 
-def _f64(value, device):
-    """A host value (centers, velocities, radii) as a float64 tensor on
-    ``device``, through pinned memory: no host sync."""
-    return host_to_device(np.asarray(value, dtype=np.float64), device)
-
-
 @compiled.function(static=("resample",), name="sample_clusters")
 def _mix_gas(pos, columns, halos, centers, bulk, radii, resample):
     """The body of :func:`_sample_clusters` (one program): the new values
@@ -859,8 +854,8 @@ def _sample_clusters(particles, hses, center, velocity, radii=None,
     columns = {name: compiled.padded(particles["gas", name], size)
                for name in (names if read else [])}
     new = _mix_gas(compiled.padded(pos, size), columns, halos,
-                   _f64(center, dev), _f64(velocity, dev),
-                   None if radii is None else _f64(radii, dev),
+                   f64_on(center, dev), f64_on(velocity, dev),
+                   None if radii is None else f64_on(radii, dev),
                    resample=bool(resample))
     for name in names:
         particles["gas", name].copy_(new[name][:num])
@@ -936,10 +931,10 @@ def resample_one_cluster(particles, hse, center, velocity):
             pos, particles["gas", "particle_mass"],
             particles["gas", "density"], _halo_field(hse, "radius", dev),
             _halo_field(hse, "density", dev),
-            _halo_field(hse, "pressure", dev), _f64(center, dev))
+            _halo_field(hse, "pressure", dev), f64_on(center, dev))
     particles["gas", "thermal_energy"] = new["thermal_energy"]
     particles["gas", "particle_mass"] = new["particle_mass"]
-    particles["gas", "particle_velocity"][:, :] = _f64(velocity, dev)
+    particles["gas", "particle_velocity"][:, :] = f64_on(velocity, dev)
     particles["gas", "density"] = new["density"]
     return particles
 

@@ -25,20 +25,20 @@ draws can be compared with another generator's.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from .core import compiled
 from .core.profiling import device_stage, span
-from .core.device import host_to_device, resolve_device
-from .core.draws import collisionless_uniforms, gas_uniforms, isotropic
+from .core.device import f64_on, resolve_device
+from .core.draws import (collisionless_uniforms, gas_uniforms, node_index,
+                         radial_draw, velocity_draw)
 from .core.grid import linspace
 from .core.interp import _gather, interp, interp_monotone
 from .parallel.ensemble import build_one_cluster
 from .virial import (_banded_row_lerp, compute_df, om_extended_df,
-                     speed_inverse_cdf_table, speed_table_defaults)
+                     sample_speeds_joint, speed_inverse_cdf_table,
+                     speed_table_defaults)
 
 __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
            "build_radius_tables", "merger_uniforms", "sample_merger_ic",
@@ -46,14 +46,6 @@ __all__ = ["build_merger_models", "speed_table_inputs", "build_speed_tables",
            "binary_merger_ic", "attach_field_to_particles"]
 
 _RQ = 2048  # radius quantile-table resolution
-
-
-def _f64(x, device):
-    """``x`` as float64 on ``device``; a host value through pinned memory
-    (:func:`~.core.device.host_to_device`), so the copy makes no sync."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float64)
-    return host_to_device(np.asarray(x, dtype=np.float64), device)
 
 
 def build_merger_models(M200, conc, z=0.1, num_points=1000,
@@ -77,7 +69,7 @@ def build_merger_models(M200, conc, z=0.1, num_points=1000,
                          "the isotropic model")
     dev = resolve_device(device)
     return _build_merger_models(
-        _f64(M200, dev), _f64(conc, dev), z, num_points=int(num_points),
+        f64_on(M200, dev), f64_on(conc, dev), z, num_points=int(num_points),
         with_star_df=bool(with_star_df),
         r_a=None if r_a is None else float(r_a), gravity=str(gravity))
 
@@ -171,14 +163,14 @@ def build_radius_tables(fields, r_max, dtype=torch.float32):
     ``tables[kind + "_mtot"]`` the (H,) mass inside ``r_max``.  One program
     (JAX ``build_radius_tables``, ``dtype`` static)."""
     if not isinstance(r_max, (float, torch.Tensor)):
-        r_max = _f64(r_max, fields["radius"].device)
+        r_max = f64_on(r_max, fields["radius"].device)
     return _build_radius_tables(fields, r_max, dtype=dtype)
 
 
 @compiled.function(static=("dtype",), name="build_radius_tables")
 def _build_radius_tables(fields, r_max, dtype):
     rr = fields["radius"]
-    r_max = _f64(r_max, rr.device).expand(rr.shape[:-1])
+    r_max = f64_on(r_max, rr.device).expand(rr.shape[:-1])
     q = linspace(0.0, 1.0, _RQ, device=rr.device)
     zero = torch.zeros_like(rr[..., :1])
     rins = torch.cat([zero, rr], dim=-1)
@@ -207,21 +199,7 @@ def _log_grid_locate(radius, rr, dtype, n=None):
     logr0 = torch.log(rr[..., :1]).to(dtype)
     dlog = ((torch.log(rr[..., -1:]) - torch.log(rr[..., :1]))
             / (n - 1)).to(dtype)
-    x = (torch.log(radius) - logr0) / dlog
-    x = torch.clamp(x, 0.0, n - 1 - 1e-6)
-    # integer clamp too: in float32 the 1e-6 margin is below the ulp at
-    # n - 1 for n >= ~32, so x can still round to exactly n - 1
-    j = torch.clamp_max(x.to(torch.int64), n - 2)
-    return j, x - j.to(dtype)
-
-
-def _table_lerp(table, u):
-    """Lerp of ``table`` (..., n) at fractional positions u in [0, 1]."""
-    n = table.shape[-1]
-    x = torch.clamp(u * (n - 1), 0.0, n - 1 - 1e-6)
-    j = torch.clamp_max(x.to(torch.int64), n - 2)  # float32 ulp guard
-    w = x - j.to(table.dtype)
-    return (1.0 - w) * _gather(table, j) + w * _gather(table, j + 1)
+    return node_index((torch.log(radius) - logr0) / dlog, n)
 
 
 def _build_joint_speed_pairs(fields_h, s_inv, r_q, dtype):
@@ -256,36 +234,17 @@ def _sample_collisionless(fields_h, s_inv, r_q, m_rmax, n, center, bulk_v,
     :func:`~.core.draws.isotropic`.  Every argument may carry leading
     batch axes (one scene each); the draws are then ``batch + (n,)``.
     """
-    dev = r_q.device
     shape = r_q.shape[:-1] + (n,)
     if uniforms is None:
-        uniforms = collisionless_uniforms(gen, shape, dtype, dev)
+        uniforms = collisionless_uniforms(gen, shape, dtype, r_q.device)
     u_r, u_q, u_b, pos_dir, vel_dir = uniforms
     rq = r_q.to(dtype)
-    RQ = rq.shape[-1]
-    n_q = s_inv.shape[-1]
-    joint = _build_joint_speed_pairs(fields_h, s_inv, rq, dtype).flatten(-2)
-
-    x = torch.clamp(u_r * (RQ - 1), 0.0, RQ - 1 - 1e-6)
-    kq = torch.clamp_max(x.to(torch.int64), RQ - 2)  # float32 ulp guard
-    wq = x - kq.to(dtype)
-    radius = (1.0 - wq) * _gather(rq, kq) + wq * _gather(rq, kq + 1)
-
-    qm = torch.clamp(u_q * (n_q - 1), 0.0, n_q - 1 - 1e-6)
-    m = torch.clamp_max(qm.to(torch.int64), n_q - 2)  # float32 ulp guard
-    wm = qm - m.to(dtype)
-    k_row = kq + (u_b < wq).to(torch.int64)
-    flat = k_row * n_q + m
-    speed = (1.0 - wm) * _gather(joint, flat) + wm * _gather(joint, flat + 1)
-
-    rhat = isotropic(shape, dtype, dev, uniforms=pos_dir)
+    joint = _build_joint_speed_pairs(fields_h, s_inv, rq, dtype)
+    kq, wq, radius, rhat = radial_draw(rq, u_r, pos_dir)
+    speed = sample_speeds_joint(joint, kq, wq, uniforms=(u_q, u_b))
     pos = radius[..., None] * rhat + center.to(dtype)[..., None, :]
-    vdir = isotropic(shape, dtype, dev, uniforms=vel_dir)
-    if r_a is not None:
-        mu = torch.sum(vdir * rhat, dim=-1, keepdim=True)
-        gamma = torch.sqrt(1.0 + (radius / r_a) ** 2)
-        vdir = mu * rhat + (vdir - mu * rhat) / gamma[..., None]
-    vel = speed[..., None] * vdir + bulk_v.to(dtype)[..., None, :]
+    vel = (velocity_draw(speed, vel_dir, rhat, radius, r_a)
+           + bulk_v.to(dtype)[..., None, :])
     pmass = (m_rmax / n).to(dtype)[..., None].expand(shape).contiguous()
     return pos, vel, pmass
 
@@ -294,14 +253,11 @@ def _sample_gas_halo(fields_h, r_q, m_rmax, n, center, dtype, gen=None,
                      uniforms=None):
     """Gas positions (zero velocity before mixing) for one halo, with any
     leading batch axes.  ``uniforms``: ``(u_radius, dir)``."""
-    dev = r_q.device
     shape = r_q.shape[:-1] + (n,)
     if uniforms is None:
-        uniforms = gas_uniforms(gen, shape, dtype, dev)
-    u, direction = uniforms
-    radius = _table_lerp(r_q.to(dtype), u)
-    pos = (radius[..., None] * isotropic(shape, dtype, dev, uniforms=direction)
-           + center.to(dtype)[..., None, :])
+        uniforms = gas_uniforms(gen, shape, dtype, r_q.device)
+    _, _, radius, rhat = radial_draw(r_q.to(dtype), *uniforms)
+    pos = radius[..., None] * rhat + center.to(dtype)[..., None, :]
     pmass = (m_rmax / n).to(dtype)[..., None].expand(shape).contiguous()
     return pos, pmass
 
@@ -406,8 +362,8 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
     draws equal the eager body's bit for bit.
     """
     dev = fields["radius"].device
-    centers = _f64(centers, dev)
-    velocities = _f64(velocities, dev)
+    centers = f64_on(centers, dev)
+    velocities = f64_on(velocities, dev)
     if compiled.is_inline():
         return _sample_merger_ic(fields, tables, centers, velocities, r_max,
                                  n_gas, n_dm, n_star, n_tracer, dtype,
@@ -432,7 +388,7 @@ def sample_merger_ic(fields, tables, centers, velocities, r_max, n_gas, n_dm,
 
     draw.generator = generator   # see compiled.drawer
     if not isinstance(r_max, (float, torch.Tensor)):
-        r_max = _f64(r_max, dev)
+        r_max = f64_on(r_max, dev)
     return _sample_merger_ic_program(
         fields, tables, centers, velocities, r_max, draw, n_gas=counts[0],
         n_dm=counts[1], n_star=counts[2], n_tracer=counts[3], dtype=dtype,
@@ -621,11 +577,11 @@ def merger_ic_fused(M200, conc, centers, velocities, r_max, n_gas, n_dm,
             num_points=int(num_points), dtype=dtype,
             compute_potential=bool(compute_potential),
             r_a=None if r_a is None else float(r_a), gravity=str(gravity))
-        inputs = (_f64(M200, dev).reshape(H), _f64(conc, dev).reshape(H),
-                  _f64(centers, dev).reshape(H, 3),
-                  _f64(velocities, dev).reshape(H, 3),
-                  _f64(r_max, dev).reshape(-1).expand(H),
-                  _f64(z, dev).reshape(()))
+        inputs = (f64_on(M200, dev).reshape(H), f64_on(conc, dev).reshape(H),
+                  f64_on(centers, dev).reshape(H, 3),
+                  f64_on(velocities, dev).reshape(H, 3),
+                  f64_on(r_max, dev).reshape(-1).expand(H),
+                  f64_on(z, dev).reshape(()))
         sites = _merger_sites(statics["n_gas"], statics["n_dm"],
                               statics["n_star"], statics["n_tracer"])
         if uniforms is not None:
@@ -674,15 +630,15 @@ def binary_merger_ic(M200s, concs, centers, velocities, num_particles,
     fields, tables)``.
     """
     dev = resolve_device(device)
-    M200s = _f64(M200s, dev)
+    M200s = f64_on(M200s, dev)
     H = M200s.shape[0]
-    centers = _f64(centers, dev).reshape(H, 3)
-    velocities = _f64(velocities, dev).reshape(H, 3)
+    centers = f64_on(centers, dev).reshape(H, 3)
+    velocities = f64_on(velocities, dev).reshape(H, 3)
     if np.isscalar(r_max):
         r_max = torch.full((H,), float(r_max), dtype=torch.float64,
                            device=dev)
     else:
-        r_max = _f64(r_max, dev)
+        r_max = f64_on(r_max, dev)
 
     fields = build_merger_models(M200s, concs, z=z, num_points=num_points,
                                  r_a=r_a, device=dev)

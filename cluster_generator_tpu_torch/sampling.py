@@ -44,7 +44,8 @@ import torch
 
 from .core import compiled
 from .core.device import resolve_device, tensor_on
-from .core.draws import isotropic, isotropic_uniforms, uniform
+from .core.draws import (isotropic, isotropic_uniforms, node_lerp, uniform,
+                         velocity_draw)
 from .core.grid import linspace
 from .core.interp import (cubic_spline, interp, is_loguniform, spline_eval,
                           spline_eval_loguniform)
@@ -154,11 +155,6 @@ def _radius_quantile_nodes(P, rr):
     return torch.minimum(interp(q, P, rr), r_cap)
 
 
-def _node_value_lerp(nodes, kq, wq):
-    """Per-particle lerp of a table of values at the quantile nodes."""
-    return (1.0 - wq) * nodes[kq] + wq * nodes[kq + 1]
-
-
 def _sample_radii_table(r_q, u):
     """``(radius, kq, wq)`` at the float64 uniforms ``u``: computed-index
     lerp on the quantile-node table.  kq/wq feed the joint speed table and
@@ -169,7 +165,7 @@ def _sample_radii_table(r_q, u):
     # integer clamp as well, as at the float32 sites
     kq = torch.clamp_max(x.to(torch.int64), RQ - 2)
     wq = x - kq
-    return _node_value_lerp(r_q, kq, wq), kq, wq
+    return node_lerp(r_q, kq, wq), kq, wq
 
 
 def generate_particle_radii(r, m, num_particles, r_max=None, prng=None,
@@ -504,7 +500,7 @@ def _draw_collisionless(tables, r_a, count, uniforms, num, sub_sample,
     radius_sub, kq, wq, radius, rhat = _drawn_positions(
         tables["r_q"], u_r, u_pos, num, sub_sample)
     pos = radius[:, None] * rhat
-    psi_p = _node_value_lerp(tables["psi_q"], kq, wq)
+    psi_p = node_lerp(tables["psi_q"], kq, wq)
 
     speed_sub = sample_speeds_joint(tables["joint"], kq, wq,
                                     uniforms=u_speed)
@@ -516,17 +512,8 @@ def _draw_collisionless(tables, r_a, count, uniforms, num, sub_sample,
     speed_sub = torch.minimum(speed_sub,
                               torch.sqrt(2.0 * psi_p).to(speed_sub.dtype))
     speed = _tile(speed_sub, sub_sample, num)
-    u = isotropic(num, torch.float64, pos.device, uniforms=u_vel)
-    if r_a is None:
-        vel = speed[:, None] * u
-    else:
-        # Osipkov-Merritt: with w = gamma v_t the DF f(Q) is isotropic in
-        # (v_r, w) space, so the isotropic draw above is the (v_r, w)
-        # draw; mapping back divides the tangential part by gamma(r).
-        # rhat is the position draw's own unit vector (exact at r = 0).
-        mu = torch.sum(u * rhat, dim=1, keepdim=True)
-        gamma = torch.sqrt(1.0 + (radius / r_a) ** 2)[:, None]
-        vel = speed[:, None] * (mu * rhat + (u - mu * rhat) / gamma)
+    # rhat is the position draw's own unit vector (exact at r = 0)
+    vel = velocity_draw(speed, u_vel, rhat, radius, r_a)
 
     fields = OrderedDict()
     fields[short, "particle_position"] = pos

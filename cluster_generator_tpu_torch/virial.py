@@ -35,7 +35,7 @@ import torch
 from .core import compiled
 from .core.config import cgparams
 from .core.device import host_to_device
-from .core.draws import uniform
+from .core.draws import node_index, uniform
 from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
@@ -323,12 +323,9 @@ def sample_speeds_joint(joint, kq, wq, generator=None, uniforms=None):
         ub = uniform(generator, kq.shape, dtype, joint.device)
     else:
         uq, ub = uniforms
-    qm = torch.clamp(uq * (n_q - 1), 0.0, n_q - 1 - 1e-6)
-    # integer clamp: in float32 the 1e-6 margin is below the ulp at
-    # n_q - 1, so qm can round to n_q - 1 and m + 1 would spill into the
-    # next radius row of the flattened table
-    m = torch.clamp_max(qm.to(torch.int64), n_q - 2)
-    wm = qm - m.to(dtype)
+    # m <= n_q - 2, so m + 1 never spills into the next radius row of the
+    # flattened table
+    m, wm = node_index(uq * (n_q - 1), n_q)
     k_row = kq + (ub < wq.to(dtype)).to(torch.int64)
     flat = joint.reshape(joint.shape[:-2] + (-1,))
     idx = k_row * n_q + m

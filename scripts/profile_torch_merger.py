@@ -1,20 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main paths goes, on one NVIDIA card.
+"""Where the time of the port's paths that no benchmark cell covers goes,
+on one NVIDIA card.  The fused merger and the datagen batch program are
+the benchmark's cells: ``python3 portbench/run.py --workload <cell>
+--trace 1`` splits their calls by stage, host span and idle gap.
 
-``--path merger``: one replay of the fused merger program
-(``cluster_generator_tpu_torch.pipeline.merger_ic_fused``) at the full
-1e7-particle binary-merger workload of ``chip_smoke.py``.
-``--path datagen``: one replay of the ensemble datagen batch program
-(``parallel.ensemble._datagen_full_batch_fn``) at ``chip_smoke.py``'s full
-width, 256 clusters of 1e5 particles on a 512-point grid.  These two run
-warm, once under ``torch.profiler``, and split that one replay by the
-stage marks its graph holds (``core.profiling.device_stage``): one JSON
-line per stage (models, dfs, tables, draws) with its device time, share of
-the call's device work and first kernels, then one line for the call: its
-host wall time profiled and not, device busy time, the copies to the
-host, the host's time and launches in each span
-(``core.profiling.span``) and the longest idle gaps, each named by the
-host event covering it (a span where one does).
 ``--path model``: the single-cluster class path at ``chip_smoke.py``'s full
 width (the profiles with their solvers, a 4096-point ``ClusterModel``, both
 DFs, both speed tables, and each ``generate_*_particles`` call, first and
@@ -41,11 +30,10 @@ warm, under ``torch.profiler``, one stage at a time, and prints for each
 stage one JSON line: host wall time, number of kernel launches, device busy
 time (union of kernel intervals) and busy share.  Then it prints the
 repository's own kernels and the ten that took the most device time over
-the whole path.  The default, ``both``, runs the merger and the datagen
-path.  The trace arithmetic is ``portbench/yardstick``'s.
+the whole path.  The trace arithmetic is ``portbench/yardstick``'s.
 
     python3 scripts/profile_torch_merger.py \
-        [--path merger|datagen|model|fields|scenes|ics|catalog|grid|both]
+        --path model|fields|scenes|ics|catalog|grid
 
 Needs a CUDA device; imports no JAX.
 """
@@ -59,51 +47,22 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (AREPO_NX, CATALOG_SEED, CENTERS,  # noqa: E402
-                        CLASS_COUNTS, CLASS_POINTS, CONC, DATAGEN_BATCH,
-                        DATAGEN_COUNTS, DATAGEN_POINTS, DATAGEN_SEED,
-                        FIELD_DIMS, FIELD_SEED, GRID_BATCH, GRID_BETA,
-                        GRID_BOX, GRID_CHUNK, GRID_DIMS, GRID_VELOCITY,
-                        IC_BOX, IC_TOTALS, M200, N_DM, N_GAS, N_STAR, R_MAX,
-                        RADIAL_DIMS, SCENE_BATCH, SCENE_COUNTS, SCENE_POINTS,
-                        VELOCITIES, build_class_model, class_profiles,
-                        ic_combine, ic_draws, ic_geometry, ic_resample,
-                        kernel_profile, make_field, merger_models,
-                        nvidia_smi_line, radial_field, run_main_path,
-                        scene_params)
+from chip_smoke import (AREPO_NX, CATALOG_SEED, CLASS_COUNTS,  # noqa: E402
+                        CLASS_POINTS, DATAGEN_BATCH, DATAGEN_COUNTS,
+                        DATAGEN_POINTS, FIELD_DIMS, FIELD_SEED, GRID_BATCH,
+                        GRID_BETA, GRID_BOX, GRID_CHUNK, GRID_DIMS,
+                        GRID_VELOCITY, IC_BOX, IC_TOTALS, R_MAX, RADIAL_DIMS,
+                        SCENE_BATCH, SCENE_COUNTS, SCENE_POINTS,
+                        build_class_model, class_profiles, ic_combine,
+                        ic_draws, ic_geometry, ic_resample, kernel_profile,
+                        make_field, merger_models, nvidia_smi_line,
+                        radial_field, run_main_path, scene_params)
 from portbench.yardstick import kernels as yard_kernels  # noqa: E402
-from portbench.yardstick import stages as yard_stages  # noqa: E402
 from portbench.yardstick import trace as yard_trace  # noqa: E402
-
-
-def merger_call():
-    """One call of the fused merger program, from the same seed."""
-    from cluster_generator_tpu_torch import pipeline as P
-
-    gen = torch.Generator(device="cuda")
-
-    def call():
-        return P.merger_ic_fused(M200, CONC, CENTERS, VELOCITIES, R_MAX,
-                                 N_GAS, N_DM, N_STAR,
-                                 generator=gen.manual_seed(0), device="cuda")
-    return call
-
-
-def datagen_call():
-    """One call of the datagen batch program, from the same seed."""
-    from cluster_generator_tpu_torch.parallel import ensemble as E
-
-    gen = torch.Generator(device="cuda").manual_seed(DATAGEN_SEED)
-    M, c = E.sample_ensemble_params(gen, DATAGEN_BATCH)
-    prog = E._datagen_full_batch_fn(DATAGEN_POINTS, DATAGEN_COUNTS["dm"],
-                                    DATAGEN_COUNTS["gas"],
-                                    DATAGEN_COUNTS["star"])
-    return lambda: prog(M, c, gen.manual_seed(DATAGEN_SEED))
 
 
 def model_stages():
@@ -310,74 +269,6 @@ def grid_stages():
             ("momentum_copies", scaled)]
 
 
-def by_span(events, window):
-    """Host milliseconds and calls that put work on a stream
-    (``HOST_LAUNCHES`` of ``portbench/yardstick/trace.py``) in each span of
-    ``window``: ``{name: [ms, launches]}``; launches inside no span under
-    ``""``."""
-    found = sorted(yard_stages.spans(events, window),
-                   key=lambda e: e.start_us)
-    out = {}
-    for e in found:
-        out.setdefault(e.name, [0.0, 0])[0] += e.dur_us / 1e3
-    for e in yard_trace.within(events, window,
-                               ("cuda_runtime", "cuda_driver")):
-        if e.name not in yard_trace.HOST_LAUNCHES:
-            continue
-        within = [s for s in found if s.start_us <= e.start_us < s.end_us]
-        name = within[-1].name if within else ""
-        out.setdefault(name, [0.0, 0])[1] += 1
-    return out
-
-
-def profile_replay(path, call, card):
-    """One warm call of a fused program under the profiler, split by the
-    stage marks its graph holds and by the host spans of the call."""
-    for _ in range(2):  # warm: captured, then replayed once
-        call()
-    torch.cuda.synchronize()
-    plain = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        plain.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    host = yard_trace.events_of(prof)
-    dev = [e for e in host if e.kind in yard_trace.DEVICE_KINDS]
-    window = yard_trace.extent(dev)
-    busy_ms = yard_trace.busy_us(dev, window) / 1e3
-    work = yard_stages.work(dev)
-    work_us = yard_trace.busy_us(work, window)
-    for stage, (us, _) in yard_stages.stage_us(dev, window).items():
-        top = {}
-        for _, _, a, b in (x for x in yard_stages.stretches(dev, window)
-                           if x[1] == stage):
-            for e in yard_trace.within(work, (a, b)):
-                top[e.name] = top.get(e.name, 0.0) + e.dur_us
-        print(json.dumps({
-            "path": path, "stage": stage, "busy_ms": us / 1e3,
-            "share_of_work": us / work_us if work_us else None,
-            "top_kernels": [{"name": n[:90], "ms": v / 1e3} for n, v in
-                            sorted(top.items(), key=lambda kv: -kv[1])[:5]],
-            "card": card}))
-    hwin = yard_trace.extent([e for e in host
-                              if e.kind not in yard_trace.DEVICE_KINDS])
-    print(json.dumps({
-        "path": path, "wall_ms": wall_ms, "unprofiled_wall_ms": plain,
-        "busy_ms": busy_ms, "work_ms": work_us / 1e3,
-        "dtoh_ms": yard_trace.copy_us(dev, window, "DtoH") / 1e3,
-        "marks": [s for _, s in yard_stages.marks(dev, window)],
-        "host_by_span": by_span(host, hwin),
-        "host_launches": yard_trace.host_launches(host, hwin),
-        "idle_gaps": yard_trace.gap_causes(host, hwin), "card": card}))
-
-
 def profile_path(path, stages, card):
     for _ in range(2):  # warm: kernels built, allocator pools filled
         for _, fn in stages:
@@ -425,32 +316,18 @@ def profile_path(path, stages, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("merger", "datagen", "model", "fields",
-                                       "scenes", "ics", "catalog", "grid",
-                                       "both"),
-                    default="both")
+    ap.add_argument("--path", required=True,
+                    choices=("model", "fields", "scenes", "ics", "catalog",
+                             "grid"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_merger: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = nvidia_smi_line()
-    if args.path in ("merger", "both"):
-        profile_replay("merger", merger_call(), card)
-    if args.path in ("datagen", "both"):
-        profile_replay("datagen", datagen_call(), card)
-    if args.path == "model":
-        profile_path("model", model_stages(), card)
-    if args.path == "fields":
-        profile_path("fields", fields_stages(), card)
-    if args.path == "scenes":
-        profile_path("scenes", scenes_stages(), card)
-    if args.path == "ics":
-        profile_path("ics", ics_stages(), card)
-    if args.path == "catalog":
-        profile_path("catalog", catalog_stages(), card)
-    if args.path == "grid":
-        profile_path("grid", grid_stages(), card)
+    stages = {"model": model_stages, "fields": fields_stages,
+              "scenes": scenes_stages, "ics": ics_stages,
+              "catalog": catalog_stages, "grid": grid_stages}[args.path]
+    profile_path(args.path, stages(), nvidia_smi_line())
     return 0
 
 

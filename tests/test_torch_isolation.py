@@ -356,9 +356,9 @@ def test_port_runs_a_scene_without_h5py_and_yaml():
 
 
 def test_no_source_of_the_port_names_a_foreign_import():
-    """Every ``.py`` file of the port, the smoke run, the port's bench
-    script, its examples and its scripts: no import of JAX or the JAX
-    package anywhere, and none of h5py at module level."""
+    """Every ``.py`` file of the port, the smoke run, its examples and
+    its scripts: no import of JAX or the JAX package anywhere, and none of
+    h5py at module level."""
     import ast
     import glob
 
@@ -368,7 +368,6 @@ def test_no_source_of_the_port_names_a_foreign_import():
                                     "**", "*.py"), recursive=True)
              + examples
              + [os.path.join(ROOT, "chip_smoke.py"),
-                os.path.join(ROOT, "bench_torch.py"),
                 os.path.join(ROOT, "scripts", "bench_k1.py"),
                 os.path.join(ROOT, "scripts", "profile_torch_merger.py"),
                 os.path.join(ROOT, "scripts", "probe_overlap.py"),
