@@ -14,6 +14,10 @@ Phases, in order; any failure exits non-zero before the last line:
    bit, at the shapes the three main paths give it (merger, ensemble batch
    and single-cluster class path; DM and stars) and on rows that probe its
    bin selection, and time kernel, plain version and a library yardstick;
+   the Abel kernel of the DFs within 1e-12 of each row's largest |g| (its
+   own summation order), at the DF shapes of the ensemble batch, the
+   merger and the class path and on edge rows, with the same bits at
+   every lane count;
 4. drive the first main path, ``merger_ic_fused``, at the full
    1e7-particle binary-merger workload: one first run and three warm runs,
    then check counts, dtypes, finiteness, bulk velocities and that the
@@ -343,6 +347,9 @@ K1_KERNEL = "invert_cdf_rows_kernel"    # K1's name in a profiler trace
 
 IN_PROGRAM = " (in a program call)"   # see count_syncs
 K1_TOL = 0.0        # kernel vs plain version: bit-identical
+# the Abel kernel vs its plain version, over each row's largest |g|: the
+# same float64 terms summed in another order
+ABEL_RTOL = 1e-12
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
 DF_RTOL = 1e-6      # DFs: the spline derivative amplifies roundoff
 TABLE_TOL = 5e-6    # float32 tables, card vs CPU
@@ -697,6 +704,177 @@ def check_speed_cdf(P, V, S, E):
                       "max_abs_err": errs[name], "ms": ms,
                       "device_ms": dev_ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": bound_by}
+    return rows, max(errs.values())
+
+
+def abel_path_cases(P, V, E, dev="cuda",
+                    batches=(DATAGEN_BATCH, 64, DATAGEN_OM_BATCH)):
+    """The Abel kernel's arguments on the main paths, recorded from the
+    port's own DF builds on the card (every program's eager body):
+    ``[(name, (x, b, c, d, ee)), ...]`` for the ensemble batch (256
+    clusters; its Osipkov-Merritt batch on the 704-point extended grid), a
+    batch of 64, the merger (two halos, ergodic and Osipkov-Merritt on
+    1192 points) and the class path (one cluster on 1000 points), DM and
+    stars each.  ``dev`` and ``batches`` (the three ensemble batches) for
+    a rehearsal on the CPU."""
+    import cluster_generator_tpu_torch as cg
+    from cluster_generator_tpu_torch.core import compiled as C
+
+    real, seen, cases = V.abel_g_rows, [], []
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    def run(path, build):
+        build()
+        check(len(seen) == 2, f"Abel {path}: {len(seen)} DF builds, want 2")
+        cases.extend((f"{path}_{sp}", a) for sp, a in zip(("dm", "star"),
+                                                          seen))
+        seen.clear()
+
+    gen = torch.Generator(device=dev).manual_seed(DATAGEN_SEED)
+    M, c = E.sample_ensemble_params(gen, max(batches), device=dev)
+    V.abel_g_rows = record
+    try:
+        with C.eager():
+            paths = (("datagen", None), ("datagen_b64", None),
+                     ("datagen_om", DATAGEN_R_A))
+            for (path, r_a), n in zip(paths, batches):
+                prog = E._datagen_full_batch_fn(DATAGEN_POINTS, 1, 0, 1,
+                                                r_a=r_a)
+                run(path, lambda: prog.dfs(prog.models(M[:n], c[:n])))
+            run("merger", lambda: P.build_merger_models(M200, CONC,
+                                                        device=dev))
+            run("merger_om", lambda: P.build_merger_models(
+                M200, CONC, r_a=MERGER_R_A, device=dev))
+
+            def class_dfs():
+                m = build_class_model(cg, num_points=1000, device=dev)
+                return m.dm_virial.df, m.star_virial.df
+
+            run("class", class_dfs)
+    finally:
+        V.abel_g_rows = real
+    return cases
+
+
+def abel_edge_cases(dev):
+    """Arguments that probe the Abel kernel's edges, on the density
+    spline of a smooth rising rho(psi) over geometric knots: N no multiple
+    of a piece or a group, N above one group of shared memory (4096 +
+    192), a flat density (g = 0), rows off the knots (at 0, inside
+    interval 0 and above the last knot), an odd row count, one row, no
+    leading axis, and knots shared by every entry."""
+    from cluster_generator_tpu_torch.core.interp import cubic_spline
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def spline(entries, n, flat=False, lead=None, shared=False):
+        top = 1.0 + 9.0 * torch.rand((entries, 1), generator=gen,
+                                     dtype=torch.float64, device=dev)
+        if shared:  # entry 0's knots for every entry
+            top = top[:1].expand(entries, 1)
+        x = top * torch.logspace(-4.0, 0.0, n, dtype=torch.float64,
+                                 device=dev)
+        wiggle = 1.0 + 0.05 * torch.sin(
+            37.0 * x / top + torch.rand((entries, 1), generator=gen,
+                                        dtype=torch.float64, device=dev))
+        rho = torch.ones_like(x) if flat else (x / top) ** 1.7 * wiggle
+        sp = cubic_spline(x, rho)
+        lead = (entries,) if lead is None else lead
+        return [t.reshape(lead + t.shape[-1:]) for t in (sp.x, sp.b, sp.c,
+                                                          sp.d)]
+
+    def case(entries, n, flat=False, lead=None):
+        x, b, c, d = spline(entries, n, flat, lead)
+        return x, b, c, d, x
+
+    x, b, c, d = spline(3, 300)
+    off = torch.cat([torch.zeros_like(x[:, :1]), 0.5 * x[:, :1], x,
+                     2.0 * x[:, -1:]], dim=-1)
+    sx, sb, sc, sd = spline(4, 200, shared=True)
+    return [("n_777", case(3, 777)),
+            ("n_4288", case(2, 4096 + 192)),
+            ("flat_density", case(2, 300, flat=True)),
+            ("rows_off_the_knots", (x, b, c, d, off)),
+            ("odd_rows", (x, b, c, d, x[:, :99])),
+            ("one_row", (x, b, c, d, x[:, 150:151])),
+            ("no_lead_axis", case(1, 512, lead=())),
+            ("shared_knots", (sx[0], sb, sc, sd, sx[0]))]
+
+
+def abel_row_err(got, want):
+    """max over rows of max |got - want| / max |want| (a row: one entry's
+    g), a row of zeros taken as 1."""
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(scale > 0.0, scale, torch.ones_like(scale))
+    return float(((got - want).abs() / scale).max())
+
+
+def abel_bound_ms(args):
+    """Least time of the Abel kernel's work: its float64 operations (the
+    terms with lo_k < E_i, each a square root counted as 6 and 26 adds and
+    multiplies) at the card's float64 rate, or its inputs and g moved once
+    at the HBM rate."""
+    x, b, c, d, ee = args
+    lo = torch.cat([torch.zeros_like(x[..., :1]), x[..., :-1]], dim=-1)
+    terms = int((lo[..., None, :] < ee[..., :, None]).sum())
+    rows = ee.numel()
+    nbytes = 8 * (x.numel() + b.numel() + c.numel() + d.numel() + 2 * rows)
+    t_ops = terms * 32 / FP64_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), terms
+
+
+def check_abel(P, V, A, E):
+    """The Abel kernel against its plain version on the card at the path
+    shapes and the edge rows: g within ``ABEL_RTOL`` of each row's
+    largest |g| (only the summation order differs), every lane count the
+    same bits; returns ``(timing rows of the path shapes by name, largest
+    row error)``."""
+    dev = torch.device("cuda")
+    path_cases = abel_path_cases(P, V, E)
+    errs = {}
+    for name, args in path_cases + abel_edge_cases(dev):
+        before = A.abel_g_rows.launches
+        got = A.abel_g_rows(*args)
+        want = A.abel_g_rows_plain(*args)
+        sync()
+        check(A.abel_g_rows.launches == before + 1,
+              f"Abel {name}: {A.abel_g_rows.launches - before} launches")
+        check(got.shape == want.shape and got.dtype == torch.float64,
+              f"Abel {name}: shape {tuple(got.shape)} dtype {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"Abel {name}: non-finite")
+        err = errs[name] = abel_row_err(got, want)
+        lead = A._check(*args)
+        same = all(torch.equal(got, A._launch(*args, lead, log_s=s))
+                   for s in range(6))
+        print(f"Abel {name}: {tuple(got.shape)} on {args[0].shape[-1]} "
+              f"knots  max row |kernel - plain| / max|g| = {err:.3e}, "
+              f"every lane count the same bits: {same}")
+        check(err <= ABEL_RTOL, f"Abel {name}: {err} > {ABEL_RTOL}")
+        check(same, f"Abel {name}: the lane counts give different bits")
+    del got, want
+    rows = {}
+    for name, args in path_cases:
+        ms = cuda_ms(lambda: A.abel_g_rows(*args), 100)
+        plain_ms = cuda_ms(lambda: A.abel_g_rows_plain(*args), 3)
+        bound, bound_by, terms = abel_bound_ms(args)
+        _, events, _ = kernel_profile(lambda: A.abel_g_rows(*args))
+        dev_ms = sum(e.dur_us for e in events
+                     if "abel_g_rows_kernel" in e.name) / 1e3
+        shape = f"{'x'.join(map(str, args[4].shape))} on {args[0].shape[-1]}"
+        print(f"Abel {name}: {shape} kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms, {ms / bound:.1f}x bound), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}, "
+              f"{terms} terms)")
+        rows[name] = {"path_shape": name, "shape": shape,
+                      "max_row_err": errs[name], "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "terms": terms}
     return rows, max(errs.values())
 
 
@@ -4462,6 +4640,7 @@ def main() -> int:
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
     from cluster_generator_tpu_torch.core import compiled as C
+    from cluster_generator_tpu_torch.ops import abel as A
     from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
     from cluster_generator_tpu_torch.ops import speed_cdf as S
@@ -4482,19 +4661,26 @@ def main() -> int:
 
     k1, k1_err = check_k1(P, K, V, E)
     speed, speed_err = check_speed_cdf(P, V, S, E)
+    abel, abel_err = check_abel(P, V, A, E)
 
     # launches of the speed-CDF kernel on the main paths, one beside each
-    # of K1's: each float32 speed table launches both once
-    launches, cdf_launches = {}, {}
+    # of K1's: each float32 speed table launches both once; and of the
+    # Abel kernel, one per DF (DM and stars)
+    launches, cdf_launches, abel_launches = {}, {}, {}
     K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
+    A.abel_g_rows.launches = 0
     parts, _, first_s = run_main_path(P)
     launches["merger"] = K.invert_cdf_rows.launches
     cdf_launches["merger"] = S.speed_cdf_rows_f32.launches
+    abel_launches["merger"] = A.abel_g_rows.launches
     print(f"main path first run: {first_s:.3f} s; K1 launches "
-          f"{launches['merger']}, speed-CDF kernel {cdf_launches['merger']}")
-    check(launches["merger"] == 2 and cdf_launches["merger"] == 2,
+          f"{launches['merger']}, speed-CDF kernel {cdf_launches['merger']}, "
+          f"Abel kernel {abel_launches['merger']}")
+    check(launches["merger"] == 2 and cdf_launches["merger"] == 2
+          and abel_launches["merger"] == 2,
           f"the merger path launched K1 {launches['merger']} times, the "
-          f"speed-CDF kernel {cdf_launches['merger']}, want 2 each")
+          f"speed-CDF kernel {cdf_launches['merger']}, the Abel kernel "
+          f"{abel_launches['merger']}, want 2 each")
     check_main_path(parts)
     del parts
     warm = []
@@ -4512,18 +4698,23 @@ def main() -> int:
         {k: round(v, 4) for k, v in stages.items()}))
 
     K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
+    A.abel_g_rows.launches = 0
     parts, _, om_s = run_main_path(P, r_a=MERGER_R_A, n_tracer=N_TRACER,
                                    compute_potential=True)
     launches["merger_switches"] = K.invert_cdf_rows.launches
     cdf_launches["merger_switches"] = S.speed_cdf_rows_f32.launches
+    abel_launches["merger_switches"] = A.abel_g_rows.launches
     print(f"merger with r_a = {MERGER_R_A:g} kpc, {sum(N_TRACER)} tracers and "
           f"potentials: {om_s:.3f} s; K1 launches "
           f"{launches['merger_switches']}, speed-CDF kernel "
-          f"{cdf_launches['merger_switches']} [{card}]")
+          f"{cdf_launches['merger_switches']}, Abel kernel "
+          f"{abel_launches['merger_switches']} [{card}]")
     check(launches["merger_switches"] == 2
-          and cdf_launches["merger_switches"] == 2,
+          and cdf_launches["merger_switches"] == 2
+          and abel_launches["merger_switches"] == 2,
           f"launches: K1 {launches['merger_switches']}, speed CDF "
-          f"{cdf_launches['merger_switches']}, want 2 each")
+          f"{cdf_launches['merger_switches']}, Abel "
+          f"{abel_launches['merger_switches']}, want 2 each")
     check_merger_switches(parts)
     del parts
 
@@ -4621,6 +4812,17 @@ def main() -> int:
         **{k: speed["datagen_dm"][k] for k in
            ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         "shapes": list(speed.values()),
+    }, {
+        "name": "abel_g_rows",
+        "route": "cuda",
+        "source": "cluster_generator_tpu_torch/ops/csrc/abel_g_rows.cu",
+        "replaces": None,
+        "launches": sum(abel_launches.values()),
+        "launches_by_path": abel_launches,
+        "max_row_err": abel_err,
+        **{k: abel["datagen_dm"][k] for k in
+           ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "shapes": list(abel.values()),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

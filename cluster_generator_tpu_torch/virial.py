@@ -1,7 +1,8 @@
 """Eddington-inversion distribution functions and inverse speed-CDF tables.
 
 * :func:`compute_df`: the ergodic DF from the closed-form Abel integral of
-  the density spline's derivative (no quadrature).
+  the density spline's derivative (no quadrature), summed for every row
+  by one launch of a hand-written kernel on the card (:mod:`.ops.abel`).
 * :func:`om_extended_df` / :func:`compute_df_truncated`: the same inversion
   with a power-law continuation of the density below the grid's lowest
   binding energy, for Osipkov-Merritt augmented densities;
@@ -41,6 +42,7 @@ from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
 from .core.logging import mylog
 from .core.profiling import device_stage
+from .ops.abel import abel_g_rows, safe_sqrt
 from .ops.cdf_inverse import invert_cdf_rows
 from .ops.speed_cdf import speed_cdf_rows_f32, trapezoid_cdf
 
@@ -64,46 +66,11 @@ def speed_table_defaults():
     }
 
 
-def _safe_sqrt(x):
-    """sqrt clamped at 0."""
-    pos = x > 0.0
-    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
-
-
 def _abel_g_exact(sp, ee):
-    """g(E_i) = int_0^{E_i} rho'(psi)/sqrt(E_i - psi) dpsi, exactly.
-
-    rho'(psi) on spline interval k is b_k + 2 c_k tau + 3 d_k tau^2
-    (tau = psi - x_k), so with u = sqrt(E - psi) each interval contributes
-
-        G(u) = 2 (k0 u + k2 u^3/3 + k4 u^5/5),   evaluated lo->hi,
-        k0 = b + 2cA + 3dA^2,  k2 = -(2c + 6dA),  k4 = 3d,  A = E - x_k.
-
-    The region psi in [0, x_0) uses interval 0's polynomial extrapolated.
-    Works on ``(..., N)`` with an ``(..., N, N)`` temporary per batch entry.
-    """
-    x = sp.x
-    zero = torch.zeros_like(x[..., :1])
-    lo = torch.cat([zero, x[..., :-1]], dim=-1)[..., None, :]
-    hi = torch.cat([x[..., :1], x[..., 1:]], dim=-1)[..., None, :]
-    xk = torch.cat([x[..., :1], x[..., :-1]], dim=-1)[..., None, :]
-    b = torch.cat([sp.b[..., :1], sp.b], dim=-1)[..., None, :]
-    c = torch.cat([sp.c[..., :1], sp.c], dim=-1)[..., None, :]
-    d = torch.cat([sp.d[..., :1], sp.d], dim=-1)[..., None, :]
-
-    E = ee[..., :, None]
-    u_lo = _safe_sqrt(E - torch.minimum(lo, E))
-    u_hi = _safe_sqrt(E - torch.minimum(hi, E))
-    A = E - xk
-    k0 = b + 2.0 * c * A + 3.0 * d * A * A
-    k2 = -(2.0 * c + 6.0 * d * A)
-    k4 = 3.0 * d
-
-    def G(u):
-        u2 = u * u
-        return 2.0 * u * (k0 + u2 * (k2 / 3.0 + u2 * (k4 / 5.0)))
-
-    return torch.sum(G(u_lo) - G(u_hi), dim=-1)
+    """g(E_i) = int_0^{E_i} rho'(psi)/sqrt(E_i - psi) dpsi of the density
+    spline ``sp`` at the row energies ``ee``, exactly
+    (:func:`.ops.abel.abel_g_rows`: the hand-written kernel on the card)."""
+    return abel_g_rows(sp.x, sp.b, sp.c, sp.d, ee)
 
 
 @compiled.function()
@@ -179,8 +146,8 @@ def check_virial_density(ee, f_vals):
 
     psi = ee[..., :, None]
     # u decreases as E increases: E = lo -> the larger u
-    u_at_lo = _safe_sqrt(psi - torch.minimum(lo, psi))
-    u_at_hi = _safe_sqrt(psi - torch.minimum(hi, psi))
+    u_at_lo = safe_sqrt(psi - torch.minimum(lo, psi))
+    u_at_hi = safe_sqrt(psi - torch.minimum(hi, psi))
     A = psi - xk
     m0 = a + A * (b + A * (c + A * d))
     m2 = -(b + A * (2.0 * c + 3.0 * A * d))

@@ -19,6 +19,11 @@ import torch
 from cluster_generator_tpu_torch import pipeline as P
 from cluster_generator_tpu_torch import virial as V
 from cluster_generator_tpu_torch.core import compiled as C
+from cluster_generator_tpu_torch.ops import abel as A
+from cluster_generator_tpu_torch.ops.abel import (
+    abel_g_rows,
+    abel_g_rows_plain,
+)
 from cluster_generator_tpu_torch.ops.cdf_inverse import (
     invert_cdf_rows,
     invert_cdf_rows_plain,
@@ -135,10 +140,151 @@ def test_speed_cdf_wrapper_refuses_rows_above_its_limit():
 
 
 @pytest.mark.cuda
+def test_abel_kernel_matches_the_plain_sums_at_the_path_shapes():
+    """The DFs' Abel sums as the port builds them on the card (ensemble
+    batches of 256 and 64, the 704-point Osipkov-Merritt batch, the
+    merger's two halos on 1000 and 1192 points, the class path's one
+    cluster): one launch each, within 1e-12 of each row's largest |g| of
+    the plain version (the same terms, summed in another order), the same
+    bits on a second launch and at every lane count."""
+    _card()
+    cases = chip_smoke.abel_path_cases(P, V, E)
+    shapes = {(name, tuple(a[4].shape), a[0].shape[-1]) for name, a in cases}
+    assert {("datagen_dm", (256, 512), 512),
+            ("datagen_b64_dm", (64, 512), 512),
+            ("datagen_om_dm", (256, 704), 704),
+            ("merger_dm", (2, 1000), 1000), ("merger_om_dm", (2, 1192), 1192),
+            ("class_dm", (1000,), 1000)} <= shapes
+    for name, args in cases:
+        before = abel_g_rows.launches
+        got = abel_g_rows(*args)
+        torch.cuda.synchronize()
+        assert abel_g_rows.launches == before + 1, name
+        want = abel_g_rows_plain(*args)
+        assert got.shape == want.shape and got.is_cuda, name
+        err = chip_smoke.abel_row_err(got, want)
+        assert err <= chip_smoke.ABEL_RTOL, (name, err)
+        assert torch.equal(got, abel_g_rows(*args)), name
+        lead = A._check(*args)
+        for log_s in range(6):
+            assert torch.equal(got, A._launch(*args, lead, log_s=log_s)), \
+                (name, log_s)
+
+
+@pytest.mark.cuda
+def test_abel_kernel_at_the_edge_rows():
+    """N of 777 and of 4096 + 192 (past one group of shared memory), a
+    flat density (g = 0 exactly), rows at 0, inside interval 0 and above
+    the last knot, an odd row count, one row, no leading axis, knots
+    shared by the entries."""
+    _card()
+    for name, args in chip_smoke.abel_edge_cases(torch.device("cuda")):
+        got = abel_g_rows(*args)
+        want = abel_g_rows_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape, name
+        err = chip_smoke.abel_row_err(got, want)
+        assert err <= chip_smoke.ABEL_RTOL, (name, err)
+        if name == "flat_density":
+            assert not bool(got.any()) and not bool(want.any())
+        lead = A._check(*args)
+        for log_s in range(6):
+            assert torch.equal(got, A._launch(*args, lead, log_s=log_s)), \
+                (name, log_s)
+
+
+@pytest.mark.cuda
+def test_a_halo_has_the_same_abel_sums_alone_and_in_its_batch():
+    """The kernel's summation order is fixed per row: a cluster's g has
+    the same bits in a batch of 256, of 64 and alone."""
+    _card()
+    args = dict(chip_smoke.abel_path_cases(P, V, E))["datagen_dm"]
+    whole = abel_g_rows(*args)
+    for sl in (slice(0, 64), slice(100, 101), slice(255, 256)):
+        assert torch.equal(whole[sl], abel_g_rows(*(t[sl] for t in args)))
+
+
+def _datagen_density(n):
+    prog = E._datagen_full_batch_fn(512, 1, 0, 1)
+    M, c = E.sample_ensemble_params(
+        torch.Generator(device="cuda").manual_seed(13), n)
+    f = prog.models(M, c)
+    return (-torch.flip(f["gravitational_potential"], (-1,)),
+            torch.flip(f["dark_matter_density"], (-1,)))
+
+
+@pytest.mark.cuda
+def test_compute_df_through_the_kernel_against_the_plain_sums(monkeypatch):
+    """f(E) of a 256-cluster batch within 1e-10 of each row's largest |f|
+    of the DF built on the plain sums, and the gradient through
+    ``compute_df`` (the kernel inside an autograd function) within 1e-9
+    of the plain version's."""
+    _card()
+    ee, pden = _datagen_density(256)
+    with C.eager():
+        got = V.compute_df(ee, pden)
+    gen = torch.Generator("cuda").manual_seed(1)
+    w = torch.rand(pden.shape, generator=gen, dtype=torch.float64,
+                   device="cuda")
+
+    def grad():
+        p = pden.clone().requires_grad_()
+        (V.compute_df(ee, p) * w).sum().backward()
+        return p.grad
+
+    before = abel_g_rows.launches
+    g_kernel = grad()
+    torch.cuda.synchronize()
+    assert abel_g_rows.launches == before + 1
+    monkeypatch.setattr(V, "abel_g_rows", abel_g_rows_plain)
+    with C.eager():
+        want = V.compute_df(ee, pden)
+    g_plain = grad()
+    assert chip_smoke.abel_row_err(got, want) <= 1e-10
+    scale = float(g_plain.abs().max())
+    assert float((g_kernel - g_plain).abs().max()) <= 1e-9 * scale
+
+
+@pytest.mark.cuda
+def test_compute_df_replays_equal_its_eager_body():
+    """``compute_df`` as a program: the capture call and two replays with
+    new densities, each equal to the eager body bit for bit, the kernel
+    one graph node counted once a replay."""
+    _card()
+    ee, pden = _datagen_density(32)
+    C.clear()
+    for k in range(3):
+        p = pden * (1.0 + 0.1 * k)
+        before = abel_g_rows.launches
+        out = V.compute_df(ee, p)
+        torch.cuda.synchronize()
+        assert abel_g_rows.launches == before + 1
+        with C.eager():
+            assert torch.equal(out, V.compute_df(ee, p)), k
+    prog = [q for q in C.programs() if q.nodes.get(abel_g_rows)]
+    assert len(prog) == 1 and prog[0].nodes[abel_g_rows] == 1
+
+
+@pytest.mark.cuda
+def test_abel_wrapper_refuses_float32_and_mixed_devices():
+    _card()
+    x, b, c, d, ee = chip_smoke.abel_edge_cases(torch.device("cuda"))[0][1]
+    before = abel_g_rows.launches
+    with pytest.raises(TypeError, match="float64"):
+        abel_g_rows(x, b.float(), c, d, ee)
+    with pytest.raises(ValueError, match="is on cpu"):
+        abel_g_rows(x, b, c, d, ee.cpu())
+    with pytest.raises(ValueError, match="coefficients"):
+        abel_g_rows(x, b[..., :-1], c, d, ee)
+    assert abel_g_rows.launches == before
+
+
+@pytest.mark.cuda
 def test_main_path_launches_k1_and_stays_finite():
     _card()
     before = invert_cdf_rows.launches
     before_cdf = speed_cdf_rows_f32.launches
+    before_abel = abel_g_rows.launches
     parts, _ = P.merger_ic_fused(
         [1.5e15, 1.0e15], [4.0, 5.0], [[-1500.0, 0, 0], [1500.0, 0, 0]],
         [[0.3, 0, 0], [-0.45, 0, 0]], 5000.0, (30_000, 20_000),
@@ -147,6 +293,7 @@ def test_main_path_launches_k1_and_stays_finite():
     torch.cuda.synchronize()
     assert invert_cdf_rows.launches == before + 2  # DM and stars
     assert speed_cdf_rows_f32.launches == before_cdf + 2
+    assert abel_g_rows.launches == before_abel + 2
     for v in parts.values():
         assert v.is_cuda and bool(torch.isfinite(v).all())
 
@@ -158,12 +305,14 @@ def test_datagen_batch_launches_k1_twice_and_stays_finite():
     M200, conc = E.sample_ensemble_params(gen, 64)
     before = invert_cdf_rows.launches
     before_cdf = speed_cdf_rows_f32.launches
+    before_abel = abel_g_rows.launches
     (b0, out), = E.datagen_batches(
         M200, conc, {"dm": 5000, "gas": 4000, "star": 1000}, batch_size=64,
         seed=3)
     torch.cuda.synchronize()
     assert b0 == 0 and invert_cdf_rows.launches == before + 2
     assert speed_cdf_rows_f32.launches == before_cdf + 2
+    assert abel_g_rows.launches == before_abel + 2
     assert out["dm"][1].shape == (64, 5000, 3) and out["dm"][1].is_cuda
     assert sum(E.nonfinite_counts(out).values()) == 0
 
@@ -357,9 +506,9 @@ def _equal(a, b):
 @pytest.mark.parametrize("program", ["merger", "datagen", "scenes"])
 def test_capture_and_replays_equal_the_eager_body(program):
     """First call (eager warm-up, capture) and two replays with new inputs
-    and seeds, each equal to the eager body bit for bit; K1 and the
-    speed-CDF kernel counted twice per call each, from the graph's two
-    nodes of each on a replay."""
+    and seeds, each equal to the eager body bit for bit; K1, the
+    speed-CDF kernel and the Abel kernel counted twice per call each, from
+    the graph's two nodes of each on a replay."""
     _card()
     dev = "cuda"
     gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
@@ -414,16 +563,19 @@ def test_capture_and_replays_equal_the_eager_body(program):
     for k in range(3):
         before = invert_cdf_rows.launches
         before_cdf = speed_cdf_rows_f32.launches
+        before_abel = abel_g_rows.launches
         out = graph(k)
         torch.cuda.synchronize()
         assert invert_cdf_rows.launches == before + 2
         assert speed_cdf_rows_f32.launches == before_cdf + 2
+        assert abel_g_rows.launches == before_abel + 2
         if k == 1:
             held, snap = out, C.tree_map(torch.clone, out)
         assert _equal(out, eager(k)), k
     prog_ = C.programs()[-1]
     assert prog_.graph is not None
-    assert prog_.nodes == {invert_cdf_rows: 2, speed_cdf_rows_f32: 2}
+    assert prog_.nodes == {invert_cdf_rows: 2, speed_cdf_rows_f32: 2,
+                           abel_g_rows: 2}
     assert _equal(held, snap)
 
 
