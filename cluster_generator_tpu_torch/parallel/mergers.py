@@ -37,6 +37,7 @@ from ..core import compiled
 from ..core.device import f64_on, resolve_device
 from ..core.draws import uniform
 from ..core.interp import interp
+from ..core.profiling import device_stage, span
 from ..core.staging import stream_to_host
 from ..model.gravity import get_gravity
 from ..pipeline import (build_merger_models, build_radius_tables,
@@ -386,16 +387,23 @@ class _SceneBatch:
 
     def run(self, M200, conc, centers, velocities, r_max, generator=None,
             uniforms=None):
-        """The batch, eagerly: the program's body."""
+        """The batch, eagerly: the program's body.  Its stage marks
+        (:func:`~..core.profiling.device_stage`) are the merger's, in
+        order: models, dfs, models, dfs, models (a DF per species), end;
+        tables, end; draws (the gas mixing and the output assembly
+        included), end."""
         M200, conc, centers, velocities, r_max = self._inputs(
             M200, conc, centers, velocities, r_max)
         if generator is None and uniforms is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         with compiled.inline():   # the stages run inline, as in the program
-            fields = self.models(M200, conc)
-            tables = self.tables(fields, r_max)
-            return self.draws(fields, tables, M200, centers, velocities,
-                              r_max, generator, uniforms)
+            with device_stage("models", M200):
+                fields = self.models(M200, conc)
+            with device_stage("tables", M200):
+                tables = self.tables(fields, r_max)
+            with device_stage("draws", M200):
+                return self.draws(fields, tables, M200, centers, velocities,
+                                  r_max, generator, uniforms)
 
     def _body(self, M200, conc, centers, velocities, r_max, uniforms):
         return self.run(M200, conc, centers, velocities, r_max, None,
@@ -492,9 +500,11 @@ def merger_scene_batches(params, counts, batch_size=64, num_points=512,
         lambda b0: _batch_generator(seed, b0, dev))
     pending = None
     for b0 in range(0, int(M200.shape[0]), batch_size):
-        sl = slice(b0, b0 + batch_size)
-        nxt = (b0, batch_fn(M200[sl], conc[sl], centers[sl], velocities[sl],
-                            r_max, make_gen(b0)))
+        with span("cg.host.inputs"):
+            sl = slice(b0, b0 + batch_size)
+            rows_in = (M200[sl], conc[sl], centers[sl], velocities[sl])
+            gen = make_gen(b0)
+        nxt = (b0, batch_fn(*rows_in, r_max, gen))
         if pending is not None:
             yield pending
         pending = nxt

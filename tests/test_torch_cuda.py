@@ -713,6 +713,29 @@ def test_a_program_that_does_not_fit_releases_another():
 
 
 @pytest.mark.cuda
+def test_clear_leaves_no_more_memory_after_each_capture_again():
+    """A program with a GEMM (the scene batch's joint fold) captured,
+    replayed and cleared three times: the memory allocated after each
+    ``clear`` is what it was after the first, and does not grow by a
+    cuBLAS workspace for a new side stream each time."""
+    _card()
+    C.clear()
+    dev = "cuda"
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    M, c, ctr, vel = MG._scene_inputs(
+        MG.sample_merger_scene_params(gen(6), 4), torch.device(dev))
+    prog = MG._merger_batch_fn(256, (500, 500), (600, 600), (100, 100))
+    r_max = torch.full((2,), 5000.0, dtype=torch.float64, device=dev)
+    left = []
+    for k in range(3):
+        prog(M, c, ctr, vel, r_max, gen(k))      # captures
+        prog(M, c, ctr, vel, r_max, gen(k + 3))  # replays
+        C.clear()
+        left.append(torch.cuda.memory_allocated(dev))
+    assert left[1] == left[0] and left[2] == left[0], left
+
+
+@pytest.mark.cuda
 def test_an_eager_join_releases_a_workspace_that_leaves_no_room():
     """Under a memory fraction that leaves beside a held workspace less
     room than a join of two particle containers needs, the package's
@@ -922,7 +945,7 @@ def test_an_eager_site_after_a_release_equals_its_run_with_room(site,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("program", ["merger", "datagen"])
+@pytest.mark.parametrize("program", ["merger", "datagen", "scenes"])
 def test_a_replay_marks_its_stages_in_order(program, monkeypatch):
     """One replay under the profiler's device activity: the stage marks
     the capture recorded, in the body's order; the stages hold at least
@@ -945,12 +968,21 @@ def test_a_replay_marks_its_stages_in_order(program, monkeypatch):
 
         def call(k):
             return P.merger_ic_fused(*args, generator=gen(k))
-    else:
+    elif program == "datagen":
         M, c = E.sample_ensemble_params(gen(5), 32)
         prog = E._datagen_full_batch_fn(512, 5000, 4000, 1000)
 
         def call(k):
             return prog(M, c, gen(k))
+    else:
+        M, c, ctr, vel = MG._scene_inputs(
+            MG.sample_merger_scene_params(gen(6), 8), torch.device(dev))
+        prog = MG._merger_batch_fn(512, (2000, 2000), (2500, 2500),
+                                   (500, 500))
+        r_max = torch.full((2,), 5000.0, dtype=torch.float64, device=dev)
+
+        def call(k):
+            return prog(M, c, ctr, vel, r_max, gen(k))
     call(0)
     call(1)
     torch.cuda.synchronize()
