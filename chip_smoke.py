@@ -17,18 +17,22 @@ Phases, in order; any failure exits non-zero before the last line:
    the Abel kernel of the DFs within 1e-12 of each row's largest |g| (its
    own summation order), at the DF shapes of the ensemble batch, the
    merger and the class path and on edge rows, with the same bits at
-   every lane count;
+   every lane count; the datagen's draw kernel (one launch a species) bit
+   for bit on its isotropic and Osipkov-Merritt paths, at the batches of
+   256 and 64 and on edge uniforms, timed against its byte bound and its
+   plain version;
 4. drive the first main path, ``merger_ic_fused``, at the full
    1e7-particle binary-merger workload: one first run and three warm runs,
    then check counts, dtypes, finiteness, bulk velocities and that the
-   path launched every kernel;
+   path launched every kernel (and not the datagen's draw kernel);
 5. the same call once with Osipkov-Merritt anisotropy, tracers and
    particle potentials, at the same counts;
 6. drive the second main path, ``datagen_batches``, at the ensemble
    product's defaults (batches of 256 clusters, a 512-point grid, 1e5
    particles per cluster over three species): one first batch, a stream
    of 512 clusters, one Osipkov-Merritt batch.  Every batch must launch
-   K1 twice, hold no non-finite value and pass the physics QA of the
+   K1 twice and the draw kernel three times (DM and stars, then gas),
+   hold no non-finite value and pass the physics QA of the
    draws (radius, local escape speed, mass budget, gas energy, KS of the
    radii, and for the OM batch the anisotropy profile);
 7. drive the third main path, the single-cluster class API
@@ -57,7 +61,8 @@ Phases, in order; any failure exits non-zero before the last line:
 12. the fourth main path, the merger-scene batches at cfg6 (256 binary
     scenes of 1e5 particles, batches of 64, a 512-point grid): first
     batch, the warm stream, one Osipkov-Merritt batch, each with K1's
-    launches and the physics QA of the scene catalog on the card;
+    launches (and none of the datagen's draw kernel) and the physics QA
+    of the scene catalog on the card;
 13. the IC scene of ``ClusterICs`` (BASELINE.md's config 4) through the
     module functions its methods call, since the machine has no ``h5py``
     for its files: bench2h-1e7's two halos as class-path models, 1.05e7
@@ -878,6 +883,211 @@ def check_abel(P, V, A, E):
     return rows, max(errs.values())
 
 
+def draw_path_cases(E):
+    """The draw kernel's arguments on the datagen path, recorded from the
+    program's eager body on the card: ``[(name, kind, args, r_a), ...]``,
+    ``kind`` ``"collisionless"`` (args ``(uniforms, r_q, v_esc, joint)``)
+    or ``"gas"`` (``(uniforms, r_q, grid_r, e_grid)``), for the batch of
+    256 (cfg5c's counts: DM, stars, gas), the batch of 64 at ten times
+    the counts, and the Osipkov-Merritt DM batch of 256."""
+    from cluster_generator_tpu_torch.core import compiled as C
+
+    dev, batches, scale = "cuda", (DATAGEN_BATCH, 64), (1, 10)
+
+    real = {"collisionless": E.draw_collisionless, "gas": E.draw_gas}
+    seen = []
+
+    def record(kind):
+        def call(*args):
+            r_a = args[4] if len(args) > 4 else None
+            seen.append((kind, args[:4], r_a))
+            return real[kind](*args)
+        return call
+
+    gen = torch.Generator(device=dev).manual_seed(DATAGEN_SEED)
+    M, c = E.sample_ensemble_params(gen, max(batches), device=dev)
+    cases = []
+    E.draw_collisionless = record("collisionless")
+    E.draw_gas = record("gas")
+    try:
+        with C.eager():
+            runs = [(f"datagen{'' if n == DATAGEN_BATCH else f'_b{n}'}",
+                     n, {k: v * f for k, v in DATAGEN_COUNTS.items()}, None)
+                    for n, f in zip(batches, scale)]
+            runs.append(("datagen_om", batches[0],
+                         dict(DATAGEN_COUNTS, gas=0, star=0), DATAGEN_R_A))
+            for path, n, counts, r_a in runs:
+                prog = E._datagen_full_batch_fn(
+                    DATAGEN_POINTS, counts["dm"], counts["gas"],
+                    counts["star"], r_a=r_a)
+                prog.run(M[:n], c[:n], torch.Generator(
+                    device=dev).manual_seed(DATAGEN_SEED + n))
+                names = [sp for sp in ("dm", "star", "gas") if counts[sp]]
+                check(len(seen) == len(names),
+                      f"draws {path}: {len(seen)} calls, want {len(names)}")
+                cases.extend((f"{path}_{sp}", kind, args, r_a)
+                             for sp, (kind, args, r_a) in zip(names, seen))
+                seen.clear()
+    finally:
+        E.draw_collisionless = real["collisionless"]
+        E.draw_gas = real["gas"]
+    return cases
+
+
+def draw_edge_cases(dev):
+    """Arguments that probe the draw kernel's edges on synthetic tables:
+    uniforms at 0 and one ulp below 1, cos_theta at -1, a count no
+    multiple of a block, a count under one block, one cluster, the
+    fewest nodes (2 radius nodes, 2 quantiles, a 2-point grid), and rows
+    that need several blocks of one cluster; each ``(name, kind, args,
+    r_a)`` as :func:`draw_path_cases`, with an Osipkov-Merritt copy of
+    each collisionless case."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    f32 = torch.float32
+    below_one = float(torch.nextafter(torch.tensor(1.0, dtype=f32),
+                                      torch.tensor(0.0, dtype=f32)))
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, dtype=f32, device=dev)
+
+    def edges(u, lo=0.0):
+        """``u`` with its first entries at ``lo`` and one ulp below 1."""
+        flat = u.view(-1)
+        k = min(4, flat.numel())
+        flat[:k] = torch.tensor([lo, below_one, lo, below_one][:k])
+        return u
+
+    def uniforms(B, n, kind):
+        def direction():
+            return (edges(2.0 * rand(B, n) - 1.0, lo=-1.0),
+                    edges(rand(B, n)))
+
+        if kind == "collisionless":
+            return (edges(rand(B, n)), edges(rand(B, n)), edges(rand(B, n)),
+                    direction(), direction())
+        return edges(rand(B, n)), direction()
+
+    def ascending(B, m, lo, hi):
+        x = torch.cumsum(rand(B, m) + 0.05, dim=-1)
+        x = (x - x[:, :1]) / (x[:, -1:] - x[:, :1])
+        return (lo + (hi - lo) * x).to(f32).contiguous()
+
+    def collisionless(B, n, rq, n_q):
+        r_q = ascending(B, rq, 0.0, 5000.0)
+        v_esc = torch.flip(ascending(B, rq, 0.1, 3.0), (-1,)).contiguous()
+        joint = (torch.cumsum(rand(B, rq, n_q), dim=-1)
+                 / n_q * v_esc[..., None]).contiguous()
+        return uniforms(B, n, "collisionless"), r_q, v_esc, joint
+
+    def gas(B, n, rq, n_grid):
+        lg = torch.linspace(math.log(0.1), math.log(1e4), n_grid,
+                            dtype=torch.float64, device=dev)
+        grid_r = torch.exp(lg).to(f32).expand(B, n_grid).contiguous()
+        r_q = ascending(B, rq, 0.1, 5000.0)
+        e_grid = (1.0 + rand(B, n_grid)).contiguous()
+        return uniforms(B, n, "gas"), r_q, grid_r, e_grid
+
+    # name, clusters, particles, radius nodes, quantiles, grid points
+    shapes = [("odd_n", 3, 1000, 300, 40, 64),
+              ("under_a_block", 2, 100, 64, 16, 32),
+              ("one_cluster", 1, 5000, 2048, 512, 512),
+              ("fewest_nodes", 2, 513, 2, 2, 2),
+              ("many_blocks", 2, 70_000, 2048, 512, 512)]
+    cases = []
+    for name, B, n, rq, n_q, n_grid in shapes:
+        args = collisionless(B, n, rq, n_q)
+        cases.append((f"{name}_collisionless", "collisionless", args, None))
+        cases.append((f"{name}_om", "collisionless", args, DATAGEN_R_A))
+        cases.append((f"{name}_gas", "gas", gas(B, n, rq, n_grid), None))
+    return cases
+
+
+def draw_same(got, want):
+    """The kernel's outputs and the plain version's: the same bits (-0.0
+    and NaN included)."""
+    return all(torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def draw_err(got, want):
+    """The largest |kernel - plain| over the outputs, in float64; a NaN
+    on both sides counts as equal, on one side as infinite."""
+    err = 0.0
+    for g, w in zip(got, want):
+        d = (g.double() - w.double()).abs()
+        both = torch.isnan(g) & torch.isnan(w)
+        d = torch.where(both, 0.0, d.nan_to_num(nan=math.inf))
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def draw_bytes(kind, args):
+    """Bytes the draw must move: its uniforms read and outputs written
+    once, its tables read once, the joint table two floats a particle."""
+    uniforms, tables = args[0], args[1:]
+    flat = [u for x in uniforms for u in (x if isinstance(x, tuple)
+                                          else (x,))]
+    n = flat[0].numel()
+    outs = 6 if kind == "collisionless" else 4
+    nbytes = 4 * n * (len(flat) + outs)
+    if kind == "collisionless":
+        r_q, v_esc, _ = tables
+        nbytes += 4 * (r_q.numel() + v_esc.numel()) + 8 * n
+    else:
+        nbytes += 4 * sum(t.numel() for t in tables)
+    return nbytes
+
+
+def check_draws(E, D):
+    """The draw kernel against its plain version on the card at the
+    datagen path's shapes and the edge uniforms, the same bits on every
+    path (isotropic and Osipkov-Merritt); returns the timing rows of the
+    path shapes by name and the largest |kernel - plain| over every
+    case."""
+    dev = torch.device("cuda")
+    path_cases = draw_path_cases(E)
+    wrap = {"collisionless": D.draw_collisionless, "gas": D.draw_gas}
+    plain = {"collisionless": D.draw_collisionless_plain,
+             "gas": D.draw_gas_plain}
+    max_err = 0.0
+    for name, kind, args, r_a in path_cases + draw_edge_cases(dev):
+        extra = (r_a,) if kind == "collisionless" else ()
+        before = wrap[kind].launches
+        got = wrap[kind](*args, *extra)
+        want = plain[kind](*args, *extra)
+        sync()
+        check(wrap[kind].launches == before + 1,
+              f"draws {name}: {wrap[kind].launches - before} launches")
+        check(all(g.shape == w.shape and g.dtype == torch.float32
+                  for g, w in zip(got, want)), f"draws {name}: shapes")
+        same = draw_same(got, want)
+        err = draw_err(got, want)
+        max_err = max(max_err, err)
+        print(f"draws {name}: {kind} {'x'.join(map(str, args[0][0].shape))}"
+              f"{'' if r_a is None else f', r_a {r_a:g}'}, same bits: {same}"
+              f", max |kernel - plain| {err:.3g}")
+        check(same, f"draws {name}: the kernel's bits differ")
+    del got, want
+    rows = {}
+    for name, kind, args, r_a in path_cases:
+        extra = (r_a,) if kind == "collisionless" else ()
+        ms = cuda_ms(lambda: wrap[kind](*args, *extra), 100)
+        plain_ms = cuda_ms(lambda: plain[kind](*args, *extra), 3)
+        bound = draw_bytes(kind, args) / HBM_BYTES_PER_S * 1e3
+        _, events, _ = kernel_profile(lambda: wrap[kind](*args, *extra))
+        dev_ms = sum(e.dur_us for e in events
+                     if "draw_" in e.name and "_kernel" in e.name) / 1e3
+        shape = "x".join(map(str, args[0][0].shape))
+        print(f"draws {name}: {shape} kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms, {dev_ms / bound:.1f}x bound), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms (bytes)")
+        rows[name] = {"path_shape": name, "shape": shape, "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": "bytes"}
+    return rows, max_err
+
+
 # ------------------------------------------------------------------ phase 4
 def run_main_path(P, **switches):
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1085,10 +1295,11 @@ def datagen_qa(E, QA, M, c, out, r_a, label):
     print(f"{label}: QA", json.dumps(report))
 
 
-def run_datagen(E, K, S, QA, card):
+def run_datagen(E, K, S, D, QA, card):
     """The ensemble datagen path at full width; returns K1's launches on
-    each of its three runs and the speed-CDF kernel's (one of each for
-    every float32 speed table)."""
+    each of its three runs, the speed-CDF kernel's (one of each for
+    every float32 speed table) and the draw kernel's (two collisionless
+    and one gas a batch)."""
     counts = DATAGEN_COUNTS
     per_cluster = sum(counts.values())
     M, c = E.sample_ensemble_params(
@@ -1096,22 +1307,35 @@ def run_datagen(E, K, S, QA, card):
         DATAGEN_CLUSTERS)
     kw = dict(batch_size=DATAGEN_BATCH, num_points=DATAGEN_POINTS,
               seed=DATAGEN_SEED, device="cuda")
-    launches, cdf = {}, {}
+    launches, cdf, draws = {}, {}, {}
 
     def stream(M, c, label, **extra):
         """Consume ``datagen_batches``; seconds until every batch is done,
-        the batches' outputs and the peak memory; the launches of K1 and
-        of the speed-CDF kernel under ``label``."""
+        the batches' outputs and the peak memory; the launches of K1, of
+        the speed-CDF kernel and of the draw kernel under ``label``."""
         torch.cuda.reset_peak_memory_stats()
         K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
+        D.draw_collisionless.launches = D.draw_gas.launches = 0
         sync()
         t0 = time.perf_counter()
         outs = list(E.datagen_batches(M, c, counts, **dict(kw, **extra)))
         sync()
         launches[label] = K.invert_cdf_rows.launches
         cdf[label] = S.speed_cdf_rows_f32.launches
+        draws[label] = (D.draw_collisionless.launches,
+                        D.draw_gas.launches)
         return (time.perf_counter() - t0, outs,
                 torch.cuda.max_memory_allocated() / 2**30)
+
+    def check_draw_launches(label, n_batches):
+        """Two collisionless launches (DM, stars) and one gas launch a
+        batch."""
+        got = draws[label]
+        print(f"{label}: draw kernel launches (collisionless, gas) {got} "
+              f"over {n_batches} batches")
+        check(got == (2 * n_batches, n_batches),
+              f"{label}: draw kernel launches (collisionless, gas) {got}, "
+              f"want {(2 * n_batches, n_batches)}")
 
     B = DATAGEN_BATCH
     first_s, outs, peak = stream(M[:B], c[:B], "datagen_first")
@@ -1122,6 +1346,7 @@ def run_datagen(E, K, S, QA, card):
     check(launches["datagen_first"] == 2 and cdf["datagen_first"] == 2,
           f"launches per batch: K1 {launches['datagen_first']}, speed CDF "
           f"{cdf['datagen_first']}, want 2 each")
+    check_draw_launches("datagen_first", 1)
     datagen_qa(E, QA, M[:B], c[:B], outs[0][1], None, "datagen batch 0")
     del outs
 
@@ -1139,6 +1364,7 @@ def run_datagen(E, K, S, QA, card):
     check(launches["datagen"] == 2 * n_batches == cdf["datagen"],
           f"launches: K1 {launches['datagen']}, speed CDF {cdf['datagen']}, "
           f"want {2 * n_batches} each")
+    check_draw_launches("datagen", n_batches)
     for b0, out in outs:
         bad = E.nonfinite_counts(out)
         check(all(v == 0 for v in bad.values()),
@@ -1157,9 +1383,10 @@ def run_datagen(E, K, S, QA, card):
     check(launches["datagen_om"] == 2 and cdf["datagen_om"] == 2,
           f"launches of the OM batch: K1 {launches['datagen_om']}, speed "
           f"CDF {cdf['datagen_om']}, want 2 each")
+    check_draw_launches("datagen_om", len(outs))
     datagen_qa(E, QA, M[:Bo], c[:Bo], outs[0][1], DATAGEN_R_A,
                "datagen OM batch")
-    return launches, cdf
+    return launches, cdf, {k: sum(v) for k, v in draws.items()}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1924,9 +2151,10 @@ def scene_params(MG, n):
         torch.Generator(device="cuda").manual_seed(SCENE_SEED), n)
 
 
-def run_scenes(MG, K, S, card):
+def run_scenes(MG, K, S, D, card):
     """The merger-scene batches at cfg6; returns K1's launches on each of
-    the three runs and the speed-CDF kernel's."""
+    the three runs and the speed-CDF kernel's; the datagen's draw kernel
+    must not launch."""
     p = scene_params(MG, SCENES)
     per_scene = sum(sum(v) for v in SCENE_COUNTS.values())
     launches, cdf = {}, {}
@@ -1935,6 +2163,7 @@ def run_scenes(MG, K, S, card):
         sub = {k: v[:n] for k, v in p.items()}
         torch.cuda.reset_peak_memory_stats()
         K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
+        D.draw_collisionless.launches = D.draw_gas.launches = 0
         sync()
         t0 = time.perf_counter()
         outs = list(MG.merger_scene_batches(
@@ -1944,6 +2173,9 @@ def run_scenes(MG, K, S, card):
         sync()
         launches[label] = K.invert_cdf_rows.launches
         cdf[label] = S.speed_cdf_rows_f32.launches
+        drawn = D.draw_collisionless.launches + D.draw_gas.launches
+        check(drawn == 0, f"{label}: the datagen's draw kernel launched "
+                          f"{drawn} times")
         return (time.perf_counter() - t0, outs,
                 torch.cuda.max_memory_allocated() / 2**30)
 
@@ -4643,6 +4875,7 @@ def main() -> int:
     from cluster_generator_tpu_torch.ops import abel as A
     from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
+    from cluster_generator_tpu_torch.ops import draw_particles as D
     from cluster_generator_tpu_torch.ops import speed_cdf as S
     from cluster_generator_tpu_torch.parallel import ensemble as E
     from cluster_generator_tpu_torch.parallel import mergers as MG
@@ -4662,6 +4895,7 @@ def main() -> int:
     k1, k1_err = check_k1(P, K, V, E)
     speed, speed_err = check_speed_cdf(P, V, S, E)
     abel, abel_err = check_abel(P, V, A, E)
+    draws, draws_err = check_draws(E, D)
 
     # launches of the speed-CDF kernel on the main paths, one beside each
     # of K1's: each float32 speed table launches both once; and of the
@@ -4669,10 +4903,13 @@ def main() -> int:
     launches, cdf_launches, abel_launches = {}, {}, {}
     K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     A.abel_g_rows.launches = 0
+    D.draw_collisionless.launches = D.draw_gas.launches = 0
     parts, _, first_s = run_main_path(P)
     launches["merger"] = K.invert_cdf_rows.launches
     cdf_launches["merger"] = S.speed_cdf_rows_f32.launches
     abel_launches["merger"] = A.abel_g_rows.launches
+    draw_launches = {"merger": D.draw_collisionless.launches
+                     + D.draw_gas.launches}
     print(f"main path first run: {first_s:.3f} s; K1 launches "
           f"{launches['merger']}, speed-CDF kernel {cdf_launches['merger']}, "
           f"Abel kernel {abel_launches['merger']}")
@@ -4681,6 +4918,9 @@ def main() -> int:
           f"the merger path launched K1 {launches['merger']} times, the "
           f"speed-CDF kernel {cdf_launches['merger']}, the Abel kernel "
           f"{abel_launches['merger']}, want 2 each")
+    check(draw_launches["merger"] == 0,
+          f"the merger path launched the datagen's draw kernel "
+          f"{draw_launches['merger']} times")
     check_main_path(parts)
     del parts
     warm = []
@@ -4699,11 +4939,14 @@ def main() -> int:
 
     K.invert_cdf_rows.launches = S.speed_cdf_rows_f32.launches = 0
     A.abel_g_rows.launches = 0
+    D.draw_collisionless.launches = D.draw_gas.launches = 0
     parts, _, om_s = run_main_path(P, r_a=MERGER_R_A, n_tracer=N_TRACER,
                                    compute_potential=True)
     launches["merger_switches"] = K.invert_cdf_rows.launches
     cdf_launches["merger_switches"] = S.speed_cdf_rows_f32.launches
     abel_launches["merger_switches"] = A.abel_g_rows.launches
+    draw_launches["merger_switches"] = (D.draw_collisionless.launches
+                                        + D.draw_gas.launches)
     print(f"merger with r_a = {MERGER_R_A:g} kpc, {sum(N_TRACER)} tracers and "
           f"potentials: {om_s:.3f} s; K1 launches "
           f"{launches['merger_switches']}, speed-CDF kernel "
@@ -4715,17 +4958,22 @@ def main() -> int:
           f"launches: K1 {launches['merger_switches']}, speed CDF "
           f"{cdf_launches['merger_switches']}, Abel "
           f"{abel_launches['merger_switches']}, want 2 each")
+    check(draw_launches["merger_switches"] == 0,
+          f"the merger with switches launched the datagen's draw kernel "
+          f"{draw_launches['merger_switches']} times")
     check_merger_switches(parts)
     del parts
 
-    k1_by, cdf_by = run_datagen(E, K, S, QA, card)
+    k1_by, cdf_by, draws_by = run_datagen(E, K, S, D, QA, card)
     launches.update(k1_by)
     cdf_launches.update(cdf_by)
+    draw_launches.update(draws_by)
     launches["class"], cdf_launches["class"] = run_class_path(cg, K, S, V,
                                                               card)
-    k1_by, cdf_by = run_scenes(MG, K, S, card)
+    k1_by, cdf_by = run_scenes(MG, K, S, D, card)
     launches.update(k1_by)
     cdf_launches.update(cdf_by)
+    draw_launches.update({label: 0 for label in k1_by})
     check(all(n > 0 for n in launches.values()),
           f"a path never launched K1: {launches}")
 
@@ -4823,6 +5071,17 @@ def main() -> int:
         **{k: abel["datagen_dm"][k] for k in
            ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         "shapes": list(abel.values()),
+    }, {
+        "name": "draw_particles",
+        "route": "cuda",
+        "source": "cluster_generator_tpu_torch/ops/csrc/draw_particles.cu",
+        "replaces": None,
+        "launches": sum(draw_launches.values()),
+        "launches_by_path": draw_launches,
+        "max_abs_err": draws_err,
+        **{k: draws["datagen_dm"][k] for k in
+           ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "shapes": list(draws.values()),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,9 @@ A draw takes a radius from a table of radius-quantile nodes at a uniform
 velocity direction (:func:`isotropic`), and maps the velocity direction
 back from an Osipkov-Merritt model's isotropic (v_r, gamma v_t) space
 (:func:`velocity_draw`).  The speed is the joint-table lookup of
-:func:`~..virial.sample_speeds_joint`, which takes its quantile by the same
-:func:`node_index`.
+:func:`sample_speeds_joint` (the table built by
+:func:`~..virial.build_joint_speed_pairs`), which takes its quantile by the
+same :func:`node_index`.
 
 Every uniform draw takes a ``torch.Generator`` on the tensors' device, or the
 pre-drawn uniforms a caller wants at that random site (how the tests feed
@@ -27,7 +28,8 @@ from .interp import _gather
 
 __all__ = ["uniform", "isotropic", "isotropic_uniforms",
            "collisionless_uniforms", "gas_uniforms", "node_index",
-           "node_lerp", "radial_draw", "velocity_draw"]
+           "node_lerp", "radial_draw", "sample_speeds_joint",
+           "velocity_draw"]
 
 
 def uniform(gen, n, dtype, device, lo=0.0, hi=1.0, out=None):
@@ -124,3 +126,29 @@ def velocity_draw(speed, vel_dir, rhat, radius, r_a=None):
         gamma = torch.sqrt(1.0 + (radius / r_a) ** 2)[..., None]
         vdir = mu * rhat + (vdir - mu * rhat) / gamma
     return speed[..., None] * vdir
+
+
+def sample_speeds_joint(joint, kq, wq, generator=None, uniforms=None):
+    """Speed draw from a joint table (..., RQ, n_q) of
+    :func:`~..virial.build_joint_speed_pairs`.
+
+    ``kq``/``wq``: each particle's radius-quantile index and fractional
+    weight, (..., n).  The table row is picked between the two nodes
+    bracketing the radius by a Bernoulli draw on ``wq``; the speed is the
+    lerp along the quantile axis.  ``uniforms``: ``(u_quantile, u_row)``,
+    else two draws from ``generator``.
+    """
+    dtype = joint.dtype
+    n_q = joint.shape[-1]
+    if uniforms is None:
+        uq = uniform(generator, kq.shape, dtype, joint.device)
+        ub = uniform(generator, kq.shape, dtype, joint.device)
+    else:
+        uq, ub = uniforms
+    # m <= n_q - 2, so m + 1 never spills into the next radius row of the
+    # flattened table
+    m, wm = node_index(uq * (n_q - 1), n_q)
+    k_row = kq + (ub < wq.to(dtype)).to(torch.int64)
+    flat = joint.reshape(joint.shape[:-2] + (-1,))
+    idx = k_row * n_q + m
+    return ((1.0 - wm) * _gather(flat, idx) + wm * _gather(flat, idx + 1))

@@ -121,27 +121,30 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def entry_point(name: str, argtypes: tuple):
-    """``cg_<name>`` of ``csrc/<name>.cu``, bound once: it takes
-    ``argtypes`` and then a stream, and returns a ``cudaError_t``."""
-    fn = getattr(load_library(name), f"cg_{name}")
+def entry_point(name: str, argtypes: tuple, entry: str | None = None):
+    """``cg_<entry>`` (default ``cg_<name>``) of ``csrc/<name>.cu``, bound
+    once: it takes ``argtypes`` and then a stream, and returns a
+    ``cudaError_t``."""
+    fn = getattr(load_library(name), f"cg_{entry or name}")
     fn.argtypes = list(argtypes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch(kernel, name: str, argtypes: tuple, device: torch.device,
-           *args) -> None:
-    """Run ``cg_<name>(*args, stream)`` on ``device``'s current stream (the
-    C functions launch on the current device), raise on a non-zero
-    ``cudaError_t`` and count one launch of ``kernel``, the kernel's
-    Python wrapper (:func:`..core.compiled.count_launch`)."""
-    fn = entry_point(name, argtypes)
+           *args, entry: str | None = None) -> None:
+    """Run ``cg_<entry>(*args, stream)`` of ``csrc/<name>.cu`` (``entry``
+    default ``name``) on ``device``'s current stream (the C functions
+    launch on the current device), raise on a non-zero ``cudaError_t`` and
+    count one launch of ``kernel``, the kernel's Python wrapper
+    (:func:`..core.compiled.count_launch`)."""
+    fn = entry_point(name, argtypes, entry)
     if device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{entry or name} kernel launch failed: "
+                           f"cudaError_t {err}")
     count_launch(kernel)

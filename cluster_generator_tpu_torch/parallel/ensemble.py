@@ -38,13 +38,13 @@ import torch
 
 from ..core import compiled
 from ..core.device import f64_on, host_to_device, resolve_device
-from ..core.draws import (collisionless_uniforms, gas_uniforms, node_lerp,
-                          radial_draw, uniform, velocity_draw)
+from ..core.draws import collisionless_uniforms, gas_uniforms, uniform
 from ..core.grid import linspace, log_radius_grid
-from ..core.interp import interp_monotone, loguniform_lerp
+from ..core.interp import interp_monotone
 from ..core.profiling import device_stage, span
 from ..core.staging import stream_to_host, to_host
 from ..model.builders import build_from_dens_and_tden
+from ..ops.draw_particles import draw_collisionless, draw_gas
 from ..model.gravity import get_gravity
 from ..profiles.library import (snfw_density_profile, snfw_mass_profile,
                                 snfw_total_mass, vikhlinin_density_profile)
@@ -52,8 +52,7 @@ from ..profiles.relations import f_gas
 from ..profiles.solvers import (find_overdensity_radius, find_radius_mass,
                                 mass_within)
 from ..virial import (build_joint_speed_pairs, compute_df, om_extended_df,
-                      sample_speeds_joint, speed_inverse_cdf_table,
-                      speed_table_defaults)
+                      speed_inverse_cdf_table, speed_table_defaults)
 from .mesh import (all_gather_rows, ens_rows, mesh_device, replicated,
                    sharded)
 from .qa import QA_TOLERANCES as _QA
@@ -297,29 +296,19 @@ class _DatagenProgram:
         if uniforms is None:
             uniforms = collisionless_uniforms(gen, shape, torch.float32,
                                               t["r_q"].device)
-        u_r, u_q, u_b, pos_dir, vel_dir = uniforms
-        kq, wq, radius, rhat = radial_draw(t["r_q"], u_r, pos_dir)
-        speed = sample_speeds_joint(t["joint"], kq, wq, uniforms=(u_q, u_b))
-        # the Bernoulli row pick can exceed the LOCAL escape speed by the
-        # inter-node v_esc difference
-        v_esc = node_lerp(t["v_esc"], kq, wq)
-        speed = torch.minimum(speed, v_esc.to(speed.dtype))
-        vel = velocity_draw(speed, vel_dir, rhat, radius, self.r_a)
-        return (radius[..., None] * rhat, vel,
-                (t["mtot"] / n).to(torch.float32))
+        pos, vel = draw_collisionless(uniforms, t["r_q"], t["v_esc"],
+                                      t["joint"], self.r_a)
+        return pos, vel, (t["mtot"] / n).to(torch.float32)
 
     def _gas(self, f, t, n, gen, uniforms):
         f32 = torch.float32
         shape = (t["r_q"].shape[0], n)
         if uniforms is None:
             uniforms = gas_uniforms(gen, shape, f32, t["r_q"].device)
-        _, _, radius, rhat = radial_draw(t["r_q"], *uniforms)
-        # thermal energy at the DRAWN radius on the log-uniform model
-        # grid: a lerp of e between radius-quantile nodes is off by up to
-        # ~60% across the wide innermost mass bin
         e_grid = (1.5 * f["pressure"] / f["density"]).to(f32)
-        energy = loguniform_lerp(radius, f["radius"], e_grid)
-        return radius[..., None] * rhat, energy, (t["mtot"] / n).to(f32)
+        pos, energy = draw_gas(uniforms, t["r_q"], f["radius"].to(f32),
+                               e_grid)
+        return pos, energy, (t["mtot"] / n).to(f32)
 
     def draws(self, f, dtabs, generator=None, uniforms=None):
         """Every species' particles.  ``uniforms`` (optional) maps a

@@ -14,7 +14,8 @@
   kernel K1 (:mod:`.ops.cdf_inverse`), one launch for every halo and row.
 * :func:`build_joint_speed_pairs` / :func:`sample_speeds_joint`: that table
   folded onto radius-quantile nodes as absolute speeds, and the speed draw
-  from it; :func:`sample_speeds`: the bilinear draw from the table itself.
+  from it (the draw rule's, :mod:`.core.draws`, named here too);
+  :func:`sample_speeds`: the bilinear draw from the table itself.
 * :class:`VirialEquilibrium`: one collisionless component of a
   :class:`~.model.cluster_model.ClusterModel`, with its DF, its virial
   check and its cached speed tables, all on the model's device.
@@ -36,7 +37,7 @@ import torch
 from .core import compiled
 from .core.config import cgparams
 from .core.device import host_to_device
-from .core.draws import node_index, uniform
+from .core.draws import sample_speeds_joint, uniform
 from .core.grid import linspace
 from .core.interp import (_gather, bracket_indices, cubic_spline,
                           interp_monotone, spline_eval, spline_eval_uniform)
@@ -271,32 +272,6 @@ def build_joint_speed_pairs(rr, psi_grid, row_ee, s_inv, r_q,
     w = torch.clamp((psi_q - e0) / (e1 - e0), 0.0, 1.0).to(dtype)
     srow = _banded_row_lerp(s_inv.to(dtype), j, w)
     return srow * torch.sqrt(2.0 * psi_q).to(dtype)[..., None]
-
-
-def sample_speeds_joint(joint, kq, wq, generator=None, uniforms=None):
-    """Speed draw from a joint table (..., RQ, n_q) of
-    :func:`build_joint_speed_pairs`.
-
-    ``kq``/``wq``: each particle's radius-quantile index and fractional
-    weight, (..., n).  The table row is picked between the two nodes
-    bracketing the radius by a Bernoulli draw on ``wq``; the speed is the
-    lerp along the quantile axis.  ``uniforms``: ``(u_quantile, u_row)``,
-    else two draws from ``generator``.
-    """
-    dtype = joint.dtype
-    n_q = joint.shape[-1]
-    if uniforms is None:
-        uq = uniform(generator, kq.shape, dtype, joint.device)
-        ub = uniform(generator, kq.shape, dtype, joint.device)
-    else:
-        uq, ub = uniforms
-    # m <= n_q - 2, so m + 1 never spills into the next radius row of the
-    # flattened table
-    m, wm = node_index(uq * (n_q - 1), n_q)
-    k_row = kq + (ub < wq.to(dtype)).to(torch.int64)
-    flat = joint.reshape(joint.shape[:-2] + (-1,))
-    idx = k_row * n_q + m
-    return ((1.0 - wm) * _gather(flat, idx) + wm * _gather(flat, idx + 1))
 
 
 def sample_speeds(radius, psi_p, ee, s_inv, generator=None, uniforms=None):

@@ -24,6 +24,7 @@ from cluster_generator_tpu_torch.ops.abel import (
     abel_g_rows,
     abel_g_rows_plain,
 )
+from cluster_generator_tpu_torch.ops import draw_particles as D
 from cluster_generator_tpu_torch.ops.cdf_inverse import (
     invert_cdf_rows,
     invert_cdf_rows_plain,
@@ -317,6 +318,138 @@ def test_datagen_batch_launches_k1_twice_and_stays_finite():
     assert sum(E.nonfinite_counts(out).values()) == 0
 
 
+def _same_bits(a, b):
+    """Two tensor trees with the same leaves, dtypes and bits (-0.0 and
+    NaN included)."""
+    la, lb = C._leaves(a), C._leaves(b)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32 if t.element_size() == 4
+                                   else torch.int64)
+
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
+_DRAWS = {"collisionless": (D.draw_collisionless, D.draw_collisionless_plain),
+          "gas": (D.draw_gas, D.draw_gas_plain)}
+
+
+def _check_draw_case(name, kind, args, r_a):
+    """One launch, the plain version's bits, the same bits on a second
+    launch."""
+    wrap, plain = _DRAWS[kind]
+    extra = (r_a,) if kind == "collisionless" else ()
+    before = wrap.launches
+    got = wrap(*args, *extra)
+    torch.cuda.synchronize()
+    assert wrap.launches == before + 1, name
+    assert all(t.is_cuda for t in got), name
+    assert _same_bits(got, plain(*args, *extra)), name
+    assert _same_bits(got, wrap(*args, *extra)), name
+
+
+@pytest.mark.cuda
+def test_draw_kernel_is_bit_identical_at_the_path_shapes():
+    """The datagen draws as the program calls them on the card: cfg5c's
+    batch of 256 (DM 5e4 on a 2048 x 512 joint table, stars 1e4 on
+    512 x 256, gas 4e4 on 2048 nodes and a 512-point grid), the batch of
+    64 at 1e6 a cluster, and the Osipkov-Merritt DM batch of 256: the
+    plain version's bits on each."""
+    _card()
+    cases = chip_smoke.draw_path_cases(E)
+    shapes = {(name, tuple(a[0][0].shape), a[1].shape[-1], a[3].shape[-1])
+              for name, _, a, _ in cases}
+    assert {("datagen_dm", (256, 50_000), 2048, 512),
+            ("datagen_star", (256, 10_000), 512, 256),
+            ("datagen_gas", (256, 40_000), 2048, 512),
+            ("datagen_b64_dm", (64, 500_000), 2048, 512),
+            ("datagen_b64_star", (64, 100_000), 512, 256),
+            ("datagen_b64_gas", (64, 400_000), 2048, 512),
+            ("datagen_om_dm", (256, 50_000), 2048, 512)} <= shapes
+    for case in cases:
+        _check_draw_case(*case)
+
+
+@pytest.mark.cuda
+def test_draw_kernel_at_the_edge_uniforms():
+    """Uniforms at 0 and one ulp below 1 and cos_theta at -1, counts no
+    multiple of a block and under one, one cluster, the fewest nodes, many
+    blocks a cluster; each collisionless case also Osipkov-Merritt; the
+    plain version's bits on each."""
+    _card()
+    for case in chip_smoke.draw_edge_cases(torch.device("cuda")):
+        _check_draw_case(*case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [True, False], ids=["full", "dm_only"])
+def test_datagen_batches_keep_the_torch_chains_bits(full, monkeypatch):
+    """cfg5c's program at B = 32 (512 points; DM 2048 radius nodes and a
+    512-quantile joint table, stars 512 and 256, gas 2048): eager, at the
+    capture and replayed, each batch equals bit for bit the batch drawn by
+    the torch chain (the plain versions patched in); a full-species call
+    launches the draw kernel three times (dm and stars, then gas), the
+    DM-only program (``_datagen_batch_fn``) once."""
+    _card()
+    dev = "cuda"
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    M, c = E.sample_ensemble_params(gen(9), 96)
+    counts = (5000, 4000, 1000) if full else (5000, 0, 0)
+    prog = E._datagen_full_batch_fn(512, *counts)
+    call = prog if full else E._datagen_batch_fn(512, counts[0])
+
+    def eager(k):
+        sl = slice(32 * k, 32 * k + 32)
+        out = prog.run(M[sl], c[sl], None, prog.uniforms(32, gen(k), dev))
+        return out if full else out["dm"]
+
+    monkeypatch.setattr(E, "draw_collisionless", D.draw_collisionless_plain)
+    monkeypatch.setattr(E, "draw_gas", D.draw_gas_plain)
+    want = [eager(k) for k in range(3)]
+    monkeypatch.undo()
+    C.clear()
+    n_c, n_g = (2, 1) if full else (1, 0)
+    for k in range(3):
+        sl = slice(32 * k, 32 * k + 32)
+        before = (D.draw_collisionless.launches, D.draw_gas.launches)
+        out = call(M[sl], c[sl], gen(k))
+        torch.cuda.synchronize()
+        assert (D.draw_collisionless.launches - before[0],
+                D.draw_gas.launches - before[1]) == (n_c, n_g), k
+        assert _same_bits(out, want[k]), k
+        assert _same_bits(eager(k), want[k]), k
+    nodes = C.programs()[-1].nodes
+    assert (nodes.get(D.draw_collisionless), nodes.get(D.draw_gas, 0)) == \
+        (n_c, n_g)
+    C.clear()
+
+
+@pytest.mark.cuda
+def test_draw_wrappers_refuse_float64_mixed_devices_and_non_contiguous():
+    _card()
+    cases = chip_smoke.draw_edge_cases(torch.device("cuda"))
+    u, r_q, v_esc, joint = cases[0][2]
+    g = cases[2][2]
+    before = (D.draw_collisionless.launches, D.draw_gas.launches)
+    with pytest.raises(TypeError, match="float32"):
+        D.draw_collisionless(u, r_q, v_esc.double(), joint)
+    with pytest.raises(TypeError, match="float32"):
+        D.draw_gas(g[0], g[1], g[2], g[3].double())
+    with pytest.raises(ValueError, match="is on cpu"):
+        D.draw_collisionless(u, r_q, v_esc, joint.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        D.draw_gas((g[0][0], (g[0][1][0].cpu(), g[0][1][1])), g[1], g[2],
+                   g[3])
+    with pytest.raises(ValueError, match="contiguous"):
+        D.draw_collisionless((u[0].t().contiguous().t(),) + u[1:], r_q,
+                             v_esc, joint)
+    with pytest.raises(ValueError, match="contiguous"):
+        D.draw_gas(g[0], g[1], g[2].t().contiguous().t(), g[3])
+    assert (D.draw_collisionless.launches, D.draw_gas.launches) == before
+
+
 @pytest.mark.cuda
 def test_class_path_on_the_card_against_the_cpu():
     """The single-cluster class path at a small size: every tensor on the
@@ -574,8 +707,10 @@ def test_capture_and_replays_equal_the_eager_body(program):
         assert _equal(out, eager(k)), k
     prog_ = C.programs()[-1]
     assert prog_.graph is not None
-    assert prog_.nodes == {invert_cdf_rows: 2, speed_cdf_rows_f32: 2,
-                           abel_g_rows: 2}
+    want_nodes = {invert_cdf_rows: 2, speed_cdf_rows_f32: 2, abel_g_rows: 2}
+    if program == "datagen":  # the draw kernel: dm and stars, then gas
+        want_nodes.update({D.draw_collisionless: 2, D.draw_gas: 1})
+    assert prog_.nodes == want_nodes
     assert _equal(held, snap)
 
 

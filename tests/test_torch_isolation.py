@@ -166,7 +166,8 @@ core.logging core.profiling core.quadrature core.staging core.units
 data_structures fields fields.grf frontend frontend.api
 frontend.data_structures frontend.fields frontend.io ics model
 model.builders model.cluster_model
-model.gravity ops ops.abel ops.build ops.cdf_inverse ops.native ops.speed_cdf
+model.gravity ops ops.abel ops.build ops.cdf_inverse ops.draw_particles
+ops.native ops.speed_cdf
 parallel
 parallel.dryrun parallel.ensemble parallel.export parallel.fft
 parallel.fields parallel.mergers parallel.mesh parallel.qa particles pipeline
