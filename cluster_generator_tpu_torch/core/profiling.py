@@ -8,13 +8,16 @@ statistics.
 * :func:`device_stage`: marks where a stage of a program body begins and
   ends on the card's stream, by an empty kernel named after the stage
   (``cg_stage_models``, ``cg_stage_dfs``, ``cg_stage_tables``,
-  ``cg_stage_draws``, ``cg_stage_mix``, ``cg_stage_export``,
-  ``cg_stage_end``; ``ops/csrc/stage_marks.cu``).  Inside a captured
+  ``cg_stage_draws``, ``cg_stage_mix``, ``cg_stage_export``, the random
+  fields' ``cg_stage_noise``, ``cg_stage_fft`` and ``cg_stage_kspace``,
+  and ``cg_stage_end``; ``ops/csrc/stage_marks.cu``).  Inside a captured
   program the marks are recorded into the graph, so a device trace of a
   replay splits its kernels by stage, where :func:`stage` sees only the
   whole replay; eager paths (the class path, an IC scene) mark the same
   way around their program calls, and :func:`device_sequence` makes the
   stages of a whole product (one IC) one sequence closed by one ``end``;
+  :func:`device_mark` opens a stage that the next mark closes (a field's
+  white noise, drawn on the stream just before its program's replay);
 * :func:`span`: a named range of host work on the profiler's clock, the
   timeline of the card's kernels and copies, recorded only while a
   profiler runs (one flag check otherwise);
@@ -40,11 +43,14 @@ import torch.autograd.profiler as _autograd_profiler
 from .logging import mylog
 
 __all__ = ["stage", "StageTimes", "device_stage", "device_sequence",
-           "STAGES", "span", "trace", "device_memory_stats"]
+           "device_mark", "STAGES", "span", "trace", "device_memory_stats"]
 
-#: the stages a program body or an eager path marks, in the order of the
-#: mark kernels' C entry point (``cg_stage_mark``), ``end`` last
-STAGES = ("models", "dfs", "tables", "draws", "mix", "export", "end")
+#: the stages a program body or an eager path marks, and ``end``, in the
+#: order of the mark kernels' C entry point (``cg_stage_mark``): the
+#: random fields' stages after ``end``, so that the others keep their
+#: numbers
+STAGES = ("models", "dfs", "tables", "draws", "mix", "export", "end",
+          "noise", "fft", "kspace")
 
 
 @dataclass
@@ -139,6 +145,16 @@ def _mark_kernel():
     return fn
 
 
+def _stage_name(name: str) -> str:
+    """``name`` if it is a stage that can be marked (any of
+    :data:`STAGES` but ``end``), else a ``ValueError``."""
+    if name == "end" or name not in STAGES:
+        raise ValueError(f"stage must be one of "
+                         f"{tuple(s for s in STAGES if s != 'end')}, got "
+                         f"{name!r}")
+    return name
+
+
 def _mark(name: str, device: torch.device) -> None:
     """Launch the mark kernel of stage ``name`` on ``device``'s current
     stream (recorded into the graph while one is captured there); on any
@@ -156,7 +172,7 @@ def _mark(name: str, device: torch.device) -> None:
 
 @contextlib.contextmanager
 def device_stage(name: str, like: torch.Tensor):
-    """Mark stage ``name`` (one of :data:`STAGES` but ``end``) of the work
+    """Mark stage ``name`` (any of :data:`STAGES` but ``end``) of the work
     enqueued inside, on the current stream of ``like``'s card.
 
     Entering marks ``name``; leaving marks the enclosing stage again,
@@ -169,8 +185,7 @@ def device_stage(name: str, like: torch.Tensor):
     inside a program's capture it becomes a node of the graph, which each
     replay runs with no host call.  On the CPU nothing is launched.  A
     stage left by an exception marks nothing more."""
-    if name not in STAGES[:-1]:
-        raise ValueError(f"stage must be one of {STAGES[:-1]}, got {name!r}")
+    _stage_name(name)
     device = like.device
     stack = _open_stages()
     _mark(name, device)
@@ -187,6 +202,17 @@ def _close(stack, device):
     outer = stack[-1] if stack else "end"
     if outer is not None:
         _mark(outer, device)
+
+
+def device_mark(name: str, like: torch.Tensor) -> None:
+    """Mark the start of stage ``name`` (any of :data:`STAGES` but
+    ``end``) on the current stream of ``like``'s card, handing nothing
+    back: the next mark closes it.  For work enqueued just before a
+    program's replay, outside its graph, whose body's first mark follows
+    it on the stream: a field's white noise, drawn into the program's
+    buffer before each replay, is stage ``noise`` up to the body's first
+    transform.  On the CPU nothing is launched."""
+    _mark(_stage_name(name), like.device)
 
 
 @contextlib.contextmanager

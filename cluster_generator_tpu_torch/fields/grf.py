@@ -26,6 +26,13 @@ are its key; the wavenumbers, the halo profiles and every float are
 inputs, and the white noise is drawn into the program's buffer from the
 caller's generator before each replay.  The trilinear sampling of a field
 at particle positions is a program too.
+
+Stage marks (:mod:`..core.profiling`): the noise draw marks ``noise``
+(eagerly, before the replay), and each route's body marks its transforms
+``fft`` and the arithmetic between them ``kspace`` as one sequence closed
+by ``end``: noise, fft, kspace, fft, end for the constant-rms route.  The
+host's set-up of a field (wavenumbers, coordinates, the wave vector's copy
+to the device, the generator) is the span ``cg.host.inputs``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from ..core import compiled
 from ..core.device import host_to_device, resolve_device
 from ..core.interp import interp
 from ..core.logging import mylog
+from ..core.profiling import device_mark, device_sequence, device_stage, span
+from ..core.staging import to_host
 from ..sampling import parse_prng
 
 __all__ = ["ClusterField", "GaussianRandomField", "RandomMagneticField",
@@ -170,6 +179,7 @@ def _noise_drawer(noise, gen, shape, dtype, device, spectra=False):
         if out is None:
             out = torch.empty(size, dtype=dtype, device=device)
         head = _head(out, shape[1:])
+        device_mark("noise", out)
         if noise is None:
             head.normal_(generator=g)
         else:
@@ -261,7 +271,23 @@ def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
     One program (JAX ``_grf_core_fused`` and its staged rfft route) keyed
     by the shape, the dtype and the two switches; ``waves``
     (:func:`_wave_vector`), ``k0``, ``k1``, ``alpha`` and ``g_rms`` are
-    inputs, so an ``l_min`` or ``g_rms`` sweep replays it."""
+    inputs, so an ``l_min`` or ``g_rms`` sweep replays it.  Marks: fft,
+    kspace, fft, end."""
+    with device_sequence(noise.device):
+        with device_stage("fft", noise):
+            W = _rfftn_in_place(noise, shape)
+        with device_stage("kspace", noise):
+            _kspace(W, waves, k0, k1, alpha, g_rms, shape, dtype, div_clean,
+                    vec_pot)
+        with device_stage("fft", noise):
+            field = _irfftn_in_place(noise, shape)
+    return field
+
+
+def _kspace(W, waves, k0, k1, alpha, g_rms, shape, dtype, div_clean,
+            vec_pot):
+    """The k-space pass of :func:`_constant_rms_field` on the half spectra
+    ``W``, in place, slab by slab along x."""
     nx, ny, nz = shape
     n_cells = nx * ny * nz
     # the shaping in float64, the rest at the field's real dtype: a float64
@@ -271,8 +297,6 @@ def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
     k_odd = [k.to(dtype) for k in k_odd]
     k_sq = [k.to(dtype) ** 2 for k in k64]
     slabs = _chunks(nx, ny * (nz // 2 + 1))
-
-    W = _rfftn_in_place(noise, shape)
 
     def power(ws):
         return sum((_plane_power(w) * wz).sum() for w in ws)
@@ -315,7 +339,6 @@ def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
                 w[s].mul_(rescale)
             if vec_pot:
                 potential(s)
-    return _irfftn_in_place(noise, shape)
 
 
 def _unit_rms_field(noise, shape, k, k0, k1, alpha):
@@ -324,17 +347,24 @@ def _unit_rms_field(noise, shape, k, k0, k1, alpha):
     kx, ky, kz = k
     sigma = _spectrum_sigma(torch.sqrt(kx**2 + ky**2 + kz**2), k0, k1, alpha,
                             noise.dtype)
-    g = [torch.fft.irfftn(torch.fft.rfftn(noise[c]) * sigma, s=shape)
-         for c in range(3)]
+    g = [_fft(torch.fft.irfftn, _fft(torch.fft.rfftn, noise[c]) * sigma,
+              s=shape) for c in range(3)]
     g_avg = torch.sqrt(torch.mean(g[0]**2 + g[1]**2 + g[2]**2))
     return tuple(x / g_avg for x in g)
+
+
+def _fft(transform, x, **kw):
+    """``transform(x, **kw)`` as stage ``fft``, handing back to the stage
+    around it (the radial route's ``kspace``)."""
+    with device_stage("fft", x):
+        return transform(x, **kw)
 
 
 def _transform(g, shape, mul):
     """The inverse transforms of ``mul`` applied to the half spectra of
     the components ``g``."""
-    W = [torch.fft.rfftn(c) for c in g]
-    return [torch.fft.irfftn(w, s=shape) for w in mul(*W)]
+    W = [_fft(torch.fft.rfftn, c) for c in g]
+    return [_fft(torch.fft.irfftn, w, s=shape) for w in mul(*W)]
 
 
 @compiled.function(static=("shape", "dtype", "div_clean", "vec_pot"),
@@ -351,33 +381,37 @@ def _radial_field(waves, x, y, z, halos, r_max, k0, k1, alpha, shape, dtype,
     r, g)``, the centre three floats and the profile's radii and values;
     ``r_max`` clamps the radii (``None``: no clamp).  The key holds the
     number of halos, each profile's length and whether ``r_max`` is None;
-    the centres, profiles and ``r_max`` are inputs."""
-    k64, kd, k_odd, _ = _unpack_waves(waves, shape)
-    g = _unit_rms_field(_head(noise, shape), shape, k64, k0, k1, alpha)
-    X, Y, Z = x[:, None, None], y[None, :, None], z[None, None, :]
-    g2sum = torch.zeros(shape, dtype=dtype, device=x.device)
-    for ctr, rprof, gprof in halos:
-        rr = torch.sqrt((X - ctr[0]) ** 2 + (Y - ctr[1]) ** 2
-                        + (Z - ctr[2]) ** 2)
-        if r_max is not None:
-            rr = torch.clamp_max(rr, r_max)
-        g2sum = g2sum + interp(rr, rprof, gprof).to(dtype) ** 2
-    scale = torch.sqrt(g2sum)
-    g = [c * scale for c in g]
-    if div_clean:
-        # keep <g^2> through the projection; the wavenumbers at the
-        # field's real dtype (a float64 operand would promote complex64
-        # spectra to complex128)
-        power = sum(torch.sum(c**2) for c in g)
-        kd = [k.to(dtype) for k in kd]
-        g = _transform(g, shape, lambda *W: _div_clean_k(*W, *kd))
-        rescale = torch.sqrt(power / sum(torch.sum(c**2) for c in g))
-        g = [c * rescale for c in g]
-    if vec_pot:
-        k_odd = [k.to(dtype) for k in k_odd]
-        k2 = sum(k.to(dtype) ** 2 for k in k64)
-        g = _transform(g, shape, lambda *W: _vector_potential_k(*W, *k_odd,
-                                                                k2))
+    the centres, profiles and ``r_max`` are inputs.
+
+    Marks: the arithmetic as ``kspace``, each transform as ``fft`` inside
+    it, the sequence closed by ``end``."""
+    with device_sequence(x.device), device_stage("kspace", x):
+        k64, kd, k_odd, _ = _unpack_waves(waves, shape)
+        g = _unit_rms_field(_head(noise, shape), shape, k64, k0, k1, alpha)
+        X, Y, Z = x[:, None, None], y[None, :, None], z[None, None, :]
+        g2sum = torch.zeros(shape, dtype=dtype, device=x.device)
+        for ctr, rprof, gprof in halos:
+            rr = torch.sqrt((X - ctr[0]) ** 2 + (Y - ctr[1]) ** 2
+                            + (Z - ctr[2]) ** 2)
+            if r_max is not None:
+                rr = torch.clamp_max(rr, r_max)
+            g2sum = g2sum + interp(rr, rprof, gprof).to(dtype) ** 2
+        scale = torch.sqrt(g2sum)
+        g = [c * scale for c in g]
+        if div_clean:
+            # keep <g^2> through the projection; the wavenumbers at the
+            # field's real dtype (a float64 operand would promote complex64
+            # spectra to complex128)
+            power = sum(torch.sum(c**2) for c in g)
+            kd = [k.to(dtype) for k in kd]
+            g = _transform(g, shape, lambda *W: _div_clean_k(*W, *kd))
+            rescale = torch.sqrt(power / sum(torch.sum(c**2) for c in g))
+            g = [c * rescale for c in g]
+        if vec_pot:
+            k_odd = [k.to(dtype) for k in k_odd]
+            k2 = sum(k.to(dtype) ** 2 for k in k64)
+            g = _transform(g, shape, lambda *W: _vector_potential_k(*W, *k_odd,
+                                                                    k2))
     return tuple(g)
 
 
@@ -475,16 +509,16 @@ class ClusterField:
                           "It exists and overwrite=False.")
         all_comps = ["x", "y", "z"] + self.comps
 
-        def host(field):
-            fd, unit = self._output_value(field, length_unit, field_unit)
-            return fd.cpu().numpy(), unit
+        # every array to the host in one pinned copy (views on the CPU)
+        values = [self._output_value(field, length_unit, field_unit)
+                  for field in all_comps]
+        arrays = to_host([fd for fd, _ in values])
 
         if format == "hdf5":
             import h5py
 
             with h5py.File(filename, "w") as f:
-                for field in all_comps:
-                    fd, unit = host(field)
+                for field, fd, (_, unit) in zip(all_comps, arrays, values):
                     d = f.create_dataset(field, data=fd)
                     d.attrs["units"] = unit
                 f.attrs["name"] = self._name
@@ -496,9 +530,8 @@ class ClusterField:
 
             with FortranFile(filename, "w") as f:
                 f.write_record(int(self.x.numel()))
-                for field in all_comps:
-                    f.write_record(np.asarray(host(field)[0],
-                                              dtype=np.float64))
+                for fd in arrays:
+                    f.write_record(np.asarray(fd, dtype=np.float64))
         else:
             raise ValueError(f"Unknown format {format}")
 
@@ -594,8 +627,6 @@ class GaussianRandomField(ClusterField):
                          vector_potential=vector_potential,
                          divergence_clean=divergence_clean, dtype=dtype,
                          device=device)
-        gen = None if noise is not None else parse_prng(prng, self.device)
-
         shape = tuple(int(n) for n in self.ddims)
         # halo slots bind by POSITION: each slot is validated whole, so a
         # partly given slot raises instead of dropping a halo
@@ -623,13 +654,18 @@ class GaussianRandomField(ClusterField):
         k1 = 2.0 * np.pi / float(parse_value(l_max, "kpc"))
 
         mylog.info("Setting up the Gaussian random fields.")
-        kx, ky, kz = self._compute_waves()
-        self.x, self.y, self.z = self._compute_coords()
-
-        waves = host_to_device(_wave_vector((kx, ky, kz), self.deltas),
-                               self.device)
-        noise = _noise_drawer(noise, gen, shape, self.dtype, self.device,
-                              spectra=not ctrs)
+        with span("cg.host.inputs"):
+            gen = None if noise is not None else parse_prng(prng,
+                                                            self.device)
+            kx, ky, kz = self._compute_waves()
+            self.x, self.y, self.z = self._compute_coords()
+            waves = host_to_device(_wave_vector((kx, ky, kz), self.deltas),
+                                   self.device)
+            noise = _noise_drawer(noise, gen, shape, self.dtype, self.device,
+                                  spectra=not ctrs)
+            halos = [(tuple(float(c) for c in ctr),
+                      _on_device(r, self.device), _on_device(g, self.device))
+                     for ctr, r, g in zip(ctrs, rs, gs)]
         statics = dict(shape=shape, dtype=self.dtype,
                        div_clean=bool(self.divergence_clean),
                        vec_pot=bool(self.vector_potential), noise=noise)
@@ -646,9 +682,6 @@ class GaussianRandomField(ClusterField):
             mylog.info("Perform divergence cleaning.")
         if self.vector_potential:
             mylog.info("Compute vector potential.")
-        halos = [(tuple(float(c) for c in ctr), _on_device(r, self.device),
-                  _on_device(g, self.device)) for ctr, r, g in zip(ctrs, rs,
-                                                                   gs)]
         if r_max is not None:
             r_max = float(parse_value(r_max, "kpc"))
         self.gx, self.gy, self.gz = _radial_field(

@@ -20,9 +20,12 @@ extern "C" __global__ void cg_stage_draws() {}
 extern "C" __global__ void cg_stage_mix() {}
 extern "C" __global__ void cg_stage_export() {}
 extern "C" __global__ void cg_stage_end() {}
+extern "C" __global__ void cg_stage_noise() {}
+extern "C" __global__ void cg_stage_fft() {}
+extern "C" __global__ void cg_stage_kspace() {}
 
 // Launch the mark `which` (0 models, 1 dfs, 2 tables, 3 draws, 4 mix,
-// 5 export, 6 end; core/profiling.STAGES) on
+// 5 export, 6 end, 7 noise, 8 fft, 9 kspace; core/profiling.STAGES) on
 // `stream` of the current device; returns the cudaError_t of the launch.
 extern "C" int cg_stage_mark(int which, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -34,6 +37,9 @@ extern "C" int cg_stage_mark(int which, void* stream) {
     case 4: cg_stage_mix<<<1, 1, 0, s>>>(); break;
     case 5: cg_stage_export<<<1, 1, 0, s>>>(); break;
     case 6: cg_stage_end<<<1, 1, 0, s>>>(); break;
+    case 7: cg_stage_noise<<<1, 1, 0, s>>>(); break;
+    case 8: cg_stage_fft<<<1, 1, 0, s>>>(); break;
+    case 9: cg_stage_kspace<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

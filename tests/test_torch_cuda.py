@@ -1214,3 +1214,86 @@ def test_searched_brackets_leave_the_datagen_tables_bit_for_bit(monkeypatch):
         assert _equal(outs[k], want[k]), k
     assert names and not any("ReduceOp<long" in n for n in names)
     C.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["B", "A"])
+def test_a_field_program_replays_its_eager_body_with_its_marks(kind,
+                                                               monkeypatch):
+    """The cell ``field-512``'s two programs at a small float64 grid: the
+    capture and two replays, each with a seed of its own, equal their
+    eager bodies bit for bit; a replay under the profiler's device activity
+    runs the marks noise, fft, kspace, fft, end, of which the host launches
+    only the noise draw's (the rest are the graph's nodes); the stages hold
+    at least 85% of the call's device work other than its output copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cluster_generator_tpu_torch import fields as F
+    from cluster_generator_tpu_torch.core import profiling
+    from portbench.yardstick import stages as S
+    from portbench.yardstick import trace as T
+
+    _card()
+    dev = "cuda"
+    cls = {"B": F.RandomMagneticField,
+           "A": F.RandomMagneticVectorPotential}[kind]
+    C.clear()
+
+    def call(k):
+        f = cls([-1000.0] * 3, [1000.0] * 3, (128, 112, 96), 50.0, 500.0,
+                1e-6, padding=0.0,
+                prng=torch.Generator(device=dev).manual_seed(k), device=dev)
+        return f.gx, f.gy, f.gz
+
+    got = [call(k) for k in range(2)]
+    torch.cuda.synchronize()
+    launched = []
+    mark = profiling._mark
+    monkeypatch.setattr(profiling, "_mark", lambda name, device: (
+        launched.append(name), mark(name, device)))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got.append(call(2))
+        torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert launched == ["noise"]
+    ev = [e for e in T.events_of(prof) if e.kind in T.DEVICE_KINDS]
+    window = T.extent(ev)
+    assert [s for _, s in S.marks(ev, window)] == [
+        "noise", "fft", "kspace", "fft", "end"]
+    stages = S.stage_us(ev, window)
+    assert set(stages) == {"noise", "fft", "kspace"}
+    work = T.busy_us([e for e in ev if S.stage_of(e.name) is None and not (
+        e.kind == "gpu_memcpy" and "DtoH" in e.name)], window)
+    assert 0.85 * work <= sum(us for us, _ in stages.values()) <= work
+    assert all(p.graph is not None for p in C.programs())
+    for k in range(3):
+        with C.eager():
+            want = call(k)
+        assert _equal(got[k], want), k
+    C.clear()
+
+
+@pytest.mark.cuda
+def test_the_references_noise_redraw_on_the_card_is_the_programs_draw():
+    """The cell's reference redraws a call's normals on the card from the
+    call's seed (``portbench/reference/field.py``): the same numbers as the
+    program's draw into its buffer, at the cell's own 512^3 grid."""
+    import json
+
+    from cluster_generator_tpu_torch.fields import grf
+    from portbench.reference import field as R
+
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs",
+                           "bfield-512.json")) as f:
+        cfg = json.load(f)
+    dims, _ = R.grid(cfg)
+    for seed in (0, 2**62 + 3):
+        draw = grf._noise_drawer(
+            None, torch.Generator(device="cuda").manual_seed(seed), dims,
+            torch.float64, "cuda", spectra=True)
+        got = grf._head(draw(None), dims)
+        assert torch.equal(got, R.noise(cfg, seed, "cuda")), seed
+        del draw, got
+    torch.cuda.empty_cache()
