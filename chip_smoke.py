@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero before the last line:
    every lane count; the datagen's draw kernel (one launch a species) bit
    for bit on its isotropic and Osipkov-Merritt paths, at the batches of
    256 and 64 and on edge uniforms, timed against its byte bound and its
-   plain version;
+   plain version; the fields' k-space kernel within 1e-13 of its plain
+   twin at 512^3 float64, a B and an A stage (events over repeated
+   launches, each pass's device time, the plain twin's time, its bound
+   and the benchmark yardstick's);
 4. drive the first main path, ``merger_ic_fused``, at the full
    1e7-particle binary-merger workload: one first run and three warm runs,
    then check counts, dtypes, finiteness, bulk velocities and that the
@@ -53,7 +56,8 @@ Phases, in order; any failure exits non-zero before the last line:
     (first run, three warm runs, peak memory) with its rms, divergence and
     spectrum checks, once at 1024^3 (the program's peak and the memory
     it holds after the call beside its eager body's), the vector
-    potential with the curl check at 128^3;
+    potential, the cell field-512's float64 B and A at 512^3 (each field
+    call one k-space kernel launch) and the curl check at 128^3;
 11. a float64 radial magnetic field over the merger IC (two class-path
     models, 282^3 with padding) attached to the 5e6 gas particles of the
     1e7-particle IC and mapped onto a ``ClusterParticles``; card against
@@ -358,6 +362,10 @@ ABEL_RTOL = 1e-12
 FIELD_RTOL = 1e-9   # float64 model fields, card vs CPU
 DF_RTOL = 1e-6      # DFs: the spline derivative amplifies roundoff
 TABLE_TOL = 5e-6    # float32 tables, card vs CPU
+# the fields' k-space kernel vs its plain twin, over each component's
+# largest |value|: the same float64 stage in another order (the rms scale
+# and the projection's rescale as one factor)
+KSPACE_RTOL = 1e-13
 
 
 class SmokeFailure(RuntimeError):
@@ -1085,6 +1093,75 @@ def check_draws(E, D):
         rows[name] = {"path_shape": name, "shape": shape, "ms": ms,
                       "device_ms": dev_ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": "bytes"}
+    return rows, max_err
+
+
+def check_kspace(G, KS):
+    """The fields' k-space kernel against its plain twin on the card at the
+    cell field-512's grid (512^3 float64), the stage of a B (divergence
+    cleaned) and of an A (its vector potential): max |kernel - plain| over
+    each component's largest |plain| within ``KSPACE_RTOL``, events over
+    repeated launches, the device time of each pass, the plain twin's
+    time, the kernel's bound (the spectra read twice and written once) and
+    the benchmark yardstick's (read once, written once); returns the timing
+    rows by name and the largest error."""
+    from portbench.yardstick import field_bytes
+
+    dev = torch.device("cuda")
+    shape = (FIELD_DIMS,) * 3
+    f = G.ClusterField(FIELD_LE, FIELD_RE, shape, padding=0.0, device=dev)
+    waves = torch.from_numpy(G._wave_vector(f._compute_waves(),
+                                            f.deltas)).to(dev)
+    floats = [torch.tensor(v, dtype=torch.float64, device=dev) for v in (
+        2 * math.pi / FIELD_L[0], 2 * math.pi / FIELD_L[1], -11.0 / 3.0,
+        FIELD_B_RMS)]
+    gen = torch.Generator(device=dev).manual_seed(FIELD_SEED)
+    half = (FIELD_DIMS, FIELD_DIMS, FIELD_DIMS // 2 + 1)
+    least = field_bytes.kspace_bytes(shape, 8)
+    bound = 1.5 * least / HBM_BYTES_PER_S * 1e3
+    yard = least / HBM_BYTES_PER_S * 1e3
+    rows, max_err = {}, 0.0
+    for name, switches in (("B", (True, False)), ("A", (True, True))):
+        W = [torch.randn(half, dtype=torch.complex128, device=dev,
+                         generator=gen) for _ in range(3)]
+        want = [w.clone() for w in W]
+
+        def kernel(W=W, switches=switches):
+            KS.grf_kspace(W, waves, *floats, shape, torch.float64, *switches)
+
+        KS.grf_kspace.launches = 0
+        kernel()
+        G._kspace(want, waves, *floats, shape, torch.float64, *switches)
+        sync()
+        check(KS.grf_kspace.launches == 1,
+              f"k-space {name}: {KS.grf_kspace.launches} launches")
+        err = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(W, want))
+        max_err = max(max_err, err)
+        check(err <= KSPACE_RTOL, f"k-space {name}: {err} > {KSPACE_RTOL}")
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(lambda: G._kspace(
+            want, waves, *floats, shape, torch.float64, *switches), 3)
+        _, events, _ = kernel_profile(kernel)
+        passes = {p: sum(e.dur_us for e in events
+                         if f"grf_kspace_{p}_kernel" in e.name) / 1e3
+                  for p in ("power", "apply")}
+        dev_ms = sum(passes.values())
+        print(f"k-space {name} {FIELD_DIMS}^3 float64: max |kernel - plain| "
+              f"/ max|plain| = {err:.3e}; kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}: power {passes['power']:.4f}, apply "
+              f"{passes['apply']:.4f}; {dev_ms / bound:.2f}x its bound "
+              f"{bound:.4f} ms, {100 * yard / dev_ms:.1f}% of the "
+              f"yardstick's {yard:.4f} ms), plain {plain_ms:.3f} ms")
+        rows[name] = {"path_shape": f"field_{name}", "shape":
+                      "x".join(map(str, half)) + " x3 complex128",
+                      "max_rel_err": err, "ms": ms, "device_ms": dev_ms,
+                      "power_ms": passes["power"],
+                      "apply_ms": passes["apply"], "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": "bytes",
+                      "yardstick_bound_ms": yard}
+        del W, want
+    torch.cuda.empty_cache()
     return rows, max_err
 
 
@@ -1903,21 +1980,38 @@ def field_qa(f, g_rms, label, k_window=None):
     return rep
 
 
-def make_field(F, cls, dims, seed, **kw):
+def make_field(F, cls, dims, seed, dtype=torch.float32, **kw):
     return getattr(F, cls)(FIELD_LE, FIELD_RE, (dims,) * 3, *FIELD_L,
-                           FIELD_B_RMS, padding=0.0, prng=seed,
-                           dtype=torch.float32, device="cuda", **kw)
+                           FIELD_B_RMS, padding=0.0, prng=seed, dtype=dtype,
+                           device="cuda", **kw)
 
 
 def run_fields(F, card):
     """The constant-rms magnetic field at 512^3 and 1024^3 and its vector
     potential, float32, timed, with QA on the card (each a program: the
-    first call at a size captures)."""
+    first call at a size captures), then the cell field-512's float64 B and
+    A at 512^3; returns the fields' k-space kernel's launches by path, each
+    field call checked to launch it once."""
     from cluster_generator_tpu_torch.core import compiled as C
+    from cluster_generator_tpu_torch.ops.grf_kspace import grf_kspace
 
+    launches = {}
+
+    def field(path, cls, dims, seed, **kw):
+        """``make_field``'s field, the k-space kernel's count set to 0
+        before the call and read after it: one launch, added to
+        ``launches[path]``."""
+        grf_kspace.launches = 0
+        f = make_field(F, cls, dims, seed, **kw)
+        check(grf_kspace.launches == 1, f"{path}: a field launched the "
+              f"k-space kernel {grf_kspace.launches} times, want 1")
+        launches[path] = launches.get(path, 0) + 1
+        return f
+
+    b512 = "B_512_float32"
     torch.cuda.reset_peak_memory_stats()
-    f, first_s = timed(lambda: make_field(F, "RandomMagneticField",
-                                          FIELD_DIMS, FIELD_SEED))
+    f, first_s = timed(lambda: field(b512, "RandomMagneticField", FIELD_DIMS,
+                                     FIELD_SEED))
     peak = torch.cuda.max_memory_allocated() / 2**30
     # between 2 k1 and k0 / 2 the spectrum's log slope runs from -2.9 to
     # -4.0 (-11/3 with the outer-scale bend and the Gaussian cutoff)
@@ -1927,15 +2021,16 @@ def run_fields(F, card):
     del f
     warm = []
     for i in range(1, 4):
-        f, s = timed(lambda: make_field(F, "RandomMagneticField", FIELD_DIMS,
-                                        FIELD_SEED + i))
+        f, s = timed(lambda: field(b512, "RandomMagneticField", FIELD_DIMS,
+                                   FIELD_SEED + i))
         del f
         warm.append(s)
     wall_ms, kern, busy_ms = kernel_profile(
-        lambda: make_field(F, "RandomMagneticField", FIELD_DIMS, FIELD_SEED))
+        lambda: field(b512, "RandomMagneticField", FIELD_DIMS, FIELD_SEED))
     print(f"RandomMagneticField {FIELD_DIMS}^3 float32: first {first_s:.4f} s, "
           f"warm {[round(s, 4) for s in warm]} s, median "
-          f"{statistics.median(warm):.4f} s, peak memory {peak:.2f} GiB; "
+          f"{statistics.median(warm):.4f} s, peak memory {peak:.2f} GiB, "
+          f"k-space kernel launches {launches[b512]}; "
           f"profiled once: {wall_ms:.1f} ms, {len(kern)} kernel launches, "
           f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} [{card}]")
     print(f"field {FIELD_DIMS}^3 QA:", json.dumps(rep))
@@ -1943,9 +2038,8 @@ def run_fields(F, card):
     # the 1024^3 program beside the 512^3 one: the peak it adds, what it
     # holds after the call beyond the field it returned (its noise buffer
     # and pool), its QA with that held, then its eager body's peak
-    def big():
-        return make_field(F, "RandomMagneticField", FIELD_BIG_DIMS,
-                          FIELD_SEED)
+    def big(path="B_1024_float32"):
+        return field(path, "RandomMagneticField", FIELD_BIG_DIMS, FIELD_SEED)
 
     def held_beyond(f, base):
         sync()
@@ -1967,7 +2061,8 @@ def run_fields(F, card):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_reserved()
     with C.eager():
-        (f, eager_s), peak_eager = peak_added(lambda: timed(big))
+        (f, eager_s), peak_eager = peak_added(
+            lambda: timed(lambda: big("B_1024_float32_eager")))
     held_eager = held_beyond(f, base)
     del f
     print(f"RandomMagneticField {FIELD_BIG_DIMS}^3 float32 program: "
@@ -1978,18 +2073,40 @@ def run_fields(F, card):
           f"{held_eager:.2f} GiB [{card}]; QA:", json.dumps(rep))
 
     torch.cuda.reset_peak_memory_stats()
-    a, vp_first = timed(lambda: make_field(
-        F, "RandomMagneticVectorPotential", FIELD_DIMS, FIELD_SEED))
+    a, vp_first = timed(lambda: field(
+        "A_512_float32", "RandomMagneticVectorPotential", FIELD_DIMS,
+        FIELD_SEED))
     del a
-    a, vp_s = timed(lambda: make_field(
-        F, "RandomMagneticVectorPotential", FIELD_DIMS, FIELD_SEED + 1))
+    a, vp_s = timed(lambda: field(
+        "A_512_float32", "RandomMagneticVectorPotential", FIELD_DIMS,
+        FIELD_SEED + 1))
     peak = torch.cuda.max_memory_allocated() / 2**30
     rep = field_qa(a, None, f"vector potential {FIELD_DIMS}^3")
     del a
     print(f"RandomMagneticVectorPotential {FIELD_DIMS}^3 float32: first "
           f"{vp_first:.4f} s, again {vp_s:.4f} s, peak memory {peak:.2f} GiB "
           f"[{card}]; finite:", json.dumps(rep))
+
+    # the cell field-512's calls: B and A in float64 at 512^3, each with a
+    # generator seeded per call (the first call of each captures, the
+    # second replays)
+    for kind, cls in (("B", "RandomMagneticField"),
+                      ("A", "RandomMagneticVectorPotential")):
+        path, secs = f"{kind}_512_float64", []
+        for i in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(FIELD_SEED + i)
+            f, s = timed(lambda: field(path, cls, FIELD_DIMS, gen,
+                                       dtype=torch.float64))
+            secs.append(s)
+        rep = field_qa(f, FIELD_B_RMS if kind == "B" else None,
+                       f"{kind} {FIELD_DIMS}^3 float64")
+        del f
+        print(f"{cls} {FIELD_DIMS}^3 float64 (the cell field-512's call): "
+              f"first {secs[0]:.4f} s, again {secs[1]:.4f} s, k-space "
+              f"kernel launches {launches[path]} [{card}]; QA:",
+              json.dumps(rep))
     curl_check(F)
+    return launches
 
 
 def curl_check(F):
@@ -4869,6 +4986,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cluster_generator_tpu_torch as cg
     from cluster_generator_tpu_torch import fields as F
+    from cluster_generator_tpu_torch.fields import grf as G
     from cluster_generator_tpu_torch import pipeline as P
     from cluster_generator_tpu_torch import virial as V
     from cluster_generator_tpu_torch.core import compiled as C
@@ -4876,6 +4994,7 @@ def main() -> int:
     from cluster_generator_tpu_torch.ops import build
     from cluster_generator_tpu_torch.ops import cdf_inverse as K
     from cluster_generator_tpu_torch.ops import draw_particles as D
+    from cluster_generator_tpu_torch.ops import grf_kspace as KS
     from cluster_generator_tpu_torch.ops import speed_cdf as S
     from cluster_generator_tpu_torch.parallel import ensemble as E
     from cluster_generator_tpu_torch.parallel import mergers as MG
@@ -4896,6 +5015,7 @@ def main() -> int:
     speed, speed_err = check_speed_cdf(P, V, S, E)
     abel, abel_err = check_abel(P, V, A, E)
     draws, draws_err = check_draws(E, D)
+    kspace, kspace_err = check_kspace(G, KS)
 
     # launches of the speed-CDF kernel on the main paths, one beside each
     # of K1's: each float32 speed table launches both once; and of the
@@ -4979,7 +5099,7 @@ def main() -> int:
 
     device_agreement(P)
     grad = run_gradient(E)
-    run_fields(F, card)
+    kspace_launches = run_fields(F, card)
     run_radial_field(cg, F, P, card)
 
     from cluster_generator_tpu_torch import codes as CO
@@ -5082,6 +5202,17 @@ def main() -> int:
         **{k: draws["datagen_dm"][k] for k in
            ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         "shapes": list(draws.values()),
+    }, {
+        "name": "grf_kspace",
+        "route": "cuda",
+        "source": "cluster_generator_tpu_torch/ops/csrc/grf_kspace.cu",
+        "replaces": None,
+        "launches": sum(kspace_launches.values()),
+        "launches_by_path": kspace_launches,
+        "max_rel_err": kspace_err,
+        **{k: kspace["A"][k] for k in
+           ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "shapes": list(kspace.values()),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

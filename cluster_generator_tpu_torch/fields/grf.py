@@ -48,6 +48,7 @@ from ..core.interp import interp
 from ..core.logging import mylog
 from ..core.profiling import device_mark, device_sequence, device_stage, span
 from ..core.staging import to_host
+from ..ops.grf_kspace import grf_kspace
 from ..sampling import parse_prng
 
 __all__ = ["ClusterField", "GaussianRandomField", "RandomMagneticField",
@@ -55,9 +56,9 @@ __all__ = ["ClusterField", "GaussianRandomField", "RandomMagneticField",
            "RadialRandomMagneticVectorPotential", "RandomVelocityField",
            "RadialRandomVelocityField", "parse_value"]
 
-# the transforms and k-space arithmetic of the constant-rms route run on
-# slabs of at most this many half-spectrum entries, so that their
-# temporaries stay small beside the three spectra
+# the transforms of the constant-rms route (and its k-space arithmetic on
+# the CPU) run on slabs of at most this many half-spectrum entries, so
+# that their temporaries stay small beside the three spectra
 _SLAB = 1 << 24
 
 
@@ -263,10 +264,12 @@ def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
                         div_clean, vec_pot, noise):
     """The constant-rms field on half spectra: shaping, rms normalisation,
     divergence projection with its power-preserving rescale and the vector
-    potential in one k-space pass between 3 forward and 3 inverse
-    transforms, the k-space arithmetic slab by slab along x.  ``noise``:
-    the flat buffer of :func:`_noise_drawer` with room for the spectra;
-    the transforms run in place in it, and the field is its head.
+    potential in one k-space stage between 3 forward and 3 inverse
+    transforms (on the card one call of the hand-written kernel
+    :func:`..ops.grf_kspace.grf_kspace`, on the CPU :func:`_kspace` slab
+    by slab along x).  ``noise``: the flat buffer of :func:`_noise_drawer`
+    with room for the spectra; the transforms run in place in it, and the
+    field is its head.
 
     One program (JAX ``_grf_core_fused`` and its staged rfft route) keyed
     by the shape, the dtype and the two switches; ``waves``
@@ -277,8 +280,9 @@ def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
         with device_stage("fft", noise):
             W = _rfftn_in_place(noise, shape)
         with device_stage("kspace", noise):
-            _kspace(W, waves, k0, k1, alpha, g_rms, shape, dtype, div_clean,
-                    vec_pot)
+            stage = grf_kspace if noise.is_cuda else _kspace
+            stage(W, waves, k0, k1, alpha, g_rms, shape, dtype, div_clean,
+                  vec_pot)
         with device_stage("fft", noise):
             field = _irfftn_in_place(noise, shape)
     return field
@@ -287,7 +291,8 @@ def _constant_rms_field(waves, k0, k1, alpha, g_rms, shape, dtype,
 def _kspace(W, waves, k0, k1, alpha, g_rms, shape, dtype, div_clean,
             vec_pot):
     """The k-space pass of :func:`_constant_rms_field` on the half spectra
-    ``W``, in place, slab by slab along x."""
+    ``W``, in place, slab by slab along x: the CPU's route, and the plain
+    twin the card's kernel is held against."""
     nx, ny, nz = shape
     n_cells = nx * ny * nz
     # the shaping in float64, the rest at the field's real dtype: a float64

@@ -167,6 +167,7 @@ data_structures fields fields.grf frontend frontend.api
 frontend.data_structures frontend.fields frontend.io ics model
 model.builders model.cluster_model
 model.gravity ops ops.abel ops.build ops.cdf_inverse ops.draw_particles
+ops.grf_kspace
 ops.native ops.speed_cdf
 parallel
 parallel.dryrun parallel.ensemble parallel.export parallel.fft
